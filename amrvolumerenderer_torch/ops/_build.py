@@ -1,0 +1,103 @@
+"""Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
+
+Each kernel source under ``ops/csrc/`` exposes a plain C entry point, so
+it compiles in seconds without PyTorch's headers.  The shared library is
+built at first use into ``build/torch_kernels/`` beside the package,
+keyed by a hash of the source and the flags, and loaded once per process.
+A missing compiler or a failed build raises: there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from typing import Dict
+
+_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+BUILD_DIR = os.path.join(_ROOT, "build", "torch_kernels")
+
+# sm_90a keeps Hopper's wgmma/setmaxnreg available to later kernels.
+# -fmad=false: no multiply-add contraction, so the kernel rounds like the
+# plain PyTorch version (and the JAX reference) op for op.  Never
+# --use_fast_math: IEEE division and sqrt decide nearest-cell indices.
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
+]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C signature of each kernel's launch function
+_SIGNATURES = {
+    "tilemarch": ("avr_tilemarch_launch", [_P] * 13 + [_I] * 6 + [_F, _F, _I, _I, _P]),
+}
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+build_log: Dict[str, str] = {}  # name -> nvcc output of this process's build
+build_seconds: Dict[str, float] = {}  # name -> compile wall time (0 if cached)
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME:
+        path = os.path.join(CUDA_HOME, "bin", "nvcc")
+        if os.path.exists(path):
+            return path
+    path = shutil.which("nvcc")
+    if path is None:
+        raise RuntimeError(
+            "nvcc not found: the CUDA kernels need the CUDA toolkit "
+            "(set CUDA_HOME or put nvcc on PATH)"
+        )
+    return path
+
+
+def library_path(name: str) -> str:
+    """Where the built library for ``name`` lives (hash of source + flags)."""
+    with open(os.path.join(_CSRC, f"{name}.cu"), "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
+
+
+def build(name: str) -> str:
+    """Compile ``csrc/<name>.cu`` unless its hashed library exists."""
+    out = library_path(name)
+    if os.path.exists(out):
+        build_seconds.setdefault(name, 0.0)
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(_CSRC, f"{name}.cu")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    build_seconds[name] = time.perf_counter() - t0
+    build_log[name] = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed to build {name}.cu:\n{build_log[name]}"
+        )
+    os.replace(tmp, out)  # atomic: concurrent builders never see half a file
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built on first use."""
+    lib = _loaded.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(build(name))
+        fn_name, argtypes = _SIGNATURES[name]
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _loaded[name] = lib
+    return lib

@@ -1,0 +1,181 @@
+"""float32 arithmetic of the JAX reference, as XLA compiles it for the CPU.
+
+The port is held against the JAX package run on the CPU (Pallas interpret
+mode), and its golden rows were rendered there.  XLA:CPU does not round
+op for op like plain PyTorch:
+
+  * it contracts ``a * b + c`` into one fused multiply-add wherever the
+    product has a single use inside one fusion (LLVM's FMA combine);
+  * its float32 ``exp`` is a Cephes-style polynomial, not the libm one;
+  * its float32 ``rsqrt`` is two Newton steps seeded with the x86 rsqrt
+    estimate (``vrsqrtps``), which is a table of 12-bit values indexed by
+    the exponent parity and the top 10 mantissa bits.
+
+These helpers reproduce all three, so the tile-march plain version and
+the CUDA kernel (``csrc/tilemarch.cu``, which takes ``RSQRT_SEED`` as an
+argument) match the JAX reference bit for bit on the tested scenes
+(tests/test_torch_tilemarch.py).  The FMA sites were read off XLA's
+optimised LLVM IR of the interpret-mode kernel; each call site of
+``fma`` names one.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+Tensor = torch.Tensor
+
+# XLA's float32 exp: clamp, range reduction by ln 2 in two parts, a
+# degree-5 polynomial, scale by 2^n built from the exponent bits
+EXP_LO = float.fromhex("-0x1.5f3334p+6")
+EXP_HI = float.fromhex("0x1.633334p+6")
+LOG2E = float.fromhex("0x1.715476p+0")
+EXP_C1 = float.fromhex("0x1.63p-1")
+EXP_C2 = float.fromhex("-0x1.bd0106p-13")
+EXP_P = tuple(float.fromhex(h) for h in (
+    "0x1.a0d2cep-13", "0x1.6e879cp-10", "0x1.111210p-7",
+    "0x1.555382p-5", "0x1.555554p-3",
+)) + (0.5,)
+
+# x86 rsqrt estimate: [parity of the unbiased exponent][top 10 mantissa
+# bits] -> top 12 mantissa bits of the estimate, whose value lies in
+# [0.5, 1) for an input in [1, 4); the estimate scales exactly by 2^-k
+# for an input scaled by 4^k.  3 hex digits per entry.
+_SEED_HEX = (
+    "ffeffaff6ff2feefeafe6fe2fdefdafd6fd2fcefcbfc7fc3fbffbbfb7fb3faffabfa7fa4"
+    "fa0f9cf98f94f90f8cf89f85f81f7df79f76f72f6ef6af66f63f5ff5bf57f54f50f4cf48"
+    "f45f41f3df39f36f32f2ef2bf27f23f20f1cf18f15f11f0df0af06f02effefbef7ef4ef0"
+    "eedee9ee5ee2edeedbed7ed3ed0eccec9ec5ec2ebeebaeb7eb3eb0eacea9ea5ea2e9ee9b"
+    "e97e94e90e8de89e86e82e7fe7be78e75e71e6ee6ae67e63e60e5de59e56e52e4fe4ce48"
+    "e45e41e3ee3be37e34e31e2de2ae26e23e20e1ce19e16e12e0fe0ce09e05e02dffdfbdf8"
+    "df5df1deedebde8de4de1ddeddbdd7dd4dd1dcedcadc7dc4dc1dbedbadb7db4db1daedaa"
+    "da7da4da1d9ed9bd97d94d91d8ed8bd88d84d81d7ed7bd78d75d72d6fd6bd68d65d62d5f"
+    "d5cd59d56d53d50d4dd49d46d43d40d3dd3ad37d34d31d2ed2bd28d25d22d1fd1cd19d16"
+    "d13d10d0dd0ad07d04d01cfecfbcf8cf5cf2cefcecce9ce6ce3ce0cddcdbcd8cd5cd2ccf"
+    "ccccc9cc6cc3cc0cbdcbacb8cb5cb2cafcacca9ca6ca3ca1c9ec9bc98c95c92c8fc8dc8a"
+    "c87c84c81c7ec7cc79c76c73c70c6ec6bc68c65c62c60c5dc5ac57c54c52c4fc4cc49c47"
+    "c44c41c3ec3cc39c36c33c31c2ec2bc28c26c23c20c1ec1bc18c15c13c10c0dc0bc08c05"
+    "c03c00bfdbfbbf8bf5bf3bf0bedbebbe8be5be3be0bddbdbbd8bd5bd3bd0bcebcbbc8bc6"
+    "bc3bc0bbebbbbb9bb6bb3bb1baebacba9ba7ba4ba1b9fb9cb9ab97b95b92b8fb8db8ab88"
+    "b85b83b80b7eb7bb79b76b73b71b6eb6cb69b67b64b62b5fb5db5ab58b55b53b50b4eb4b"
+    "b49b46b44b41b3fb3db3ab38b35b33b30b2eb2bb29b26b24b22b1fb1db1ab18b15b13b11"
+    "b0eb0cb09b07b05b02b00afdafbaf9af6af4af1aefaedaeaae8ae5ae3ae1adeadcadaad7"
+    "ad5ad3ad0aceacbac9ac7ac4ac2ac0abdabbab9ab6ab4ab2aafaadaabaa8aa6aa4aa2a9f"
+    "a9da9ba98a96a94a91a8fa8da8ba88a86a84a82a7fa7da7ba78a76a74a72a6fa6da6ba69"
+    "a66a64a62a60a5da5ba59a57a55a52a50a4ea4ca49a47a45a43a41a3ea3ca3aa38a36a33"
+    "a31a2fa2da2ba28a26a24a22a20a1da1ba19a17a15a13a10a0ea0ca0aa08a06a04a019ff"
+    "9fd9fb9f99f79f59f29f09ee9ec9ea9e89e69e49e19df9dd9db9d99d79d59d39d19ce9cc"
+    "9ca9c89c69c49c29c09be9bc9ba9b79b59b39b19af9ad9ab9a99a79a59a39a199f99d99b"
+    "99999799499299098e98c98a98898698498298097e97c97a97897697497297096e96c96a"
+    "96896696496296095e95c95a95895695495295094e94c94a94894694494294093e93c93a"
+    "93893793593393192f92d92b92992792592392191f91d91b91991791691491291090e90c"
+    "90a9089069049029008ff8fd8fb8f98f78f58f38f18ef8ed8ec8ea8e88e68e48e28e08de"
+    "8dc8db8d98d78d58d38d18cf8ce8cc8ca8c88c68c48c28c18bf8bd8bb8b98b78b58b48b2"
+    "8b08ae8ac8aa8a98a78a58a38a189f89e89c89a89889689589389188f88d88c88a888886"
+    "88488388187f87d87b87a87887687487287186f86d86b86a86886686486286185f85d85b"
+    "85a85885685485385184f84d84c84a84884684584384183f83e83c83a838837835833831"
+    "83082e82c82b82982782582482282081f81d81b81981881681481381180f80d80c80a808"
+    "8078058038028007fe7fd7fb7f97f77f67f47f27f17ef7ed7ec7ea7e87e77e57e37e27e0"
+    "7de7dd7db7d97d87d67d47d37d17d07ce7cc7cb7c97c77c67c47c27c17bf7be7bc7ba7b9"
+    "7b77b57b47b27b07af7ad7ac7aa7a87a77a57a47a27a079f79d79b79a798797795793792"
+    "79078f78d78b78a78878778578478278077f77d77c77a77877777577477277176f76d76c"
+    "76a76976776676476276175f75e75c75b75975875675475375175074e74d74b74a748747"
+    "74574474274073f73d73c73a73973773673473373173072e72d72b72a728727725723722"
+    "72071f71d71c71a71971771671471371171070e70d70b70a7087077057047037017006fe"
+    "6fd6fb6fa6f86f76f56f46f26f16ef6ee6ec6eb6e96e86e66e56e46e26e16df6de6dc6db"
+    "6d96d86d66d56d36d26d16cf6ce6cc6cb6c96c86c66c56c46c26c16bf6be6bc6bb6ba6b8"
+    "6b76b56b46b26b16b06ae6ad6ab6aa6a86a76a66a46a36a169f69c69a69769469168e68c"
+    "68968668368067e67b67867567367066d66a66766566265f65d65a65765465264f64c64a"
+    "64764464163f63c63963763463162f62c62962762462161f61c61961761461260f60c60a"
+    "6076056025ff5fd5fa5f85f55f25f05ed5eb5e85e65e35e05de5db5d95d65d45d15cf5cc"
+    "5ca5c75c45c25bf5bd5ba5b85b55b35b05ae5ab5a95a75a45a259f59d59a598595593590"
+    "58e58b58958758458257f57d57a57857657357156e56c56a56756556256055e55b559557"
+    "55455254f54d54b54854654454153f53d53a53853653353152f52c52a52852552352151e"
+    "51c51a51851551351150e50c50a5085055035014ff4fc4fa4f84f64f34f14ef4ed4ea4e8"
+    "4e64e44e14df4dd4db4d94d64d44d24d04ce4cb4c94c74c54c34c04be4bc4ba4b84b64b3"
+    "4b14af4ad4ab4a94a64a44a24a049e49c49a49749549349148f48d48b489486484482480"
+    "47e47c47a47847647447146f46d46b46946746546346145f45d45b45945745545245044e"
+    "44c44a44844644444244043e43c43a43843643443243042e42c42a42842642442242041e"
+    "41c41a41841641441241040e40c40a4084064044024003fe3fd3fb3f93f73f53f33f13ef"
+    "3ed3eb3e93e73e53e33e13e03de3dc3da3d83d63d43d23d03ce3cc3cb3c93c73c53c33c1"
+    "3bf3bd3bc3ba3b83b63b43b23b03ae3ad3ab3a93a73a53a33a13a039e39c39a398396395"
+    "39339138f38d38b38a38838638438238137f37d37b37937837637437237036f36d36b369"
+    "36736636436236035e35d35b35935735635435235034f34d34b34934834634434234133f"
+    "33d33b33a33833633433333132f32e32c32a32832732532332232031e31c31b319317316"
+    "31431231130f30d30b30a3083063053033013002fe2fc2fb2f92f72f62f42f22f12ef2ed"
+    "2ec2ea2e82e72e52e32e22e02df2dd2db2da2d82d62d52d32d12d02ce2cd2cb2c92c82c6"
+    "2c52c32c12c02be2bc2bb2b92b82b62b42b32b12b02ae2ac2ab2a92a82a62a52a32a12a0"
+    "29e29d29b29a29829629529329229028f28d28b28a28828728528428228127f27e27c27a"
+    "27927727627427327127026e26d26b26a26826726526326226025f25d25c25a259257256"
+    "25425325125024e24d24b24a24824724524424224123f23e23d23b23a238237235234232"
+    "23122f22e22c22b22922822622522422222121f21e21c21b21921821621521421221120f"
+    "20e20c20b20a2082072052042022012001fe1fd1fb1fa1f81f71f61f41f31f11f01ef1ed"
+    "1ec1ea1e91e81e61e51e31e21e11df1de1dc1db1da1d81d71d51d41d31d11d01cf1cd1cc"
+    "1ca1c91c81c61c51c41c21c11bf1be1bd1bb1ba1b91b71b61b51b31b21b01af1ae1ac1ab"
+    "1aa1a81a71a61a41a31a21a019f19e19c19b19a19819719619419319219018f18e18c18b"
+    "18a18818718618518318218117f17e17d17b17a17917717617517417217117016e16d16c"
+    "16b16916816716516416316216015f15e15c15b15a15915715615515315215115014e14d"
+    "14c14b14914814714614414314214113f13e13d13c13a13913813713513413313213012f"
+    "12e12d12b12a12912812612512412312212011f11e11d11b11a119118117115114113112"
+    "11010f10e10d10c10a1091081071061041031021011000fe0fd0fc0fb0fa0f80f70f60f5"
+    "0f40f20f10f00ef0ee0ed0eb0ea0e90e80e70e50e40e30e20e10e00de0dd0dc0db0da0d9"
+    "0d70d60d50d40d30d20d00cf0ce0cd0cc0cb0c90c80c70c60c50c40c30c10c00bf0be0bd"
+    "0bc0bb0b90b80b70b60b50b40b30b10b00af0ae0ad0ac0ab0a90a80a70a60a50a40a30a2"
+    "0a009f09e09d09c09b09a09909809609509409309209109008f08e08c08b08a089088087"
+    "08608508408208108007f07e07d07c07b07a07907807607507407307207107006f06e06d"
+    "06c06b06906806706606506406306206106005f05e05d05b05a059058057056055054053"
+    "05205105004f04e04d04c04a04904804704604504404304204104003f03e03d03c03b03a"
+    "03903803703603403303203103002f02e02d02c02b02a029028027026025024023022021"
+    "02001f01e01d01c01b01a01901801701601501401301201101000f00e00d00c00b00a009"
+    "008007006005004003002001"
+)
+RSQRT_SEED = np.array(
+    [int(_SEED_HEX[i:i + 3], 16) for i in range(0, len(_SEED_HEX), 3)],
+    dtype=np.int32,
+).reshape(2, 1024)
+
+
+def _f64(v):
+    return v.double() if isinstance(v, torch.Tensor) else float(v)
+
+
+def fma(a, b, c) -> Tensor:
+    """float32 ``a * b + c`` rounded once.  The float64 product of two
+    float32 values is exact; the float64 sum rounds before the float32
+    cast, which differs from one rounding only on exact float32 ties."""
+    return (_f64(a) * _f64(b) + _f64(c)).float()
+
+
+def exp(x: Tensor) -> Tensor:
+    """XLA's float32 ``exp``, operation for operation."""
+    x = torch.clamp(x, EXP_LO, EXP_HI)
+    n = torch.floor(fma(x, LOG2E, 0.5)).clamp(-127.0, 127.0)
+    r = fma(-EXP_C1, n, x)
+    r = fma(-EXP_C2, n, r)
+    p = fma(r, EXP_P[0], EXP_P[1])
+    for coef in EXP_P[2:]:
+        p = fma(p, r, coef)
+    y = fma(p, r * r, r) + 1.0
+    return y * ((n.to(torch.int32) + 127) << 23).view(torch.float32)
+
+
+def rsqrt_seed(x: Tensor) -> Tensor:
+    """The x86 rsqrt estimate of a positive normal float32 ``x``."""
+    bits = x.view(torch.int32).long()
+    e = ((bits >> 23) & 0xFF) - 127
+    parity = e & 1
+    table = torch.from_numpy(RSQRT_SEED).to(x.device).long()
+    mant = table[parity, (bits >> 13) & 0x3FF]
+    return (((126 - ((e - parity) >> 1)) << 23) | (mant << 11)).int().view(
+        torch.float32
+    )
+
+
+def rsqrt(x: Tensor) -> Tensor:
+    """XLA's float32 ``rsqrt`` of a positive normal ``x``: two Newton steps
+    from the estimate."""
+    y = rsqrt_seed(x)
+    for _ in range(2):
+        y = fma(y * -0.5, fma(x * y, y, -1.0), y)
+    return y

@@ -1,0 +1,459 @@
+"""Render pipeline orchestration: the ``VolumeRenderer`` equivalent.
+
+Mirrors the JAX package's ``renderer.py`` (and VolumeRenderer.cpp's
+renderScene / renderSingleTrial flow, cpp:947-1339) for one device:
+bounds and scalar range, visibility order, the fused tile-march frame on
+the device, the bounds wireframe overlay and PPM/PNG output.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import time
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+from amrvolumerenderer_tpu.camera import auto_orbit_camera, safe_normalize
+from amrvolumerenderer_tpu.types import (
+    CameraParameters,
+    ColorMap,
+    RenderParameters,
+    SceneGeometry,
+    VolumeBounds,
+)
+from amrvolumerenderer_tpu.visibility import build_visibility_order
+
+from . import io as image_io
+from .device import DEFAULT_DEVICE, Device, resolve_device
+from .image import ImageBuffer, ImageKind
+
+K_PI = 3.14159265358979323846
+
+
+def validate_render_parameters(parameters: RenderParameters) -> None:
+    """Parameter validation (VolumeRenderer.cpp:562-579)."""
+    if parameters.width <= 0 or parameters.height <= 0:
+        raise ValueError("image dimensions must be positive")
+    if not (0.0 <= parameters.box_transparency <= 1.0):
+        raise ValueError("box transparency must be between 0 and 1")
+    if parameters.antialiasing <= 0:
+        raise ValueError("antialiasing must be positive")
+    sqrt_aa = int(round(math.sqrt(parameters.antialiasing)))
+    if sqrt_aa * sqrt_aa != parameters.antialiasing:
+        raise ValueError("antialiasing must be a perfect square (1, 4, 9, ...)")
+    if parameters.sampling not in ("nearest", "trilinear"):
+        raise ValueError("sampling must be \"nearest\" or \"trilinear\"")
+    if parameters.render_method not in (
+        "auto", "raymarch", "slicemarch", "tilemarch"
+    ):
+        raise ValueError(
+            "render method must be one of auto, raymarch, slicemarch, "
+            "tilemarch"
+        )
+    if parameters.multichip_pipeline not in ("auto", "depth", "layered"):
+        raise ValueError(
+            "multichip pipeline must be one of auto, depth, layered"
+        )
+    if parameters.multichip_transport not in ("float32", "ubyte"):
+        raise ValueError("multichip transport must be float32 or ubyte")
+    if parameters.devices is not None and parameters.devices < 1:
+        raise ValueError("devices must be a positive device count")
+    if parameters.classification not in ("post", "pre"):
+        raise ValueError("classification must be \"post\" or \"pre\"")
+    if parameters.lut_size <= 0 or parameters.lut_size % 128 != 0:
+        raise ValueError(
+            "lut_size must be a positive multiple of 128 (e.g. 128, 256)"
+        )
+    if (
+        parameters.classification == "pre"
+        and parameters.sampling == "nearest"
+    ):
+        raise ValueError(
+            "classification=\"pre\" requires sampling=\"trilinear\" "
+            "(nearest sampling has no interpolation to reorder)"
+        )
+
+
+def compute_global_bounds(geometry: SceneGeometry) -> VolumeBounds:
+    """Global bounds with 5% padding, or the explicit bounds
+    (VolumeRenderer.cpp:716-789)."""
+    if geometry.has_explicit_bounds:
+        return geometry.explicit_bounds
+    if not geometry.bricks:
+        return VolumeBounds((-1.0, -1.0, -1.0), (1.0, 1.0, 1.0))
+    g_min = np.min([b.min_corner for b in geometry.bricks], axis=0)
+    g_max = np.max([b.max_corner for b in geometry.bricks], axis=0)
+    max_extent = float((g_max - g_min).max())
+    padding = max_extent * 0.05 if max_extent > 0.0 else 0.5
+    return VolumeBounds(g_min - padding, g_max + padding)
+
+
+def compute_tight_bounds(
+    geometry: SceneGeometry, fallback: VolumeBounds
+) -> VolumeBounds:
+    """Unpadded global bounds (VolumeRenderer.cpp:791-849)."""
+    if not geometry.bricks:
+        return fallback
+    g_min = np.min([b.min_corner for b in geometry.bricks], axis=0)
+    g_max = np.max([b.max_corner for b in geometry.bricks], axis=0)
+    return VolumeBounds(g_min, g_max)
+
+
+def _apply_transform_scalar(v: float, t) -> float:
+    """The scalar transform (VolumeTypes.hpp:53-67) on one float64 value."""
+    if t.log_scale_input:
+        v = max(v, t.positive_floor) if v > 0.0 else t.positive_floor
+        v = math.log(v)
+    if t.normalize_to_unit_range:
+        v = min(max((v - t.normalization_min) * t.inverse_normalization_span,
+                    0.0), 1.0)
+    return v
+
+
+def compute_global_scalar_range(geometry: SceneGeometry) -> Tuple[float, float]:
+    """Transformed scalar min/max over all bricks (VolumeRenderer.cpp:
+    851-878): the transform is monotone, so it is applied to the raw range.
+    Non-finite samples count as 0.0."""
+    from amrvolumerenderer_tpu.scene import _scalar_stats
+
+    if not geometry.bricks:
+        return 0.0, 1.0
+    min_v, max_v, _min_pos, count = _scalar_stats(
+        [np.asarray(b.data) for b in geometry.bricks]
+    )
+    total = sum(int(np.prod(np.shape(b.data))) for b in geometry.bricks)
+    if count == 0:
+        min_v = max_v = 0.0
+    elif count < total:
+        min_v = min(min_v, 0.0)
+        max_v = max(max_v, 0.0)
+    t = geometry.scalar_transform
+    lo = _apply_transform_scalar(float(min_v), t)
+    hi = _apply_transform_scalar(float(max_v), t)
+    if not (math.isfinite(lo) and math.isfinite(hi)):
+        lo = hi = 0.0
+    if lo == hi:
+        hi = lo + 1.0
+    return lo, hi
+
+
+def compute_reference_sample_distance(
+    geometry: SceneGeometry, bounds: VolumeBounds
+) -> float:
+    """Half of the coarsest brick's minimum spacing, with degenerate
+    fallbacks (VolumeRenderer.cpp:1138-1190)."""
+    coarsest = 0.0
+    for brick in geometry.bricks:
+        ms = brick.min_spacing()
+        if ms > 0.0 and math.isfinite(ms):
+            coarsest = max(coarsest, ms)
+    if not (coarsest > 0.0 and math.isfinite(coarsest)):
+        span = bounds.max_corner - bounds.min_corner
+        positive = span[(span > 0.0) & np.isfinite(span)]
+        fallback = float(positive.min()) if positive.size else 1.0
+        coarsest = max(1e-4, fallback * 0.01)
+    return max(coarsest * 0.5, 1e-5)
+
+
+def render_bounding_box_overlay(
+    bounds: VolumeBounds,
+    camera: CameraParameters,
+    sqrt_antialiasing: int,
+    layer: ImageBuffer,
+) -> None:
+    """Antialiased white wireframe of the bounds, blended over the image
+    (VolumeRenderer.cpp:139-335).  Mutates ``layer`` in place."""
+    width, height = layer.width, layer.height
+    if width <= 0 or height <= 0:
+        return
+    aspect = width / max(height, 1)
+    forward = safe_normalize(camera.look_at - camera.eye)
+    right = np.cross(forward, camera.up)
+    right_len = float(np.linalg.norm(right))
+    if right_len > 0 and math.isfinite(right_len):
+        right = right / right_len
+    else:
+        right = np.array([1.0, 0.0, 0.0])
+    up_ortho = np.cross(right, forward)
+    tan_half_fov = math.tan(camera.fov_y_degrees * 0.5 * K_PI / 180.0)
+    width_scale = float(width - 1) if width > 1 else 0.0
+    height_scale = float(height - 1) if height > 1 else 0.0
+
+    corners = []
+    for idx in range(8):
+        corner = np.array([
+            bounds.max_corner[0] if idx & 1 else bounds.min_corner[0],
+            bounds.max_corner[1] if idx & 2 else bounds.min_corner[1],
+            bounds.max_corner[2] if idx & 4 else bounds.min_corner[2],
+        ])
+        rel = corner - camera.eye
+        depth = float(np.dot(rel, forward))
+        entry = dict(x=0.0, y=0.0, valid=False)
+        if depth > 0.0 and math.isfinite(depth):
+            ndc_x = float(np.dot(rel, right)) / (depth * tan_half_fov * aspect)
+            ndc_y = float(np.dot(rel, up_ortho)) / (depth * tan_half_fov)
+            if math.isfinite(ndc_x) and math.isfinite(ndc_y):
+                entry.update(
+                    x=(ndc_x * 0.5 + 0.5) * width_scale,
+                    y=(ndc_y * 0.5 + 0.5) * height_scale,
+                    valid=True,
+                )
+        corners.append(entry)
+
+    edges = [
+        (0, 1), (1, 3), (3, 2), (2, 0),
+        (4, 5), (5, 7), (7, 6), (6, 4),
+        (0, 4), (1, 5), (2, 6), (3, 7),
+    ]
+    pixel_radius = 0.5 * max(sqrt_antialiasing, 1)
+    influence_radius = pixel_radius + 0.5
+    coverage_scale = 0.6
+    overlay_depth = np.finfo(np.float32).min
+    pixels = layer.pixels  # [H*W, 5] view
+
+    for e0, e1 in edges:
+        start, end = corners[e0], corners[e1]
+        if not (start["valid"] and end["valid"]):
+            continue
+        x_begin = max(0, int(math.floor(min(start["x"], end["x"]) - influence_radius)))
+        x_end = min(width - 1, int(math.ceil(max(start["x"], end["x"]) + influence_radius)))
+        y_begin = max(0, int(math.floor(min(start["y"], end["y"]) - influence_radius)))
+        y_end = min(height - 1, int(math.ceil(max(start["y"], end["y"]) + influence_radius)))
+        if x_end < x_begin or y_end < y_begin:
+            continue
+        edge_dx = end["x"] - start["x"]
+        edge_dy = end["y"] - start["y"]
+        edge_len_sq = edge_dx * edge_dx + edge_dy * edge_dy
+        if edge_len_sq <= 0.0:
+            # degenerate edge: one full-coverage pixel at the start corner
+            px = int(round(start["x"]))
+            py = int(round(start["y"]))
+            if 0 <= px < width and 0 <= py < height:
+                idx = py * width + px
+                src_a = 1.0
+                pixels[idx, :3] = 1.0 * src_a + pixels[idx, :3] * (1.0 - src_a)
+                pixels[idx, 3] = src_a + pixels[idx, 3] * (1.0 - src_a)
+                pixels[idx, 4] = overlay_depth
+            continue
+        xs = np.arange(x_begin, x_end + 1)
+        ys = np.arange(y_begin, y_end + 1)
+        sample_x = xs[None, :] + 0.5
+        sample_y = ys[:, None] + 0.5
+        t = np.clip(
+            ((sample_x - start["x"]) * edge_dx + (sample_y - start["y"]) * edge_dy)
+            / edge_len_sq, 0.0, 1.0,
+        )
+        dist = np.sqrt(
+            (sample_x - (start["x"] + edge_dx * t)) ** 2
+            + (sample_y - (start["y"] + edge_dy * t)) ** 2
+        )
+        coverage = np.clip((pixel_radius + 0.5 - dist) * coverage_scale, 0.0, 1.0)
+        mask = coverage > 0.0
+        if not np.any(mask):
+            continue
+        yy, xx = np.nonzero(mask)
+        flat = (ys[yy] * width + xs[xx]).astype(np.int64)
+        src_a = coverage[yy, xx].astype(np.float32)
+        one_minus = 1.0 - src_a
+        for ch in range(4):
+            pixels[flat, ch] = src_a + pixels[flat, ch] * one_minus
+        pixels[flat, 4] = overlay_depth
+
+
+def downsample_image(
+    source: ImageBuffer, target_width: int, target_height: int, sqrt_aa: int
+) -> ImageBuffer:
+    """Supersample box-average downsample (VolumeRenderer.cpp:479-528)."""
+    from amrvolumerenderer_tpu import native
+
+    block = max(sqrt_aa, 1)
+    if block <= 1:
+        raise ValueError("downsample expects sqrtAA > 1")
+    out = ImageBuffer.create(
+        ImageKind.RGBA_F32_DEPTH_SORT, target_width, target_height
+    )
+    avg = native.downsample_box(
+        np.asarray(source.pixels, dtype=np.float32),
+        target_width, target_height, block,
+    )
+    if avg is None:
+        src = source.pixels[:, :4].reshape(
+            target_height, block, target_width, block, 4
+        )
+        avg = src.mean(axis=(1, 3)).astype(np.float32).reshape(-1, 4)
+    out.pixels[:, :4] = avg
+    out.pixels[:, 4] = np.inf
+    return out
+
+
+@dataclasses.dataclass
+class RenderTiming:
+    render_seconds: float = 0.0
+    visibility_seconds: float = 0.0
+    composite_seconds: float = 0.0
+
+
+def resolve_render_method(method: str, sampling: str = "nearest") -> str:
+    """The kernel route for ``method``.  The port has one: ``"auto"``,
+    ``"tilemarch"`` and ``"slicemarch"`` all resolve to the tile-march
+    kernel (the JAX package's slice-march route renders the same frame:
+    its golden row matches the tile-march row within 1.2e-7).  The
+    raymarch oracle is not ported yet."""
+    if method in ("auto", "tilemarch", "slicemarch"):
+        return "tilemarch"
+    if method == "raymarch":
+        raise ValueError(
+            "render method 'raymarch' is not ported to PyTorch yet (ROADMAP.md "
+            "module item 4); use auto, tilemarch or slicemarch"
+        )
+    raise ValueError(f"unknown render method '{method}'")
+
+
+def render_single_trial(
+    output_filename: str,
+    parameters: RenderParameters,
+    geometry: SceneGeometry,
+    bounds: VolumeBounds,
+    scalar_range: Tuple[float, float],
+    camera: CameraParameters,
+    color_map: Optional[ColorMap],
+    num_ranks: int = 1,
+    verbose: bool = True,
+    method: str = "auto",
+    device: Device = DEFAULT_DEVICE,
+) -> Tuple[ImageBuffer, RenderTiming]:
+    """One full render: visibility order, the fused frame on ``device``
+    (render + composite + AA downsample), overlay, save
+    (VolumeRenderer.cpp:1103-1339).  ``scalar_range`` must be the one
+    ``render_scene`` derives from ``geometry``: the frame's scene renderer
+    derives it again, as the JAX package's persistent renderer does."""
+    from .renderer_fast import render_composited_tilemarch
+
+    dev = resolve_device(device)
+    if (parameters.devices or 1) > 1:
+        raise ValueError(
+            "multi-device rendering is not ported to PyTorch yet (ROADMAP.md "
+            "module item 9); use devices=1"
+        )
+    resolve_render_method(method, parameters.sampling)
+    timing = RenderTiming()
+    tight_bounds = compute_tight_bounds(geometry, bounds)
+
+    # the scene renderer orders its pieces itself; this pass runs for the
+    # visibility report and write_visibility_graph's DOT export
+    t0 = time.perf_counter()
+    if geometry.bricks:
+        box_min = np.stack([b.min_corner for b in geometry.bricks])
+        box_max = np.stack([b.max_corner for b in geometry.bricks])
+    else:
+        box_min = box_max = np.zeros((0, 3))
+    build_visibility_order(
+        camera,
+        parameters.width / parameters.height,
+        box_min,
+        box_max,
+        np.array([b.owner for b in geometry.bricks], dtype=np.int32),
+        num_ranks,
+        parameters.use_visibility_graph,
+        parameters.write_visibility_graph,
+        log=verbose,
+    )
+    timing.visibility_seconds = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    composited = render_composited_tilemarch(
+        geometry, parameters, camera, color_map, device=dev
+    )
+    timing.render_seconds = time.perf_counter() - t0
+    if verbose:
+        print(f"Render: per-box rendering took {timing.render_seconds:.4f} s")
+        print(
+            "Render: visibility graph computation took "
+            f"{timing.visibility_seconds:.4f} s"
+        )
+        print(f"Render: compositing took {timing.composite_seconds:.4f} s")
+
+    output_image = ImageBuffer(
+        ImageKind.RGBA_F32_DEPTH_SORT, parameters.width, parameters.height,
+        composited,
+    )
+    if verbose:
+        sqrt_aa = max(int(round(math.sqrt(parameters.antialiasing))), 1)
+        print(
+            f"Render: composed {parameters.width * parameters.height * sqrt_aa ** 2}"
+            " pixels on rank 0"
+        )
+    render_bounding_box_overlay(tight_bounds, camera, 1, output_image)
+
+    if output_filename:
+        lower = output_filename.lower()
+        ext = lower[lower.rfind("."):] if "." in lower else ""
+        if ext and ext not in (".ppm", ".png") and verbose:
+            print(
+                f"Render: unrecognized image extension '{ext}', "
+                "defaulting to PPM output."
+            )
+        saved = image_io.save_image(output_image, output_filename)
+        if verbose:
+            if saved:
+                print(f"Saved volume composited image to '{output_filename}'")
+            else:
+                print(f"Failed to save composited image to '{output_filename}'")
+    return output_image, timing
+
+
+def render_scene(
+    output_filename: str,
+    parameters: RenderParameters,
+    geometry: SceneGeometry,
+    camera: Optional[CameraParameters] = None,
+    color_map: Optional[ColorMap] = None,
+    num_ranks: int = 1,
+    verbose: bool = True,
+    method: str = "auto",
+    device: Device = DEFAULT_DEVICE,
+) -> Tuple[ImageBuffer, RenderTiming]:
+    """Render with an explicit camera, or the seeded auto-orbit camera
+    (VolumeRenderer.cpp:947-1101)."""
+    if method == "auto":
+        method = parameters.render_method
+    validate_render_parameters(parameters)
+    dev = resolve_device(device)
+    if verbose:
+        name = (
+            f"{dev} ({torch.cuda.get_device_name(dev)})"
+            if dev.type == "cuda" else "cpu"
+        )
+        print(f"volume_renderer: Using PyTorch volume mapper on {name}")
+
+    bounds = compute_global_bounds(geometry)
+    scalar_range = (
+        geometry.scalar_range
+        if geometry.has_scalar_range
+        else compute_global_scalar_range(geometry)
+    )
+    if camera is None:
+        camera = auto_orbit_camera(
+            bounds, parameters.camera_seed, parameters.camera_up
+        )
+        label = "automatic"
+    else:
+        label = "explicit"
+    if parameters.print_camera and verbose:
+        print(
+            f"Camera parameters ({label}):\n"
+            f"  eye      = ({camera.eye[0]:g}, {camera.eye[1]:g}, {camera.eye[2]:g})\n"
+            f"  look_at  = ({camera.look_at[0]:g}, {camera.look_at[1]:g}, "
+            f"{camera.look_at[2]:g})\n"
+            f"  up       = ({camera.up[0]:g}, {camera.up[1]:g}, {camera.up[2]:g})\n"
+            f"  fov_y    = {camera.fov_y_degrees:g} degrees\n"
+            f"  near     = {camera.near_plane:g}\n"
+            f"  far      = {camera.far_plane:g}"
+        )
+    return render_single_trial(
+        output_filename, parameters, geometry, bounds, scalar_range, camera,
+        color_map, num_ranks=num_ranks, verbose=verbose, method=method,
+        device=dev,
+    )

@@ -1,0 +1,89 @@
+"""Carry a prepared scene across packages: state dict <-> renderer.
+
+A renderer has no weights; its state is the packed scene.  ``STATE_KEYS``
+lists it: the canonical piece table ``[L, 32, 32, 32]`` f32, the piece
+boxes, core dims, parents and owners, the parent (brick) boxes, the
+log-LUT ``[4, size // 128, 128]`` and its alpha column, the scalar range,
+the reference sample distance, the ghost width and the padded and tight
+bounds (each ``[2, 3]``: min, max).
+
+``state_from_renderer`` reads those attributes with NumPy from any object
+that has them (a JAX ``FastSceneRenderer`` or the port's);
+``renderer_from_state`` builds the port's renderer from them.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+from amrvolumerenderer_tpu.types import RenderParameters, VolumeBounds
+
+from .device import DEFAULT_DEVICE, Device
+from .fast_scene import FastSceneRenderer
+
+# state key -> renderer attribute
+STATE_KEYS = {
+    "canonical": "canonical",
+    "box_min": "box_min",
+    "box_max": "box_max",
+    "dims_world": "dims_world",
+    "parents": "parents",
+    "owners": "owners",
+    "parent_min": "_parent_min",
+    "parent_max": "_parent_max",
+    "lut": "_lut",
+    "lut_alpha": "_lut_alpha",
+    "scalar_range": "scalar_range",
+    "reference_sample_distance": "reference_sample_distance",
+    "ghost": "ghost",
+    "bounds": "bounds",
+    "tight_bounds": "tight_bounds",
+}
+
+
+def _to_numpy(value) -> np.ndarray:
+    if isinstance(value, VolumeBounds):
+        return np.stack([value.min_corner, value.max_corner])
+    if hasattr(value, "detach"):  # torch tensor on any device
+        return value.detach().cpu().numpy()
+    return np.asarray(value)
+
+
+def state_from_renderer(obj) -> Dict[str, np.ndarray]:
+    """The packed-scene state of ``obj`` as NumPy arrays."""
+    return {key: _to_numpy(getattr(obj, attr)) for key, attr in STATE_KEYS.items()}
+
+
+def renderer_from_state(
+    state: Dict[str, np.ndarray],
+    parameters: RenderParameters,
+    device: Device = DEFAULT_DEVICE,
+) -> FastSceneRenderer:
+    """A port ``FastSceneRenderer`` over ``state`` on ``device``.  The
+    parameters' sampling must match the state's ghost width (1 for
+    trilinear, 0 for nearest) and its lut_size the LUT's."""
+    missing = sorted(set(STATE_KEYS) - set(state))
+    if missing:
+        raise KeyError(f"state lacks {missing}")
+    ghost = int(state["ghost"])
+    if ghost != (1 if parameters.sampling == "trilinear" else 0):
+        raise ValueError(
+            f"state has ghost width {ghost}, which does not match "
+            f"sampling={parameters.sampling!r}"
+        )
+    lut = np.asarray(state["lut"], np.float32)
+    if lut.shape[1] * lut.shape[2] != parameters.lut_size:
+        raise ValueError(
+            f"state LUT has {lut.shape[1] * lut.shape[2]} entries, "
+            f"parameters ask for {parameters.lut_size}"
+        )
+    tables = {key: np.asarray(state[key]) for key in STATE_KEYS}
+    tables["lut"] = lut
+    tables["ghost"] = ghost
+    tables["scalar_range"] = tuple(float(v) for v in tables["scalar_range"])
+    tables["reference_sample_distance"] = float(tables["reference_sample_distance"])
+    for key in ("bounds", "tight_bounds"):
+        b = np.asarray(tables[key], np.float64)
+        tables[key] = VolumeBounds(b[0], b[1])
+    return FastSceneRenderer.from_tables(parameters, device=device, **tables)

@@ -39,6 +39,14 @@ def _map_count() -> int:
         return 0
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA device; the test skips itself when "
+        "torch.cuda.is_available() is false",
+    )
+
+
 @pytest.fixture(autouse=True)
 def _jit_map_guard():
     """Keep the process under the kernel's vm.max_map_count ceiling.

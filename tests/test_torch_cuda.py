@@ -1,0 +1,143 @@
+"""The CUDA tile-march kernel on the card (marked ``cuda``; every test skips
+itself when ``torch.cuda.is_available()`` is false).
+
+This file imports neither jax nor the tests' conftest (which does), so it
+runs on a machine that has only PyTorch:
+
+    python -m pytest --noconftest -o markers=cuda -m cuda tests/test_torch_cuda.py
+
+The kernel is held against its plain PyTorch version on the same device
+(atol 2e-6; the two round alike, so they agree bit for bit) and against
+the golden rows (the manifest's atol of 2e-6).
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from amrvolumerenderer_tpu.camera import auto_orbit_camera
+from amrvolumerenderer_tpu.scene import LevelBox, LevelGeometry
+from amrvolumerenderer_tpu.types import CameraParameters, RenderParameters
+from amrvolumerenderer_torch import api
+from amrvolumerenderer_torch.fast_scene import FastSceneRenderer
+from amrvolumerenderer_torch.ops import tilemarch as tm
+
+GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden",
+                      "manifest_pixels.npz")
+ATOL = 2e-6
+KNOBS = [("nearest", "post", 256), ("nearest", "post", 128),
+         ("trilinear", "post", 256), ("trilinear", "pre", 128)]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (torch.cuda.is_available() is false)")
+    return torch.device("cuda", 0)
+
+
+def r2_data():
+    """The golden manifest's scene (tests/conftest.make_r2_scene_data(16, 8))."""
+    c = np.arange(16) / 15
+    f = c[:, None, None] ** 2 + c[None, :, None] ** 2 + c[None, None, :] ** 2
+    boxes = [LevelBox(f[i:i + 8, j:j + 8, k:k + 8], np.array([i, j, k]))
+             for i in (0, 8) for j in (0, 8) for k in (0, 8)]
+    return api.AmrData(level_data=[boxes],
+                       level_geometry=[LevelGeometry(np.zeros(3), np.full(3, 1 / 16))])
+
+
+def three_level_geometry(n=32):
+    """bench.py's 3-level scene at a quarter of its width."""
+    def field(lo, hi):
+        c = lo + (np.arange(n) + 0.5) / n * (hi - lo)
+        r = np.sqrt((c[:, None, None] - 0.5) ** 2 + (c[None, :, None] - 0.5) ** 2
+                    + (c[None, None, :] - 0.5) ** 2)
+        return np.exp(-((r - 0.18) / 0.06) ** 2) + 0.7 * np.exp(
+            -((r - 0.38) / 0.05) ** 2)
+
+    data = api.AmrData(
+        level_data=[[LevelBox(field(0.0, 1.0), np.zeros(3, int))],
+                    [LevelBox(field(0.25, 0.75), np.full(3, n // 2, int))],
+                    [LevelBox(field(0.375, 0.625), np.full(3, 3 * n // 2, int))]],
+        level_geometry=[LevelGeometry(np.zeros(3), np.full(3, 1.0 / (s * n)))
+                        for s in (1, 2, 4)],
+        refinement_ratios=[(2, 2, 2), (2, 2, 2)],
+    )
+    return api.load_amr_geometry(data, 0, -1, 0, False, True, verbose=False)
+
+
+def assert_close(got, ref):
+    got, ref = got.cpu().numpy(), ref.cpu().numpy()
+    finite = np.isfinite(ref)
+    np.testing.assert_array_equal(np.isfinite(got), finite)
+    np.testing.assert_allclose(got[finite], ref[finite], rtol=0, atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("knobs", KNOBS, ids=lambda k: "-".join(map(str, k)))
+def test_kernel_matches_plain(cuda, knobs):
+    sampling, classification, lut_size = knobs
+    fsr = FastSceneRenderer(three_level_geometry(), RenderParameters(
+        width=256, height=192, sampling=sampling,
+        classification=classification, lut_size=lut_size,
+    ), device=cuda)
+    cam = CameraParameters(eye=(-1.9, 2.3, -1.2), look_at=(0.5, 0.5, 0.5),
+                           up=(0, 1, 0))
+    inputs = fsr.frame_inputs(cam)
+    args = (fsr._packed_vol, inputs["meta"], inputs["dims"], fsr.lut,
+            inputs["cam"], inputs["offsets"], inputs["bricks"],
+            inputs["owners"], inputs["item_bounds"], inputs["tile_ids"])
+    kw = dict(width=fsr.pad_w, height=fsr.pad_h, max_slices=fsr.cube,
+              logical_width=fsr.render_width, logical_height=fsr.render_height,
+              sampling=sampling, ghost=fsr.ghost, classification=classification)
+    before = tm.tilemarch_render.launches
+    kc, kd = tm.tilemarch_render(*args, **kw)
+    pc, pd = tm.tilemarch_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert tm.tilemarch_render.launches == before + 1
+    assert (pc[:, 3] > 0).float().mean() > 0.1
+    assert_close(kc, pc)
+    assert_close(kd, pd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method,row", [("tilemarch", "tilemarch-1dev"),
+                                        ("slicemarch", "slicemarch-1dev")])
+def test_kernel_reproduces_golden_rows(cuda, tmp_path, method, row):
+    before = tm.tilemarch_render.launches
+    image, _ = api.render(r2_data(), api.RenderOptions(
+        width=48, height=48, render_method=method, device=cuda,
+        output_filename=str(tmp_path / "golden.ppm"),
+    ), verbose=False)
+    assert tm.tilemarch_render.launches == before + 1
+    ref = np.load(GOLDEN)[row]
+    finite = np.isfinite(ref)
+    np.testing.assert_array_equal(np.isfinite(image.pixels), finite)
+    np.testing.assert_allclose(image.pixels[finite], ref[finite], rtol=0, atol=ATOL)
+
+
+@pytest.mark.cuda
+def test_sentinel_steps_and_wrapper_checks(cuda):
+    fsr = FastSceneRenderer(three_level_geometry(), RenderParameters(
+        width=64, height=64), device=cuda)
+    inputs = fsr.frame_inputs(auto_orbit_camera(fsr.bounds))
+    num_tiles = (fsr.pad_w // 32) * (fsr.pad_h // 32)
+    kw = dict(width=fsr.pad_w, height=fsr.pad_h, max_slices=fsr.cube)
+    head = (fsr._packed_vol, inputs["meta"], inputs["dims"], fsr.lut, inputs["cam"])
+    items = (inputs["bricks"], inputs["owners"], inputs["item_bounds"])
+    c0, d0 = tm.tilemarch_render(*head, inputs["offsets"], *items,
+                                 inputs["tile_ids"], **kw)
+    pad = torch.full((2,), num_tiles, dtype=torch.int32, device=cuda)
+    offsets = torch.cat([inputs["offsets"], inputs["offsets"][-1:].repeat(2)])
+    c1, d1 = tm.tilemarch_render(*head, offsets, *items,
+                                 torch.cat([inputs["tile_ids"], pad]), **kw)
+    assert torch.equal(c1[:-2], c0) and torch.equal(d1[:-2], d0)
+    assert (c1[-2:] == 0).all() and torch.isinf(d1[-2:]).all()
+    with pytest.raises(TypeError, match="dtype"):
+        tm.tilemarch_render(*head, offsets.long(), *items,
+                            torch.cat([inputs["tile_ids"], pad]), **kw)
+    with pytest.raises(ValueError, match="is on cpu"):
+        tm.tilemarch_render(*head[:4], inputs["cam"].cpu(), inputs["offsets"],
+                            *items, inputs["tile_ids"], **kw)
