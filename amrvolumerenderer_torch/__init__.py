@@ -2,9 +2,11 @@
 
 A port of ``amrvolumerenderer_tpu`` (JAX/Pallas on a TPU) for one NVIDIA
 Hopper GPU: the single-device render path, from plotfile, CLI and API
-down to a hand-written CUDA tile-march kernel (``ops/csrc/tilemarch.cu``).
-It never imports jax; it shares the JAX package's jax-free host modules
-(types, scene, amr, plotfile, camera, colormap, visibility, native).
+down to hand-written CUDA kernels (``ops/csrc/``): the slice-march and tile
+composite kernels of the one-shot route, and the tile-march kernel for
+scenes of more than 96 pieces.  It imports neither jax nor the JAX
+package: the host modules (types, scene, amr, plotfile, camera, colormap,
+visibility, native) are its own copies.
 
 Public surface: ``render``, ``initialize_runtime``, ``finalize_runtime``,
 the in-situ API under ``amrvolumerenderer_torch.api`` and
@@ -77,7 +79,7 @@ def render(
     import math
 
     import numpy as np
-    from amrvolumerenderer_tpu.types import CameraParameters, color_map_from_tuples
+    from .types import CameraParameters, color_map_from_tuples
 
     from .driver import RunOptions, run_options
 

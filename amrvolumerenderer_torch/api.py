@@ -13,16 +13,20 @@ import math
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
-from amrvolumerenderer_tpu.amr import convexify
-from amrvolumerenderer_tpu.camera import safe_normalize
-from amrvolumerenderer_tpu.scene import (
+
+from .amr import convexify
+from .camera import safe_normalize
+from .device import DEFAULT_DEVICE, Device
+from .image import ImageBuffer
+from .renderer import RenderTiming, render_scene, validate_render_parameters
+from .scene import (
     LevelBox,
     LevelGeometry,
     SceneBuildOptions,
     build_scene_geometry,
     set_scene_normalization_range,
 )
-from amrvolumerenderer_tpu.types import (
+from .types import (
     CameraParameters,
     ColorMap,
     ColorMapControlPoint,
@@ -30,11 +34,6 @@ from amrvolumerenderer_tpu.types import (
     SceneGeometry,
     vec3,
 )
-
-from .device import DEFAULT_DEVICE, Device
-from .image import ImageBuffer
-from .renderer import RenderTiming, render_scene, validate_render_parameters
-
 
 @dataclasses.dataclass
 class AmrData:
@@ -72,7 +71,7 @@ class RenderOptions:
     classification: str = "post"  # or "pre" (trilinear only)
     lut_size: int = 256  # transfer-function LUT entries (multiple of 128)
     devices: Optional[int] = None  # more than one is not ported yet
-    render_method: str = "auto"  # auto, tilemarch, slicemarch
+    render_method: str = "auto"  # auto (= slicemarch), slicemarch, tilemarch
     multichip_pipeline: str = "auto"
     multichip_transport: str = "float32"
     device: Device = DEFAULT_DEVICE

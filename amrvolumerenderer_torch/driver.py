@@ -15,23 +15,23 @@ import os
 from typing import List, Optional, Tuple
 
 import numpy as np
-from amrvolumerenderer_tpu.amr import convexify
-from amrvolumerenderer_tpu.camera import safe_normalize
-from amrvolumerenderer_tpu.plotfile import (
+
+from .amr import convexify
+from .api import apply_scalar_override_and_colormap, validate_camera
+from .camera import safe_normalize
+from .device import DEFAULT_DEVICE
+from .plotfile import (
     read_plotfile_header,
     write_plotfile,  # noqa: F401 - re-exported for scripts that make plotfiles
 )
-from amrvolumerenderer_tpu.scene import SceneBuildOptions, build_scene_geometry
-from amrvolumerenderer_tpu.types import (
+from .renderer import render_scene, validate_render_parameters
+from .scene import SceneBuildOptions, build_scene_geometry
+from .types import (
     CameraParameters,
     ColorMap,
     RenderParameters,
     SceneGeometry,
 )
-
-from .api import apply_scalar_override_and_colormap, validate_camera
-from .device import DEFAULT_DEVICE
-from .renderer import render_scene, validate_render_parameters
 
 USAGE = """Usage: volume_renderer [options] plotfile
   --width W        Image width (default: 512)
@@ -51,8 +51,9 @@ USAGE = """Usage: volume_renderer [options] plotfile
   --device D       Torch device to render on: cuda (default) or cpu (the plain
                    PyTorch path); cuda fails when no GPU is available
   --devices N      Mesh device count (only 1 is ported)
-  --render-method M  Kernel selection: auto, tilemarch, slicemarch (all use
-                   the tile-march kernel; raymarch is not ported)
+  --render-method M  Kernel route: auto (= slicemarch), slicemarch (march +
+                   tile composite kernels; scenes of more than 96 pieces go
+                   to tile-march) or tilemarch; raymarch is not ported
   --trace-dir DIR  Write a torch.profiler Chrome trace of the render into DIR
   --classification MODE  Transfer-function classification for trilinear
                    sampling: post (default) or pre

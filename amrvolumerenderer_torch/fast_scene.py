@@ -18,16 +18,9 @@ from typing import Optional
 import numpy as np
 import torch
 from torch import nn
-from amrvolumerenderer_tpu.camera import camera_basis
-from amrvolumerenderer_tpu.colormap import SOFT_CLIP_TOLERANCE, build_color_table
-from amrvolumerenderer_tpu.types import (
-    CameraParameters,
-    ColorMap,
-    RenderParameters,
-    SceneGeometry,
-)
-from amrvolumerenderer_tpu.visibility import OrderKeyCache, order_keys_or_hints
 
+from .camera import camera_basis
+from .colormap import SOFT_CLIP_TOLERANCE, build_color_table
 from .device import DEFAULT_DEVICE, Device, resolve_device
 from .ops import tilemarch as tm
 from .ops import worklist as wl
@@ -40,6 +33,13 @@ from .renderer import (
     validate_render_parameters,
 )
 from .renderer_fast import _device_downsample, _pretransform
+from .types import (
+    CameraParameters,
+    ColorMap,
+    RenderParameters,
+    SceneGeometry,
+)
+from .visibility import OrderKeyCache, order_keys_or_hints
 
 MAX_CUBE = 32  # largest stored piece edge (32 * 32 = one 1024-cell slice)
 

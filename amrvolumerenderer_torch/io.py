@@ -12,8 +12,8 @@ import struct
 import zlib
 
 import numpy as np
-from amrvolumerenderer_tpu import native
 
+from . import native
 from .image import ImageBuffer, color_to_byte
 
 

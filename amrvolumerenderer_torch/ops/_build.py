@@ -3,7 +3,8 @@
 Each kernel source under ``ops/csrc/`` exposes a plain C entry point, so
 it compiles in seconds without PyTorch's headers.  The shared library is
 built at first use into ``build/torch_kernels/`` beside the package,
-keyed by a hash of the source and the flags, and loaded once per process.
+keyed by a hash of the source, the headers it includes and the flags, and
+loaded once per process; ``build_all`` compiles several sources at once.
 A missing compiler or a failed build raises: there is no fallback.
 """
 
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -37,7 +39,10 @@ _F = ctypes.c_float
 # C signature of each kernel's launch function
 _SIGNATURES = {
     "tilemarch": ("avr_tilemarch_launch", [_P] * 13 + [_I] * 6 + [_F, _F, _I, _I, _P]),
+    "slicemarch": ("avr_slicemarch_launch", [_P] * 11 + [_I] * 7 + [_F, _F, _I, _I, _P]),
+    "composite": ("avr_composite_launch", [_P] * 7 + [_I, _I, _P]),
 }
+KERNELS = tuple(_SIGNATURES)
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 build_log: Dict[str, str] = {}  # name -> nvcc output of this process's build
@@ -60,41 +65,65 @@ def _nvcc() -> str:
     return path
 
 
+def _sources(name: str):
+    """``csrc/<name>.cu`` and every ``csrc/`` header it includes, in
+    include order (``#include "..."`` lines, followed recursively)."""
+    todo, seen = [f"{name}.cu"], []
+    while todo:
+        fname = todo.pop(0)
+        if fname in seen:
+            continue
+        seen.append(fname)
+        with open(os.path.join(_CSRC, fname)) as f:
+            todo += re.findall(r'^\s*#\s*include\s+"([^"]+)"', f.read(), re.M)
+    return seen
+
+
 def library_path(name: str) -> str:
-    """Where the built library for ``name`` lives (hash of source + flags)."""
-    with open(os.path.join(_CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """Where the built library for ``name`` lives: a hash of the source,
+    the headers it includes and the flags, so an edited header rebuilds."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for fname in _sources(name):
+        with open(os.path.join(_CSRC, fname), "rb") as f:
+            digest.update(fname.encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
 
 
-def build(name: str) -> str:
-    """Compile ``csrc/<name>.cu`` unless its hashed library exists."""
-    out = library_path(name)
-    if os.path.exists(out):
-        build_seconds.setdefault(name, 0.0)
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(_CSRC, f"{name}.cu")]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_seconds[name] = time.perf_counter() - t0
-    build_log[name] = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed to build {name}.cu:\n{build_log[name]}"
-        )
-    os.replace(tmp, out)  # atomic: concurrent builders never see half a file
-    return out
+def build_all(names=KERNELS) -> None:
+    """Compile every kernel of ``names`` whose library is missing, one
+    ``nvcc`` per source, all started together."""
+    pending = {}
+    for name in names:
+        out = library_path(name)
+        if os.path.exists(out):
+            build_seconds.setdefault(name, 0.0)
+            continue
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(_CSRC, f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        pending[name] = (proc, tmp, out, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, out, t0) in pending.items():
+        build_log[name] = proc.communicate()[0]
+        build_seconds[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"nvcc failed to build {name}.cu:\n{build_log[name]}")
+        else:
+            os.replace(tmp, out)  # atomic: concurrent builders never see half a file
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built on first use."""
     lib = _loaded.get(name)
     if lib is None:
-        lib = ctypes.CDLL(build(name))
+        build_all([name])
+        lib = ctypes.CDLL(library_path(name))
         fn_name, argtypes = _SIGNATURES[name]
         fn = getattr(lib, fn_name)
         fn.argtypes = argtypes

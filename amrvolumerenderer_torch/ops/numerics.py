@@ -11,10 +11,10 @@ op for op like plain PyTorch:
     estimate (``vrsqrtps``), which is a table of 12-bit values indexed by
     the exponent parity and the top 10 mantissa bits.
 
-These helpers reproduce all three, so the tile-march plain version and
-the CUDA kernel (``csrc/tilemarch.cu``, which takes ``RSQRT_SEED`` as an
+These helpers reproduce all three, so the plain versions (``march``) and
+the CUDA kernels (``csrc/march.cuh``, which takes ``RSQRT_SEED`` as an
 argument) match the JAX reference bit for bit on the tested scenes
-(tests/test_torch_tilemarch.py).  The FMA sites were read off XLA's
+(tests/test_torch_tilemarch.py, tests/test_torch_slicemarch.py).  The FMA sites were read off XLA's
 optimised LLVM IR of the interpret-mode kernel; each call site of
 ``fma`` names one.
 """

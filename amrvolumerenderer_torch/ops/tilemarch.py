@@ -22,23 +22,18 @@ from typing import Optional, Tuple
 
 import torch
 
-from .numerics import RSQRT_SEED, exp as _exp, fma as _fma, rsqrt as _rsqrt
+from .march import (
+    blend,
+    check_args,
+    f32,
+    march_pieces,
+    require,
+    seed_table,
+    tile_rays,
+)
 from .worklist import LANES, SUBLANES, TILE_H, TILE_P, TILE_W
 
 Tensor = torch.Tensor
-
-def _f32(v: float) -> float:
-    """``v`` rounded to float32, as JAX rounds a Python constant."""
-    return float(torch.tensor(v, dtype=torch.float32))
-
-
-def _check_args(width, height, sampling, classification):
-    if width % TILE_W or height % TILE_H:
-        raise ValueError(f"frame {width}x{height} is not a multiple of the tile")
-    if sampling not in ("nearest", "trilinear"):
-        raise ValueError(f"unknown sampling {sampling!r}")
-    if classification not in ("post", "pre"):
-        raise ValueError(f"unknown classification {classification!r}")
 
 
 def _defaults(dims, tile_bricks, item_bounds, tile_ids, width, height):
@@ -75,68 +70,24 @@ def tilemarch_reference(
     step x 1024 pixels.  Python loops run over the item rank within a tile
     (up to the longest CSR list) and over the slices of that rank's items,
     folding samples strictly in order as the kernel does."""
-    _check_args(width, height, sampling, classification)
+    check_args(width, height, sampling, classification)
     item_bounds, tile_ids = _defaults(
         dims, tile_bricks, item_bounds, tile_ids, width, height
     )
     dev = vol.device
-    f32 = torch.float32
-    lw = logical_width or width
-    lh = logical_height or height
-    num_bricks, stored = vol.shape[0], vol.shape[1]
-    vol_flat = vol.reshape(-1).to(f32)
-    lut2 = lut.reshape(4, -1).to(f32)
-    table_max = lut2.shape[1] - 1
     steps = tile_ids.shape[0]
-    inf = torch.tensor(float("inf"), dtype=f32, device=dev)
+    inf = torch.tensor(float("inf"), dtype=torch.float32, device=dev)
+    dirs, fwd_dot = tile_rays(tile_ids, cam, width, logical_width or width,
+                              logical_height or height)
+    lut_one = lut.reshape(1, 4, -1)  # one table for every piece
+    lut_rows = torch.zeros(steps, dtype=torch.long, device=dev)
 
-    cam = cam.to(f32)
-    eye_w = [cam[i] for i in range(3)]
-    fwd = [cam[3 + i] for i in range(3)]
-    right = [cam[6 + i] for i in range(3)]
-    up = [cam[9 + i] for i in range(3)]
-    tan_half_fov, aspect = cam[12], cam[13]
-    range_min, inverse_range, ref_distance = cam[14], cam[15], cam[16]
-
-    # ---- per-step rays: [G, 1024], pixel p of the tile at (p % 32, p // 32)
-    tiles_x = width // TILE_W
-    flat = torch.arange(TILE_P, device=dev)
-    t = tile_ids.long()[:, None]
-    px = ((t % tiles_x) * TILE_W + flat % TILE_W).to(f32)
-    py = ((t // tiles_x) * TILE_H + flat // TILE_W).to(f32)
-    ndc_x = _fma(px + 0.5, _f32(2.0 / lw), -1.0)
-    ndc_y = _fma(py + 0.5, _f32(2.0 / lh), -1.0)
-    plane_x = ndc_x * tan_half_fov * aspect
-    plane_y = ndc_y * tan_half_fov
-    d_w = [
-        _fma(up[i], plane_y, _fma(right[i], plane_x, fwd[i]))
-        for i in range(3)
-    ]
-    len_sq = _fma(d_w[2], d_w[2], _fma(d_w[0], d_w[0], d_w[1] * d_w[1]))
-    inv_len = torch.where(len_sq > 0.0, _rsqrt(len_sq), 0.0)
-    d_w = [di * inv_len for di in d_w]
-    ray_fwd_dot = _fma(d_w[2], fwd[2], _fma(d_w[0], fwd[0], d_w[1] * fwd[1]))
-    eye_stack = torch.stack(eye_w)  # [3]
-    d_stack = torch.stack(d_w)  # [3, G, 1024]
-
-    zero = torch.zeros((steps, TILE_P), dtype=f32, device=dev)
+    zero = torch.zeros((steps, TILE_P), dtype=torch.float32, device=dev)
     run_c = [zero] * 4
     run_d = zero + inf
     tot_c = [zero] * 4
     tot_d = zero + inf
     have_tot = torch.zeros((steps, 1), dtype=torch.bool, device=dev)
-
-    def blend(top_c, top_d, bot_c, bot_d):
-        top_front = top_d <= bot_d
-        one_minus = 1.0 - torch.where(top_front, top_c[3], bot_c[3])
-        out_c = [
-            _fma(
-                torch.where(top_front, bot_c[ch], top_c[ch]), one_minus,
-                torch.where(top_front, top_c[ch], bot_c[ch]),
-            )
-            for ch in range(4)
-        ]
-        return out_c, torch.minimum(top_d, bot_d)
 
     def sel(pred, a, b):
         return [torch.where(pred, x, y) for x, y in zip(a, b)]
@@ -146,170 +97,16 @@ def tilemarch_reference(
     counts = offsets[1:] - begin
     num_items = tile_bricks.shape[0]
     max_rank = int(counts.max()) if steps and num_items else 0
-    bricks_l = tile_bricks.long()
     owners_l = tile_owners.long()
-    bounds_l = item_bounds.long()
-    meta = meta.to(f32)
-    dims_l = dims.long()
-    steps_idx = torch.arange(steps, device=dev)
 
     for rank in range(max_rank):
         active = (rank < counts)[:, None]  # [G, 1]
         widx = (begin + rank).clamp(0, num_items - 1)
-        b = bricks_l[widx]  # [G]
-        m = meta[b]  # [G, 12]
-        dm = dims_l[b]  # [G, 8]
-        pmin = [m[:, i, None] for i in range(3)]
-        pmax = [m[:, 3 + i, None] for i in range(3)]
-        cell = [m[:, 6 + i, None] for i in range(3)]
-        n_slices = dm[:, 0, None]
-        nu = dm[:, 1, None]
-        nv = dm[:, 2, None]
-        perm = [dm[:, 3 + i] for i in range(3)]
-        nv_stride = torch.where(dm[:, 6] > 0, dm[:, 6], dm[:, 2])[:, None]
-        sb = bounds_l[widx]
-        s_lo = torch.where(sb > 0, sb >> 16, 0)[:, None]
-        s_hi = torch.where(sb > 0, sb & 0xFFFF, dm[:, 0])[:, None]
-
-        def pick(p, world):
-            idx = torch.where((p == 0) | (p == 1), p, 2)
-            if world.dim() == 1:
-                return world[idx][:, None]
-            return world[idx, steps_idx]  # [G, 1024]
-
-        eye = [pick(perm[i], eye_stack) for i in range(3)]
-        d = [pick(perm[i], d_stack) for i in range(3)]
-
-        tmin = zero - inf
-        tmax = zero + inf
-        for axis in range(3):
-            parallel = torch.abs(d[axis]) < 1e-8
-            inv = 1.0 / torch.where(parallel, 1.0, d[axis])
-            t1 = (pmin[axis] - eye[axis]) * inv
-            t2 = (pmax[axis] - eye[axis]) * inv
-            lo = torch.minimum(t1, t2)
-            hi = torch.maximum(t1, t2)
-            inside = (eye[axis] >= pmin[axis]) & (eye[axis] <= pmax[axis])
-            lo = torch.where(parallel, torch.where(inside, -inf, inf), lo)
-            hi = torch.where(parallel, torch.where(inside, inf, -inf), hi)
-            tmin = torch.maximum(tmin, lo)
-            tmax = torch.minimum(tmax, hi)
-        hit = (tmax >= tmin) & (tmax > 0.0)
-        d_a = d[0]
-        marchable = torch.abs(d_a) > 1e-8
-        inv_da = 1.0 / torch.where(marchable, d_a, 1.0)
-        backward = d_a < 0.0
-        dt = cell[0] * torch.abs(inv_da)
-        t_lo = torch.clamp(tmin, min=0.0)
-        t_hi = tmax
-        hi_k = torch.clamp(s_hi, max=max_slices)
-        lim = torch.minimum(s_hi, n_slices)
-        live = hit & marchable & active
-        trips = int((hi_k - s_lo)[active].max()) if bool(active.any()) else 0
-
-        acc = [zero] * 4
-        for kk in range(max(trips, 0)):
-            k = s_lo + kk  # [G, 1]
-            k_eff = torch.where(backward, s_lo + s_hi - 1 - k, k)
-            z_k = _fma(k_eff.to(f32) + 0.5, cell[0], pmin[0])
-            t_k = (z_k - eye[0]) * inv_da
-            pos_u = _fma(d[1], t_k, eye[1])
-            pos_v = _fma(d[2], t_k, eye[2])
-            w = torch.clamp(
-                torch.minimum(t_k + 0.5 * dt, t_hi)
-                - torch.maximum(t_k - 0.5 * dt, t_lo),
-                min=0.0,
-            )
-            valid = live & (k < hi_k) & (k < lim) & (w > 0.0)
-            k_load = torch.minimum(k, torch.clamp(s_hi - 1, min=0))
-            k_rev_load = torch.clamp(
-                s_lo + s_hi - 1 - k_load, 0, max_slices - 1 - ghost
-            )
-            slice_ = torch.where(backward, k_rev_load, k_load) + ghost
-            base = (b[:, None] * stored + slice_.clamp(0, stored - 1)) * TILE_P
-
-            def gather(iu_, iv_):
-                cell_idx = (iu_ + ghost) * nv_stride + (iv_ + ghost)
-                return vol_flat[base + cell_idx.clamp(0, TILE_P - 1)]
-
-            def classify(scalar):
-                normalized = torch.clamp(
-                    (scalar - range_min) * inverse_range, 0.0, 1.0
-                )
-                idx = torch.clamp(
-                    (normalized * table_max).to(torch.int64), 0, table_max
-                )
-                return [lut2[ch][idx] for ch in range(4)]
-
-            if sampling == "nearest":
-                # clamp in float first: float->int of an out-of-range value
-                # is undefined on the CPU, and the result clips anyway
-                fu = torch.floor((pos_u - pmin[1]) / cell[1])
-                fv = torch.floor((pos_v - pmin[2]) / cell[2])
-                iu = torch.minimum(
-                    torch.clamp(fu, -1.0, 1e9).to(torch.int64), nu - 1
-                ).clamp(min=0)
-                iv = torch.minimum(
-                    torch.clamp(fv, -1.0, 1e9).to(torch.int64), nv - 1
-                ).clamp(min=0)
-                s_r, s_g, s_b, s_l = classify(gather(iu, iv))
-            else:
-                g = float(ghost)
-                pu = (pos_u - pmin[1]) / cell[1] - 0.5
-                pv = (pos_v - pmin[2]) / cell[2] - 0.5
-                pu = torch.minimum(torch.clamp(pu, min=-g), (nu - 1).to(f32) + g)
-                pv = torch.minimum(torch.clamp(pv, min=-g), (nv - 1).to(f32) + g)
-                fu0 = torch.floor(pu)
-                fv0 = torch.floor(pv)
-                wu = torch.clamp(pu - fu0, 0.0, 1.0)
-                wv = torch.clamp(pv - fv0, 0.0, 1.0)
-                iu0 = fu0.to(torch.int64)
-                iu1 = torch.minimum(iu0 + 1, nu - 1 + ghost)
-                iv0 = fv0.to(torch.int64)
-                iv1 = torch.minimum(iv0 + 1, nv - 1 + ghost)
-                corners = (
-                    gather(iu0, iv0), gather(iu1, iv0),
-                    gather(iu0, iv1), gather(iu1, iv1),
-                )
-                if classification == "pre":
-                    wts = (
-                        (1.0 - wu) * (1.0 - wv), wu * (1.0 - wv),
-                        (1.0 - wu) * wv, wu * wv,
-                    )
-                    cls = [classify(v_c) for v_c in corners]
-                    for c_ in cls:
-                        c_[3] = torch.clamp(c_[3], min=-1e4)
-                    # c0*w0 + c1*w1 contracts its first product
-                    s_r, s_g, s_b, s_l = [
-                        _fma(cls[0][ch], wts[0], cls[1][ch] * wts[1])
-                        for ch in range(4)
-                    ]
-                    for c_, wgt in zip(cls[2:], wts[2:]):
-                        s_r, s_g, s_b, s_l = [
-                            _fma(c_[ch], wgt, acc_)
-                            for ch, acc_ in enumerate((s_r, s_g, s_b, s_l))
-                        ]
-                else:
-                    v0 = _fma(corners[0], 1.0 - wu, corners[1] * wu)
-                    v1 = _fma(corners[2], 1.0 - wu, corners[3] * wu)
-                    s_r, s_g, s_b, s_l = classify(
-                        _fma(v0, 1.0 - wv, v1 * wv)
-                    )
-
-            q_k = w / ref_distance
-            a = torch.where(valid, 1.0 - _exp(q_k * s_l), 0.0)
-            one_m = 1.0 - acc[3]
-            acc = [
-                _fma(s_r * a, one_m, acc[0]),
-                _fma(s_g * a, one_m, acc[1]),
-                _fma(s_b * a, one_m, acc[2]),
-                _fma(a, one_m, acc[3]),
-            ]
-
-        c = [torch.clamp(x, 0.0, 1.0) for x in acc]
-        entry_depth = tmin * ray_fwd_dot
-        dd = torch.where(
-            hit & (c[3] > 0.0) & torch.isfinite(entry_depth), entry_depth, inf
+        c, dd = march_pieces(
+            vol, meta, dims, lut_one, lut_rows, cam, tile_bricks[widx],
+            item_bounds[widx], dirs, fwd_dot, active, max_slices=max_slices,
+            sampling=sampling, ghost=ghost, classification=classification,
+            rolled=False,
         )
 
         # per-owner run fold (ties keep the earlier item in front)
@@ -337,28 +134,6 @@ def tilemarch_reference(
         out_c.reshape(steps, 4, SUBLANES, LANES),
         out_d.reshape(steps, SUBLANES, LANES),
     )
-
-
-_seed_tables: dict = {}  # device -> RSQRT_SEED on that device
-
-
-def _seed_table(dev: torch.device) -> Tensor:
-    table = _seed_tables.get(dev)
-    if table is None:
-        table = torch.from_numpy(RSQRT_SEED).to(dev).contiguous()
-        _seed_tables[dev] = table
-    return table
-
-
-def _require(t: Tensor, name: str, dtype, shape, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
 
 
 def tilemarch_render(
@@ -397,38 +172,38 @@ def tilemarch_render(
         return tilemarch_reference(*args, item_bounds, tile_ids, **kw)
     if vol.device.type != "cuda":
         raise ValueError(f"tilemarch_render has no kernel for {vol.device}")
-    _check_args(width, height, sampling, classification)
+    check_args(width, height, sampling, classification)
     item_bounds, tile_ids = _defaults(
         dims, tile_bricks, item_bounds, tile_ids, width, height
     )
     dev = vol.device
-    i32, f32 = torch.int32, torch.float32
+    i32, f32_ = torch.int32, torch.float32
     num_bricks, stored = vol.shape[0], vol.shape[1]
     steps = tile_ids.shape[0]
     items = tile_bricks.shape[0]
-    _require(vol, "vol", f32, (num_bricks, stored, SUBLANES, LANES), dev)
-    _require(meta, "meta", f32, (num_bricks, 12), dev)
-    _require(dims, "dims", i32, (num_bricks, 8), dev)
+    require(vol, "vol", f32_, (num_bricks, stored, SUBLANES, LANES), dev)
+    require(meta, "meta", f32_, (num_bricks, 12), dev)
+    require(dims, "dims", i32, (num_bricks, 8), dev)
     if lut.dim() != 3 or lut.shape[0] != 4 or lut.shape[2] != LANES:
         raise ValueError(f"lut has shape {tuple(lut.shape)}, expected [4, n, 128]")
-    _require(lut, "lut", f32, tuple(lut.shape), dev)
-    _require(cam, "cam", f32, (20,), dev)
-    _require(tile_offsets, "tile_offsets", i32, (steps + 1,), dev)
-    _require(tile_bricks, "tile_bricks", i32, (items,), dev)
-    _require(tile_owners, "tile_owners", i32, (items,), dev)
-    _require(item_bounds, "item_bounds", i32, (items,), dev)
-    _require(tile_ids, "tile_ids", i32, (steps,), dev)
+    require(lut, "lut", f32_, tuple(lut.shape), dev)
+    require(cam, "cam", f32_, (20,), dev)
+    require(tile_offsets, "tile_offsets", i32, (steps + 1,), dev)
+    require(tile_bricks, "tile_bricks", i32, (items,), dev)
+    require(tile_owners, "tile_owners", i32, (items,), dev)
+    require(item_bounds, "item_bounds", i32, (items,), dev)
+    require(tile_ids, "tile_ids", i32, (steps,), dev)
     if not 0 < max_slices <= stored:
         raise ValueError(f"max_slices {max_slices} outside (0, {stored}]")
 
-    out_c = torch.empty((steps, 4, SUBLANES, LANES), dtype=f32, device=dev)
-    out_d = torch.empty((steps, SUBLANES, LANES), dtype=f32, device=dev)
+    out_c = torch.empty((steps, 4, SUBLANES, LANES), dtype=f32_, device=dev)
+    out_d = torch.empty((steps, SUBLANES, LANES), dtype=f32_, device=dev)
     if steps == 0:
         return out_c, out_d
     from . import _build
 
     lib = _build.load("tilemarch")
-    seed = _seed_table(dev)
+    seed = seed_table(dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.avr_tilemarch_launch(
         vol.data_ptr(), meta.data_ptr(), dims.data_ptr(), lut.data_ptr(),
@@ -436,8 +211,8 @@ def tilemarch_render(
         tile_owners.data_ptr(), item_bounds.data_ptr(), tile_ids.data_ptr(),
         seed.data_ptr(), out_c.data_ptr(), out_d.data_ptr(),
         steps, stored, lut.shape[1] * LANES, width // TILE_W, max_slices,
-        ghost, _f32(2.0 / (logical_width or width)),
-        _f32(2.0 / (logical_height or height)),
+        ghost, f32(2.0 / (logical_width or width)),
+        f32(2.0 / (logical_height or height)),
         int(sampling == "trilinear"), int(classification == "pre"), stream,
     )
     if rc != 0:

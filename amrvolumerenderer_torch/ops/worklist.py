@@ -2,7 +2,7 @@
 
 Carried over from the JAX package (``ops/slicemarch.py`` and
 ``ops/tilemarch.py``) so the port builds the same per-frame inputs without
-importing those jax modules: screen-bbox work lists, the march axis, the
+importing those modules: screen-bbox work lists, the march axis, the
 occupied-slice bounds, the log-LUT, the camera pack and the per-tile CSR
 lists with tightened per-item slice bands.  Where the originals call the
 native library they call it the same way, so the inputs are byte-identical
@@ -11,11 +11,12 @@ to the JAX package's (tests/test_torch_worklist.py).
 
 from __future__ import annotations
 
-import ctypes
 import math
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
+
+from .. import native
 
 LANES = 128
 SUBLANES = 8
@@ -239,9 +240,7 @@ def block_occupancy_bits(
         # the packed masks are uint64: nq > 8 would silently drop high
         # bits and non-conservatively skip occupied slices
         raise ValueError("block occupancy masks support at most 8x8 blocks")
-    from amrvolumerenderer_tpu import native as _native
-
-    native_out = _native.block_occupancy_bits(
+    native_out = native.block_occupancy_bits(
         quad_min, quad_max, lut_alpha, range_min, inverse_range
     )
     if native_out is not None:
@@ -552,7 +551,7 @@ def compute_item_bands(
     ``seg_len``/``margin`` tune the footprint granularity/pad (see
     ``compute_item_slice_bounds``; ``footprint_margin`` gives the tight
     pad per sampling mode)."""
-    res = _native_item_bands(
+    res = native.item_bands(
         meta, brick_bounds, wt, wb, eye, forward, right, up,
         fov_y_degrees, axes, width, logical_width, logical_height,
         occ_bits, nq, split, split_v, ghost, min_gap,
@@ -618,66 +617,3 @@ def build_tile_worklist(
         wb_sorted.astype(np.int32),
         owners[wb_sorted].astype(np.int32),
     )
-
-
-def _native_item_bands(
-    meta, brick_bounds, wt, wb, eye, forward, right, up, fov_y_degrees,
-    axes, width, logical_width, logical_height, occ_bits, nq, split,
-    split_v=None, ghost=0, min_gap=6, seg_len=4, margin=None,
-):
-    """``native.item_bands`` of the JAX package (the same ctypes call into
-    ``avr_item_bands_v2``), without its import of the jax-bound
-    ``ops.slicemarch`` for the tile size.  None when the library or the
-    symbol is unavailable (the caller then runs the NumPy oracle)."""
-    from amrvolumerenderer_tpu import native as _native
-
-    lib = _native.get_lib()
-    if lib is None or not hasattr(lib, "avr_item_bands_v2") or seg_len < 1:
-        return None
-    ptr = _native._ptr
-    axes = list(axes)
-    meta = np.ascontiguousarray(meta, dtype=np.float32)
-    bb = np.ascontiguousarray(brick_bounds, dtype=np.int32)
-    wt64 = np.ascontiguousarray(wt, dtype=np.int64)
-    wb64 = np.ascontiguousarray(wb, dtype=np.int64)
-    occ_bits = np.ascontiguousarray(occ_bits, dtype=np.uint64)
-    eye_p, fwd_p, right_p, up_p = (
-        np.ascontiguousarray(np.asarray(v, np.float64)[axes])
-        for v in (eye, forward, right, up)
-    )
-    if split_v is None:
-        split_v = split
-    per_brick = 1 if (np.ndim(split) or np.ndim(split_v)) else 0
-    su = np.atleast_1d(np.asarray(split, np.float64))
-    sv = np.atleast_1d(np.asarray(split_v, np.float64))
-    if per_brick:
-        if len(su) == 1:
-            su = np.full(len(meta), su[0])
-        if len(sv) == 1:
-            sv = np.full(len(meta), sv[0])
-        if len(su) != len(meta) or len(sv) != len(meta):
-            return None
-    su = np.ascontiguousarray(su)
-    sv = np.ascontiguousarray(sv)
-    n = len(wt64)
-    band1 = np.empty(n, dtype=np.int32)
-    band2 = np.empty(n, dtype=np.int32)
-    fwd_flag = np.empty(n, dtype=np.uint8)
-    ok = lib.avr_item_bands_v2(
-        ptr(meta, ctypes.c_float), ptr(bb, ctypes.c_int32),
-        ptr(wt64, ctypes.c_int64), ptr(wb64, ctypes.c_int64), n,
-        ptr(eye_p, ctypes.c_double), ptr(fwd_p, ctypes.c_double),
-        ptr(right_p, ctypes.c_double), ptr(up_p, ctypes.c_double),
-        math.tan(math.radians(fov_y_degrees) * 0.5),
-        logical_width / max(logical_height, 1),
-        width // TILE_W, TILE_W, TILE_H, logical_width, logical_height,
-        ptr(occ_bits, ctypes.c_uint64), occ_bits.shape[1], int(nq),
-        ptr(su, ctypes.c_double), ptr(sv, ctypes.c_double), per_brick,
-        int(ghost), int(min_gap), int(seg_len),
-        float(ghost + 2.0 if margin is None else margin),
-        ptr(band1, ctypes.c_int32), ptr(band2, ctypes.c_int32),
-        ptr(fwd_flag, ctypes.c_uint8),
-    )
-    if not ok:
-        return None
-    return band1, band2, fwd_flag.astype(bool)

@@ -2,8 +2,9 @@
 
 Mirrors the JAX package's ``renderer.py`` (and VolumeRenderer.cpp's
 renderScene / renderSingleTrial flow, cpp:947-1339) for one device:
-bounds and scalar range, visibility order, the fused tile-march frame on
-the device, the bounds wireframe overlay and PPM/PNG output.
+bounds and scalar range, visibility order, the fused frame on the device
+(slice-march + tile composite, or tile-march), the bounds wireframe
+overlay and PPM/PNG output.
 """
 
 from __future__ import annotations
@@ -15,19 +16,21 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
-from amrvolumerenderer_tpu.camera import auto_orbit_camera, safe_normalize
-from amrvolumerenderer_tpu.types import (
+
+from . import io as image_io
+from . import native
+from .camera import auto_orbit_camera, safe_normalize
+from .device import DEFAULT_DEVICE, Device, resolve_device
+from .image import ImageBuffer, ImageKind
+from .scene import _scalar_stats
+from .types import (
     CameraParameters,
     ColorMap,
     RenderParameters,
     SceneGeometry,
     VolumeBounds,
 )
-from amrvolumerenderer_tpu.visibility import build_visibility_order
-
-from . import io as image_io
-from .device import DEFAULT_DEVICE, Device, resolve_device
-from .image import ImageBuffer, ImageKind
+from .visibility import build_visibility_order
 
 K_PI = 3.14159265358979323846
 
@@ -116,8 +119,6 @@ def compute_global_scalar_range(geometry: SceneGeometry) -> Tuple[float, float]:
     """Transformed scalar min/max over all bricks (VolumeRenderer.cpp:
     851-878): the transform is monotone, so it is applied to the raw range.
     Non-finite samples count as 0.0."""
-    from amrvolumerenderer_tpu.scene import _scalar_stats
-
     if not geometry.bricks:
         return 0.0, 1.0
     min_v, max_v, _min_pos, count = _scalar_stats(
@@ -266,8 +267,6 @@ def downsample_image(
     source: ImageBuffer, target_width: int, target_height: int, sqrt_aa: int
 ) -> ImageBuffer:
     """Supersample box-average downsample (VolumeRenderer.cpp:479-528)."""
-    from amrvolumerenderer_tpu import native
-
     block = max(sqrt_aa, 1)
     if block <= 1:
         raise ValueError("downsample expects sqrtAA > 1")
@@ -296,19 +295,53 @@ class RenderTiming:
 
 
 def resolve_render_method(method: str, sampling: str = "nearest") -> str:
-    """The kernel route for ``method``.  The port has one: ``"auto"``,
-    ``"tilemarch"`` and ``"slicemarch"`` all resolve to the tile-march
-    kernel (the JAX package's slice-march route renders the same frame:
-    its golden row matches the tile-march row within 1.2e-7).  The
-    raymarch oracle is not ported yet."""
-    if method in ("auto", "tilemarch", "slicemarch"):
+    """The kernel route for ``method``, as the JAX package resolves it on a
+    TPU: ``"slicemarch"`` (and ``"auto"``) is the one-shot slice-march +
+    tile composite route, which hands scenes of more than 96 pieces to the
+    tile-march kernel; ``"tilemarch"`` is the tile-march route.  The
+    raymarch oracle (the JAX package's CPU default) is not ported yet."""
+    if method in ("auto", "slicemarch"):
+        return "slicemarch"
+    if method == "tilemarch":
         return "tilemarch"
     if method == "raymarch":
         raise ValueError(
             "render method 'raymarch' is not ported to PyTorch yet (ROADMAP.md "
-            "module item 4); use auto, tilemarch or slicemarch"
+            "module item 4); use auto, slicemarch or tilemarch"
         )
     raise ValueError(f"unknown render method '{method}'")
+
+
+def render_layers(
+    geometry: SceneGeometry,
+    parameters: RenderParameters,
+    camera: CameraParameters,
+    bounds: VolumeBounds,
+    scalar_range: Tuple[float, float],
+    reference_sample_distance: float,
+    render_width: int,
+    render_height: int,
+    color_map: Optional[ColorMap],
+    method: str = "auto",
+    device: Device = DEFAULT_DEVICE,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Every piece rendered into a full-frame RGBA+depth layer: (layers
+    [L, P, 5], depth_hints [L], owners [L], local_indices [L]), through the
+    slice-march kernel (``renderer_fast.render_layers_slicemarch``).  The
+    JAX package's other layered route is the raymarch oracle, which is not
+    ported yet."""
+    if resolve_render_method(method, parameters.sampling) != "slicemarch":
+        raise ValueError(
+            f"render method '{method}' has no layered route in the port: the "
+            "raymarch layers are ROADMAP.md module item 4; use slicemarch"
+        )
+    from .renderer_fast import render_layers_slicemarch
+
+    return render_layers_slicemarch(
+        geometry, parameters, camera, bounds, scalar_range,
+        reference_sample_distance, render_width, render_height, color_map,
+        device=device,
+    )
 
 
 def render_single_trial(
@@ -327,9 +360,11 @@ def render_single_trial(
     """One full render: visibility order, the fused frame on ``device``
     (render + composite + AA downsample), overlay, save
     (VolumeRenderer.cpp:1103-1339).  ``scalar_range`` must be the one
-    ``render_scene`` derives from ``geometry``: the frame's scene renderer
-    derives it again, as the JAX package's persistent renderer does."""
-    from .renderer_fast import render_composited_tilemarch
+    ``render_scene`` derives from ``geometry``."""
+    from .renderer_fast import (
+        render_composited_slicemarch,
+        render_composited_tilemarch,
+    )
 
     dev = resolve_device(device)
     if (parameters.devices or 1) > 1:
@@ -337,19 +372,23 @@ def render_single_trial(
             "multi-device rendering is not ported to PyTorch yet (ROADMAP.md "
             "module item 9); use devices=1"
         )
-    resolve_render_method(method, parameters.sampling)
+    resolved = resolve_render_method(method, parameters.sampling)
     timing = RenderTiming()
+    sqrt_aa = max(int(round(math.sqrt(parameters.antialiasing))), 1)
+    render_width = parameters.width * sqrt_aa
+    render_height = parameters.height * sqrt_aa
+    reference_sample_distance = compute_reference_sample_distance(geometry, bounds)
     tight_bounds = compute_tight_bounds(geometry, bounds)
 
-    # the scene renderer orders its pieces itself; this pass runs for the
-    # visibility report and write_visibility_graph's DOT export
+    # visibility ordering first: its rank permutation breaks depth-hint ties
+    # between owners in the composite (and feeds the DOT export)
     t0 = time.perf_counter()
     if geometry.bricks:
         box_min = np.stack([b.min_corner for b in geometry.bricks])
         box_max = np.stack([b.max_corner for b in geometry.bricks])
     else:
         box_min = box_max = np.zeros((0, 3))
-    build_visibility_order(
+    rank_order = build_visibility_order(
         camera,
         parameters.width / parameters.height,
         box_min,
@@ -363,9 +402,17 @@ def render_single_trial(
     timing.visibility_seconds = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    composited = render_composited_tilemarch(
-        geometry, parameters, camera, color_map, device=dev
-    )
+    if resolved == "tilemarch":
+        composited = render_composited_tilemarch(
+            geometry, parameters, camera, color_map, device=dev
+        )
+    else:
+        composited = render_composited_slicemarch(
+            geometry, parameters, camera, scalar_range,
+            reference_sample_distance, render_width, render_height,
+            color_map, downsample_block=sqrt_aa, rank_order=rank_order,
+            device=dev,
+        )
     timing.render_seconds = time.perf_counter() - t0
     if verbose:
         print(f"Render: per-box rendering took {timing.render_seconds:.4f} s")
@@ -380,9 +427,8 @@ def render_single_trial(
         composited,
     )
     if verbose:
-        sqrt_aa = max(int(round(math.sqrt(parameters.antialiasing))), 1)
         print(
-            f"Render: composed {parameters.width * parameters.height * sqrt_aa ** 2}"
+            f"Render: composed {render_width * render_height}"
             " pixels on rank 0"
         )
     render_bounding_box_overlay(tight_bounds, camera, 1, output_image)

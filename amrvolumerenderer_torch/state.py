@@ -10,17 +10,27 @@ bounds (each ``[2, 3]``: min, max).
 ``state_from_renderer`` reads those attributes with NumPy from any object
 that has them (a JAX ``FastSceneRenderer`` or the port's);
 ``renderer_from_state`` builds the port's renderer from them.
+``geometry_from`` does the same for a built scene: the port's
+``SceneGeometry`` from any object with the JAX geometry's attributes.
 """
 
 from __future__ import annotations
 
 from typing import Dict
 
+import dataclasses
+
 import numpy as np
-from amrvolumerenderer_tpu.types import RenderParameters, VolumeBounds
 
 from .device import DEFAULT_DEVICE, Device
 from .fast_scene import FastSceneRenderer
+from .types import (
+    Brick,
+    RenderParameters,
+    ScalarTransform,
+    SceneGeometry,
+    VolumeBounds,
+)
 
 # state key -> renderer attribute
 STATE_KEYS = {
@@ -43,7 +53,7 @@ STATE_KEYS = {
 
 
 def _to_numpy(value) -> np.ndarray:
-    if isinstance(value, VolumeBounds):
+    if hasattr(value, "min_corner"):  # VolumeBounds of either package
         return np.stack([value.min_corner, value.max_corner])
     if hasattr(value, "detach"):  # torch tensor on any device
         return value.detach().cpu().numpy()
@@ -87,3 +97,33 @@ def renderer_from_state(
         b = np.asarray(tables[key], np.float64)
         tables[key] = VolumeBounds(b[0], b[1])
     return FastSceneRenderer.from_tables(parameters, device=device, **tables)
+
+
+def geometry_from(obj) -> SceneGeometry:
+    """The port's ``SceneGeometry`` (bricks, bounds, ranges, transform)
+    from any object with the JAX ``SceneGeometry``'s attributes.  Brick
+    data arrays are shared, not copied."""
+    bounds = obj.explicit_bounds
+    transform = obj.scalar_transform
+    return SceneGeometry(
+        bricks=[
+            Brick(data=np.asarray(b.data), min_corner=b.min_corner,
+                  max_corner=b.max_corner, level=int(b.level),
+                  owner=int(b.owner))
+            for b in obj.bricks
+        ],
+        explicit_bounds=(
+            None if bounds is None
+            else VolumeBounds(bounds.min_corner, bounds.max_corner)
+        ),
+        scalar_range=tuple(obj.scalar_range),
+        has_scalar_range=bool(obj.has_scalar_range),
+        processed_scalar_range=tuple(obj.processed_scalar_range),
+        has_processed_scalar_range=bool(obj.has_processed_scalar_range),
+        original_scalar_range=tuple(obj.original_scalar_range),
+        has_original_scalar_range=bool(obj.has_original_scalar_range),
+        scalar_transform=ScalarTransform(**{
+            f.name: getattr(transform, f.name)
+            for f in dataclasses.fields(ScalarTransform)
+        }),
+    )

@@ -20,7 +20,7 @@ from amrvolumerenderer_tpu.plotfile import write_plotfile
 from amrvolumerenderer_torch import api, driver
 
 from tests.conftest import make_r2_scene_data
-from test_torch_worklist import one_torch_thread  # noqa: F401
+from test_torch_worklist import one_torch_thread, port_levels  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -61,7 +61,7 @@ def test_api_render_matches_jax(tmp_path, method, ext):
     got = str(tmp_path / f"port.{ext}")
     want = str(tmp_path / f"jax.{ext}")
     image, timing = api.render(
-        api.AmrData(level_data=levels, level_geometry=geoms),
+        api.AmrData(*port_levels(levels, geoms)),
         api.RenderOptions(output_filename=got, device="cpu", **opts),
         verbose=False,
     )
@@ -128,8 +128,7 @@ def test_cli_errors_are_clean(tmp_path, plotfile, capsys, argv, message):
 
 
 def test_api_errors(tmp_path):
-    levels, geoms = make_r2_scene_data(16, 8)
-    data = api.AmrData(level_data=levels, level_geometry=geoms)
+    data = api.AmrData(*port_levels(*make_r2_scene_data(16, 8)))
     out = str(tmp_path / "x.ppm")
     with pytest.raises(ValueError, match="raymarch"):
         api.render(data, api.RenderOptions(width=32, height=32, device="cpu",
@@ -169,21 +168,22 @@ BLOCK_JAX = """
 import runpy, sys
 class BlockJax:
     def find_spec(self, name, path=None, target=None):
-        if name == "jax" or name.startswith(("jax.", "jaxlib")):
-            raise ImportError("jax is blocked: " + name)
+        if name.split(".")[0] in ("jax", "jaxlib", "amrvolumerenderer_tpu"):
+            raise ImportError("blocked: " + name)
 sys.meta_path.insert(0, BlockJax())
 sys.argv = ["amrvolumerenderer_torch.driver"] + sys.argv[1:]
 try:
     runpy.run_module("amrvolumerenderer_torch.driver", run_name="__main__")
 except SystemExit:
     assert "jax" not in sys.modules
+    assert "amrvolumerenderer_tpu" not in sys.modules
     raise
 """
 
 
 def test_cli_runs_with_jax_blocked(tmp_path, plotfile):
     """The port's CLI end to end in a fresh interpreter where importing jax
-    fails: the port must never need it."""
+    or the JAX package fails: the port must never need either."""
     out = tmp_path / "blocked.png"
     path = os.environ.get("PYTHONPATH")
     env = dict(os.environ, PYTHONPATH=REPO + (os.pathsep + path if path else ""))

@@ -1,14 +1,15 @@
-"""The CUDA tile-march kernel on the card (marked ``cuda``; every test skips
-itself when ``torch.cuda.is_available()`` is false).
+"""The port's CUDA kernels on the card: tile-march, slice-march and the tile
+composite (marked ``cuda``; every test skips itself when
+``torch.cuda.is_available()`` is false).
 
 This file imports neither jax nor the tests' conftest (which does), so it
 runs on a machine that has only PyTorch:
 
     python -m pytest --noconftest -o markers=cuda -m cuda tests/test_torch_cuda.py
 
-The kernel is held against its plain PyTorch version on the same device
-(atol 2e-6; the two round alike, so they agree bit for bit) and against
-the golden rows (the manifest's atol of 2e-6).
+Each kernel is held against its plain PyTorch version on the same device
+(atol 2e-6; the two round alike, so they agree bit for bit) and the routes
+against the golden rows (the manifest's atol of 2e-6).
 """
 
 import os
@@ -17,12 +18,24 @@ import numpy as np
 import pytest
 import torch
 
-from amrvolumerenderer_tpu.camera import auto_orbit_camera
-from amrvolumerenderer_tpu.scene import LevelBox, LevelGeometry
-from amrvolumerenderer_tpu.types import CameraParameters, RenderParameters
 from amrvolumerenderer_torch import api
+from amrvolumerenderer_torch.camera import auto_orbit_camera
+from amrvolumerenderer_torch.compositor import sort_layers
 from amrvolumerenderer_torch.fast_scene import FastSceneRenderer
+from amrvolumerenderer_torch.ops import composite as comp
+from amrvolumerenderer_torch.ops import slicemarch as sm
 from amrvolumerenderer_torch.ops import tilemarch as tm
+from amrvolumerenderer_torch.renderer import (
+    compute_global_bounds,
+    compute_global_scalar_range,
+    compute_reference_sample_distance,
+)
+from amrvolumerenderer_torch.renderer_fast import (
+    prepare_slicemarch_scene,
+    slicemarch_device_inputs,
+)
+from amrvolumerenderer_torch.scene import LevelBox, LevelGeometry
+from amrvolumerenderer_torch.types import CameraParameters, RenderParameters
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden",
                       "manifest_pixels.npz")
@@ -106,16 +119,94 @@ def test_kernel_matches_plain(cuda, knobs):
 @pytest.mark.parametrize("method,row", [("tilemarch", "tilemarch-1dev"),
                                         ("slicemarch", "slicemarch-1dev")])
 def test_kernel_reproduces_golden_rows(cuda, tmp_path, method, row):
-    before = tm.tilemarch_render.launches
+    """Each route reproduces its golden row and launches its own kernels:
+    tile-march alone, or slice-march + composite (16 pieces <= 96)."""
+    counters = (tm.tilemarch_render, sm.slicemarch_render_worklist_raw,
+                comp.composite_tiles)
+    before = [f.launches for f in counters]
     image, _ = api.render(r2_data(), api.RenderOptions(
         width=48, height=48, render_method=method, device=cuda,
         output_filename=str(tmp_path / "golden.ppm"),
     ), verbose=False)
-    assert tm.tilemarch_render.launches == before + 1
+    launched = [f.launches - b for f, b in zip(counters, before)]
+    assert launched == ([1, 0, 0] if method == "tilemarch" else [0, 1, 1])
     ref = np.load(GOLDEN)[row]
     finite = np.isfinite(ref)
     np.testing.assert_array_equal(np.isfinite(image.pixels), finite)
     np.testing.assert_allclose(image.pixels[finite], ref[finite], rtol=0, atol=ATOL)
+
+
+def slicemarch_case(dev, knobs, camera, size=(256, 192)):
+    """Prepared slice-march inputs of the 3-level scene on ``dev``."""
+    sampling, classification, lut_size = knobs
+    geometry = three_level_geometry()
+    params = RenderParameters(width=size[0], height=size[1], sampling=sampling,
+                              classification=classification, lut_size=lut_size)
+    bounds = compute_global_bounds(geometry)
+    prep = prepare_slicemarch_scene(
+        geometry, params, camera, compute_global_scalar_range(geometry),
+        compute_reference_sample_distance(geometry, bounds), *size, None)
+    inp = slicemarch_device_inputs(prep, dev)
+    args = tuple(inp[k] for k in ("vol", "meta", "dims", "luts", "cam", "wb",
+                                  "wt", "wbounds"))
+    kw = dict(width=prep["pad_w"], height=prep["pad_h"], max_slices=prep["s_max"],
+              logical_width=size[0], logical_height=size[1], sampling=sampling,
+              ghost=prep["ghost"], classification=classification)
+    return prep, inp, args, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("knobs", KNOBS, ids=lambda k: "-".join(map(str, k)))
+def test_slicemarch_kernel_matches_plain(cuda, knobs):
+    cam = CameraParameters(eye=(-1.9, 2.3, -1.2), look_at=(0.5, 0.5, 0.5),
+                           up=(0, 1, 0))
+    prep, inp, args, kw = slicemarch_case(cuda, knobs, cam)
+    before = sm.slicemarch_render_worklist_raw.launches
+    kc, kd = sm.slicemarch_render_worklist_raw(*args, **kw)
+    pc, pd = sm.slicemarch_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert sm.slicemarch_render_worklist_raw.launches == before + 1
+    cov = inp["coverage"]
+    assert (pc[cov][:, 3] > 0).float().mean() > 0.05
+    assert_close(kc[cov], pc[cov])
+    assert_close(kd[cov], pd[cov])
+    # the masked, untiled entry is the same render
+    mc, md = sm.slicemarch_render_worklist(*args[:7], cov, args[7], **kw)
+    rc, rd = sm.untile(torch.where(cov[:, :, None, None, None], pc, 0.0),
+                       torch.where(cov[:, :, None, None], pd, float("inf")),
+                       kw["width"], kw["height"])
+    assert_close(mc, rc)
+    assert_close(md, rd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_layers", [5, 128])
+def test_composite_kernel_matches_plain(cuda, num_layers):
+    """Seeded layers with depth ties, owner runs and coverage holes whose
+    blocks hold NaN; 128 layers is the TPU's streamed-kernel regime."""
+    rng = np.random.default_rng(num_layers)
+    tiles = 12
+    alpha = rng.uniform(0, 1, (num_layers, tiles, 1, 8, 128))
+    colors = np.concatenate([rng.uniform(0, 1, (num_layers, tiles, 3, 8, 128))
+                             * alpha, alpha], axis=2).astype(np.float32)
+    depths = rng.choice(np.array([0.5, 1.0, 2.0, np.inf], np.float32),
+                        (num_layers, tiles, 8, 128))
+    coverage = rng.uniform(0, 1, (num_layers, tiles)) < 0.7
+    colors[~coverage] = np.nan
+    depths[~coverage] = np.nan
+    owners = np.sort(rng.integers(0, num_layers // 2, num_layers))
+    order = sort_layers(rng.choice(np.array([0.1, 0.2], np.float32), num_layers),
+                        owners, np.arange(num_layers))
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in (
+        colors, depths, order, owners[order].astype(np.int32), coverage)]
+    before = comp.composite_tiles.launches
+    kc, kd = comp.composite_tiles(*args)
+    pc, pd = comp.composite_reference(*args)
+    torch.cuda.synchronize()
+    assert comp.composite_tiles.launches == before + 1
+    assert torch.isfinite(kc).all()
+    assert_close(kc, pc)
+    assert_close(kd, pd)
 
 
 @pytest.mark.cuda
@@ -141,3 +232,8 @@ def test_sentinel_steps_and_wrapper_checks(cuda):
     with pytest.raises(ValueError, match="is on cpu"):
         tm.tilemarch_render(*head[:4], inputs["cam"].cpu(), inputs["offsets"],
                             *items, inputs["tile_ids"], **kw)
+    with pytest.raises(TypeError, match="dtype"):
+        sm.slicemarch_render_worklist_raw(
+            fsr._packed_vol.double(), inputs["meta"], inputs["dims"],
+            fsr.lut[None].expand(fsr._packed_vol.shape[0], -1, -1, -1).contiguous(),
+            inputs["cam"], inputs["bricks"], inputs["bricks"], **kw)

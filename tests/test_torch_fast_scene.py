@@ -12,7 +12,6 @@ import numpy as np
 import pytest
 import torch
 
-from amrvolumerenderer_tpu.camera import auto_orbit_camera
 from amrvolumerenderer_tpu.fast_scene import FastSceneRenderer as JaxFSR
 from amrvolumerenderer_tpu.fast_scene import _repack_for_axis as jax_repack
 from amrvolumerenderer_tpu.ghost import ghost_fill as jax_ghost_fill
@@ -21,21 +20,31 @@ from amrvolumerenderer_tpu.image import color_to_byte_device as jax_to_byte
 from amrvolumerenderer_tpu.renderer import downsample_image as jax_downsample_image
 from amrvolumerenderer_tpu.renderer_fast import _device_downsample as jax_down
 from amrvolumerenderer_tpu.renderer_fast import _pretransform as jax_pretransform
-from amrvolumerenderer_tpu.types import (
-    CameraParameters,
-    RenderParameters,
-    color_map_from_tuples,
-)
 from amrvolumerenderer_torch import api
+from amrvolumerenderer_torch.camera import auto_orbit_camera
 from amrvolumerenderer_torch.fast_scene import FastSceneRenderer, _repack_for_axis
 from amrvolumerenderer_torch.ghost import ghost_fill
 from amrvolumerenderer_torch.image import ImageBuffer, ImageKind, color_to_byte_device
 from amrvolumerenderer_torch.renderer import downsample_image
 from amrvolumerenderer_torch.renderer_fast import _device_downsample, _pretransform
-from amrvolumerenderer_torch.state import renderer_from_state, state_from_renderer
+from amrvolumerenderer_torch.state import (
+    geometry_from,
+    renderer_from_state,
+    state_from_renderer,
+)
+from amrvolumerenderer_torch.types import (
+    CameraParameters,
+    RenderParameters,
+    color_map_from_tuples,
+)
 
 from tests.conftest import make_r2_scene_data
-from test_torch_worklist import one_torch_thread, three_level_geometry  # noqa: F401
+from test_torch_worklist import (  # noqa: F401
+    as_jax,
+    one_torch_thread,
+    port_levels,
+    three_level_geometry,
+)
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden",
                       "manifest_pixels.npz")
@@ -45,7 +54,7 @@ CPU = torch.device("cpu")
 @pytest.fixture(scope="module")
 def r2_geometry():
     """The golden scene through the port's own ingestion."""
-    levels, geoms = make_r2_scene_data(16, 8)
+    levels, geoms = port_levels(*make_r2_scene_data(16, 8))
     return api.load_amr_geometry(
         api.AmrData(level_data=levels, level_geometry=geoms),
         0, -1, 0, False, True, verbose=False,
@@ -54,7 +63,10 @@ def r2_geometry():
 
 @pytest.fixture(scope="module")
 def geometry3():
-    return three_level_geometry()
+    """bench.py's 3-level scene: (the JAX package's geometry, the port's
+    own copy of it)."""
+    geometry = three_level_geometry()
+    return geometry, geometry_from(geometry)
 
 
 def assert_pixels_close(got, ref, atol=2e-6):
@@ -81,11 +93,11 @@ def test_matches_jax_renderer_with_antialiasing(geometry3, knobs):
     params = RenderParameters(width=64, height=64, antialiasing=4,
                               sampling=sampling, classification=classification,
                               lut_size=lut_size)
-    port = FastSceneRenderer(geometry3, params, device=CPU)
-    ref = JaxFSR(geometry3, params)
-    cam = auto_orbit_camera(ref.bounds)
+    port = FastSceneRenderer(geometry3[1], params, device=CPU)
+    ref = JaxFSR(geometry3[0], as_jax(params))
+    cam = auto_orbit_camera(port.bounds)
     got = port.render(cam)
-    want = ref.render(cam)
+    want = ref.render(as_jax(cam))
     assert got.shape == (64 * 64, 5)
     assert (want[:, 3] > 0).mean() > 0.2
     assert_pixels_close(got, want)
@@ -97,10 +109,10 @@ def test_state_round_trip(geometry3, sampling):
     tables as a port renderer built from the geometry, and renders the
     same frame."""
     params = RenderParameters(width=64, height=64, sampling=sampling)
-    jax_fsr = JaxFSR(geometry3, params)
+    jax_fsr = JaxFSR(geometry3[0], as_jax(params))
     state = state_from_renderer(jax_fsr)
     from_state = renderer_from_state(state, params, device=CPU)
-    built = FastSceneRenderer(geometry3, params, device=CPU)
+    built = FastSceneRenderer(geometry3[1], params, device=CPU)
     assert isinstance(from_state.canonical, torch.Tensor)
     for key, value in state_from_renderer(built).items():
         np.testing.assert_array_equal(value, state[key], err_msg=key)
@@ -121,11 +133,11 @@ def test_frame_inputs_match_jax(geometry3, eye, sampling):
     """Per-frame host prep (piece tables, camera pack, compacted CSR work
     list with tightened item bands) equals the JAX renderer's."""
     params = RenderParameters(width=96, height=64, sampling=sampling)
-    port = FastSceneRenderer(geometry3, params, device=CPU)
-    ref = JaxFSR(geometry3, params)
+    port = FastSceneRenderer(geometry3[1], params, device=CPU)
+    ref = JaxFSR(geometry3[0], as_jax(params))
     cam = CameraParameters(eye=eye, look_at=(0.5, 0.5, 0.5), up=(0, 1, 0))
     got = port.frame_inputs(cam, as_numpy=True)
-    want = ref.frame_inputs(cam, as_numpy=True)
+    want = ref.frame_inputs(as_jax(cam), as_numpy=True)
     for key in got:
         np.testing.assert_array_equal(got[key], want[key], err_msg=key)
         assert got[key].dtype == want[key].dtype, key
@@ -139,8 +151,8 @@ def test_frame_inputs_match_jax(geometry3, eye, sampling):
 @pytest.mark.parametrize("axis", [0, 1, 2])
 def test_repack_and_extrema_match_jax(geometry3, axis):
     params = RenderParameters(width=32, height=32, sampling="trilinear")
-    port = FastSceneRenderer(geometry3, params, device=CPU)
-    ref = JaxFSR(geometry3, params)
+    port = FastSceneRenderer(geometry3[1], params, device=CPU)
+    ref = JaxFSR(geometry3[0], as_jax(params))
     np.testing.assert_array_equal(
         _repack_for_axis(port.canonical, axis, 32).numpy(),
         np.asarray(jax_repack(ref.canonical, axis=axis, cube=32)),
@@ -155,12 +167,14 @@ def test_repack_and_extrema_match_jax(geometry3, axis):
 
 
 def test_ghost_fill_and_pretransform_match_jax(geometry3):
-    t = geometry3.scalar_transform
-    datas = [_pretransform(b.data, t, 1.0, False) for b in geometry3.bricks]
-    ref = [jax_pretransform(b.data, t, 1.0, False) for b in geometry3.bricks]
+    jax_geometry, port_geometry = geometry3
+    t = port_geometry.scalar_transform
+    datas = [_pretransform(b.data, t, 1.0, False) for b in port_geometry.bricks]
+    ref = [jax_pretransform(b.data, jax_geometry.scalar_transform, 1.0, False)
+           for b in jax_geometry.bricks]
     for got, want in zip(datas, ref):
         np.testing.assert_array_equal(got, want)
-    boxes = [(b.min_corner, b.max_corner) for b in geometry3.bricks]
+    boxes = [(b.min_corner, b.max_corner) for b in port_geometry.bricks]
     assert len(boxes) > 1
     for got, want in zip(ghost_fill(datas, boxes, 1),
                          jax_ghost_fill(datas, boxes, 1)):

@@ -1,0 +1,80 @@
+"""The port stands alone: in a fresh interpreter where importing ``jax``,
+``jaxlib`` or ``amrvolumerenderer_tpu`` raises, every module of
+``amrvolumerenderer_torch`` imports, and the CLI renders a plotfile through
+the default (slice-march) route on the CPU."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from amrvolumerenderer_tpu.plotfile import write_plotfile
+from amrvolumerenderer_tpu.scene import LevelBox, LevelGeometry
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+BLOCKED_RUN = """
+import importlib, pkgutil, runpy, sys
+
+BLOCKED = ("jax", "jaxlib", "amrvolumerenderer_tpu")
+
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError("blocked: " + name)
+
+
+sys.meta_path.insert(0, Block())
+import amrvolumerenderer_torch
+
+names = [m.name for m in pkgutil.walk_packages(
+    amrvolumerenderer_torch.__path__, "amrvolumerenderer_torch.")]
+for name in names:
+    importlib.import_module(name)
+print("imported", len(names), "modules")
+sys.argv = ["amrvolumerenderer_torch.driver"] + sys.argv[1:]
+try:
+    runpy.run_module("amrvolumerenderer_torch.driver", run_name="__main__")
+except SystemExit as stop:
+    leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+    assert not leaked, leaked
+    raise
+"""
+
+
+@pytest.fixture(scope="module")
+def plotfile(tmp_path_factory):
+    """A one-level r^2 plotfile in four boxes."""
+    c = np.arange(16) / 15
+    field = c[:, None, None] ** 2 + c[None, :, None] ** 2 + c[None, None, :] ** 2
+    boxes = [LevelBox(field[i:i + 8, j:j + 16, :], np.array([i, j, 0]))
+             for i in (0, 8) for j in (0,)]
+    path = str(tmp_path_factory.mktemp("plt") / "plt00000")
+    write_plotfile(path, [boxes], [LevelGeometry(np.zeros(3), np.full(3, 1 / 16))])
+    return path
+
+
+@pytest.mark.parametrize("flags", [[], ["--sampling", "trilinear",
+                                        "--antialiasing", "4"]])
+def test_port_imports_and_renders_with_jax_and_reference_blocked(
+        tmp_path, plotfile, flags):
+    out = tmp_path / "standalone.ppm"
+    path = os.environ.get("PYTHONPATH")
+    env = dict(os.environ, PYTHONPATH=REPO + (os.pathsep + path if path else ""))
+    proc = subprocess.run(
+        [sys.executable, "-c", BLOCKED_RUN, "--width", "40", "--height", "32",
+         "--device", "cpu", *flags, "--output", str(out), plotfile],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "imported" in proc.stdout
+    assert "Saved volume composited image" in proc.stdout
+    with open(out, "rb") as f:
+        assert f.readline().strip() == b"P6"
+        w, h = map(int, f.readline().split())
+        f.readline()
+        img = np.frombuffer(f.read(), np.uint8).reshape(h, w, 3)
+    assert (w, h) == (40, 32) and (img > 0).mean() > 0.1

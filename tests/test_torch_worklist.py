@@ -7,12 +7,15 @@ bench.py's 3-level scene, for cameras that march every axis in both
 directions, an oblique view and an eye inside the domain.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from amrvolumerenderer_tpu import api as jax_api
-from amrvolumerenderer_tpu import native
+from amrvolumerenderer_tpu import native as jax_native
+from amrvolumerenderer_tpu import types as jax_types
 from amrvolumerenderer_tpu.camera import (
     auto_orbit_camera,
     camera_basis,
@@ -23,6 +26,8 @@ from amrvolumerenderer_tpu.fast_scene import FastSceneRenderer as JaxFSR
 from amrvolumerenderer_tpu.ops import slicemarch as jsm
 from amrvolumerenderer_tpu.ops import tilemarch as jtm
 from amrvolumerenderer_tpu.types import CameraParameters, RenderParameters
+from amrvolumerenderer_torch import native
+from amrvolumerenderer_torch import scene as port_scene
 from amrvolumerenderer_torch.ops import worklist as wl
 
 from tests.conftest import make_r2_scene_data
@@ -50,6 +55,21 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
+
+
+def port_levels(levels, geoms):
+    """The port's own LevelBox / LevelGeometry objects over the same arrays
+    as the JAX package's (each side builds its own types)."""
+    return (
+        [[port_scene.LevelBox(b.data, b.lo) for b in level] for level in levels],
+        [port_scene.LevelGeometry(g.prob_lo, g.cell_size) for g in geoms],
+    )
+
+
+def as_jax(obj):
+    """The JAX package's dataclass of the same name and fields as the port
+    dataclass ``obj`` (RenderParameters, CameraParameters, ...)."""
+    return getattr(jax_types, type(obj).__name__)(**dataclasses.asdict(obj))
 
 
 def three_level_geometry():
@@ -191,8 +211,9 @@ def test_tile_worklist_and_item_bands(renderers, scene, cam):
 
 
 def test_native_item_bands_call_matches():
-    """The port's own ctypes call of avr_item_bands_v2 is the JAX
-    package's native.item_bands (or both are unavailable)."""
+    """The port's own bindings' item_bands (its ctypes call of
+    avr_item_bands_v2) is the JAX package's native.item_bands (or both are
+    unavailable)."""
     rng = np.random.default_rng(7)
     n, cap = 12, 16
     box_min = rng.uniform(0, 1, (n, 3))
@@ -211,8 +232,8 @@ def test_native_item_bands_call_matches():
     up = np.cross(right, fwd)
     args = (meta, bb, wt, wb, cam[0], fwd, right, up, 45.0, [2, 0, 1],
             96, 96, 64, occ, 4, 4.0)
-    _equal(wl._native_item_bands(*args, ghost=1, seg_len=2, margin=2.51),
-           native.item_bands(*args, ghost=1, seg_len=2, margin=2.51))
+    _equal(native.item_bands(*args, ghost=1, seg_len=2, margin=2.51),
+           jax_native.item_bands(*args, ghost=1, seg_len=2, margin=2.51))
 
 
 @pytest.mark.parametrize("scene", ["r2", "3lvl"])
