@@ -4,7 +4,8 @@ A port of ``amrvolumerenderer_tpu`` (JAX/Pallas on a TPU) for one NVIDIA
 Hopper GPU: the single-device render path, from plotfile, CLI and API
 down to hand-written CUDA kernels (``ops/csrc/``): the slice-march and tile
 composite kernels of the one-shot route, and the tile-march kernel for
-scenes of more than 96 pieces.  It imports neither jax nor the JAX
+scenes of more than 96 pieces and for the animation path
+(``FastSceneRenderer.render_batch``, orbits, in-situ ``update_data``).  It imports neither jax nor the JAX
 package: the host modules (types, scene, amr, plotfile, camera, colormap,
 visibility, native) are its own copies.
 
@@ -74,8 +75,10 @@ def render(
     device: str = "cuda",
 ) -> int:
     """Render a plotfile: the JAX package's kwarg surface (the reference
-    binding, module.cpp:276-303) plus ``device``.  ``devices > 1`` and
-    ``orbit_frames`` are not ported yet and raise."""
+    binding, module.cpp:276-303) plus ``device``.  ``orbit_frames`` /
+    ``orbit_degrees`` render an N-frame orbit animation through the batched
+    renderer (frame index appended to ``output``, as the CLI's
+    ``--orbit-frames``).  ``devices > 1`` is not ported yet and raises."""
     import math
 
     import numpy as np

@@ -24,7 +24,7 @@ from .plotfile import (
     read_plotfile_header,
     write_plotfile,  # noqa: F401 - re-exported for scripts that make plotfiles
 )
-from .renderer import render_scene, validate_render_parameters
+from .renderer import render_orbit, render_scene, validate_render_parameters
 from .scene import SceneBuildOptions, build_scene_geometry
 from .types import (
     CameraParameters,
@@ -60,7 +60,11 @@ USAGE = """Usage: volume_renderer [options] plotfile
   --sampling MODE  Scalar sampling: nearest (reference semantics, default)
                    or trilinear
   --lut-size N     Transfer-function LUT resolution: 256 (default) or 128
-  --orbit-frames N Orbit animation (not ported yet)
+  --orbit-frames N Render an N-frame orbit animation instead of one frame:
+                   the camera circles the look-at point about the up axis,
+                   scene prepared once and frames batched per kernel
+                   launch; frame index is appended to --output
+                   (frame.png -> frame_0000.png; beyond reference)
   --orbit-degrees D  Total orbit sweep in degrees (default: 360)
   -h, --help       Show this help message
 """
@@ -317,11 +321,6 @@ def run_options(options: RunOptions, verbose: bool = True) -> int:
         raise ValueError("max level must be non-negative or -1 for all levels")
     if options.max_level >= 0 and options.min_level > options.max_level:
         raise RuntimeError("min level must not exceed max level")
-    if options.orbit_frames > 0:
-        raise ValueError(
-            "orbit rendering is not ported to PyTorch yet (ROADMAP.md module "
-            "item 6)"
-        )
     if options.scalar_range is not None:
         lo, hi = options.scalar_range
         if not (math.isfinite(lo) and math.isfinite(hi) and lo < hi):
@@ -360,15 +359,34 @@ def run_options(options: RunOptions, verbose: bool = True) -> int:
             far_plane=camera.far_plane,
         )
     with _trace(options.trace_dir):
-        render_scene(
-            options.output_filename,
-            options.parameters,
-            geometry,
-            camera=camera,
-            color_map=normalized_color_map,
-            verbose=verbose,
-            device=options.device,
-        )
+        if options.orbit_frames > 0:
+            name = options.output_filename
+            if "{" in name:
+                pattern = name  # already a format pattern
+            else:
+                stem, dot, ext = name.rpartition(".")
+                pattern = f"{stem}_{{:04d}}.{ext}" if dot else f"{name}_{{:04d}}"
+            render_orbit(
+                pattern,
+                options.parameters,
+                geometry,
+                options.orbit_frames,
+                camera=camera,
+                color_map=normalized_color_map,
+                total_degrees=options.orbit_degrees,
+                verbose=verbose,
+                device=options.device,
+            )
+        else:
+            render_scene(
+                options.output_filename,
+                options.parameters,
+                geometry,
+                camera=camera,
+                color_map=normalized_color_map,
+                verbose=verbose,
+                device=options.device,
+            )
     return 0
 
 

@@ -1,19 +1,27 @@
-"""Persistent scene renderer: prepare once, render any camera.
+"""Persistent scene renderer: prepare once, render any camera, or a
+camera sequence.
 
-The port of the JAX package's ``fast_scene.FastSceneRenderer`` for one
-frame at a time.  Construction does all data-dependent work once: bricks
-are pre-transformed, given 1-cell ghost rings for trilinear sampling, split
+The port of the JAX package's ``fast_scene.FastSceneRenderer``.
+Construction does all data-dependent work once: bricks are
+pre-transformed, given 1-cell ghost rings for trilinear sampling, split
 into <= 32-cell cubes and kept on the device as a canonical
-``[L, 32, 32, 32]`` table (a registered buffer).  Per frame, the table is
-repacked to the camera's march axis (cached per axis), the host builds the
-tile work list, and ``ops.tilemarch.tilemarch_render`` marches and
-composites the whole frame in one kernel launch.
+``[L, 32, 32, 32]`` table (a registered buffer, float32 or bfloat16).  Per
+frame, the table is repacked to the camera's march axis (cached per axis),
+the host builds the tile work list, and the tile-march kernel marches and
+composites the frame: ``render`` launches ``ops.tilemarch.tilemarch_render``
+for one frame, ``render_batch`` launches ``tilemarch_render_batch`` once per
+chunk of consecutive same-axis frames (animation orbits), assembling the
+frames on the device (as bytes when asked) and reading each chunk back
+once.  ``set_transfer_function`` swaps the colour map without touching the
+bricks; ``update_data`` swaps in a new time step's values, from NumPy
+arrays or from tensors.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+import time
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -22,6 +30,8 @@ from torch import nn
 from .camera import camera_basis
 from .colormap import SOFT_CLIP_TOLERANCE, build_color_table
 from .device import DEFAULT_DEVICE, Device, resolve_device
+from .ghost import edge_pad
+from .image import color_to_byte_device
 from .ops import tilemarch as tm
 from .ops import worklist as wl
 from .renderer import (
@@ -47,7 +57,8 @@ MAX_CUBE = 32  # largest stored piece edge (32 * 32 = one 1024-cell slice)
 def _split_to_cubes(data, min_corner, max_corner, cube, ghost=0, padded=None):
     """Split a brick into <= cube^3 CORE pieces.
 
-    Returns [(block, mn, mx, core_dims), ...]; with ``ghost > 0`` each
+    ``data`` is an array or a tensor.  Returns [(block, mn, mx, core_dims),
+    ...]; with ``ghost > 0`` each
     block carries a ``ghost``-cell ring on every axis (neighbour data of
     the same brick at split boundaries, ``padded``'s ring at true brick
     faces, edge replication by default) while ``mn``/``mx`` bound the core."""
@@ -57,7 +68,7 @@ def _split_to_cubes(data, min_corner, max_corner, cube, ghost=0, padded=None):
         for d in range(3)
     ]
     if padded is None:
-        padded = np.pad(data, ghost, mode="edge") if ghost else data
+        padded = edge_pad(data, ghost) if ghost else data
     pieces = []
     g2 = 2 * ghost
     for i0 in range(0, shape[0], cube):
@@ -97,13 +108,73 @@ def _range_visible(vmin, vmax, scalar_range, lut_alpha) -> bool:
     return bool(lut_alpha[i0: i1 + 1].max() > 0.0)
 
 
-class FastSceneRenderer(nn.Module):
-    """Device-resident scene prepared once; frames per camera on demand.
+PRECISIONS = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
-    ``FastSceneRenderer(geometry, parameters, color_map, device)`` prepares
-    from a scene; ``from_tables`` (used by ``state.renderer_from_state``)
-    from an already packed piece table.  Buffers: ``canonical``
-    ``[L, 32, 32, 32]`` f32 pieces and ``lut`` ``[4, size // 128, 128]``."""
+
+def _storage_dtype(precision: str) -> torch.dtype:
+    if precision not in PRECISIONS:
+        raise ValueError(f"unsupported precision {precision!r}")
+    return PRECISIONS[precision]
+
+
+def _soft_clip(scalar_range):
+    """(clip_start, apply_clip) of the soft tail clip for a scalar range."""
+    clip_start = float(np.clip(scalar_range[1], 0.0, 1.0))
+    return clip_start, 1.0 > clip_start + SOFT_CLIP_TOLERANCE
+
+
+BATCH_TABLES = ("cam", "offsets", "bricks", "owners", "item_bounds", "tile_ids")
+
+
+def _pow2(n: int) -> int:
+    """The least power of two >= n (1 for n <= 1)."""
+    return 1 << max(n - 1, 0).bit_length()
+
+
+def pack_batch_tables(frames, num_tiles: int, w_pad: Optional[int] = None) -> dict:
+    """Stack per-frame ``frame_inputs(as_numpy=True)`` dicts into the
+    batched kernel's ``[F, ...]`` tables (keys ``BATCH_TABLES``): step lists
+    padded to the widest frame's with sentinel tiles (``num_tiles``, empty
+    work lists), work rows zero-padded to ``w_pad`` (default: the widest
+    row rounded up to a power of two)."""
+    count = len(frames)
+    if w_pad is None:
+        w_pad = _pow2(max(len(f["bricks"]) for f in frames))
+    s_steps = max(len(f["tile_ids"]) for f in frames)
+    out = dict(
+        cam=np.stack([f["cam"] for f in frames]).astype(np.float32),
+        offsets=np.zeros((count, s_steps + 1), np.int32),
+        bricks=np.zeros((count, w_pad), np.int32),
+        owners=np.zeros((count, w_pad), np.int32),
+        item_bounds=np.zeros((count, w_pad), np.int32),
+        tile_ids=np.full((count, s_steps), num_tiles, np.int32),
+    )
+    for row, f in enumerate(frames):
+        w = len(f["bricks"])
+        for key in ("bricks", "owners", "item_bounds"):
+            out[key][row, :w] = f[key]
+        o = f["offsets"]
+        out["offsets"][row, : len(o)] = o
+        out["offsets"][row, len(o):] = o[-1]
+        out["tile_ids"][row, : len(f["tile_ids"])] = f["tile_ids"]
+    return out
+
+
+class FastSceneRenderer(nn.Module):
+    """Device-resident scene prepared once; per-camera frames on demand.
+
+    ``FastSceneRenderer(geometry, parameters, color_map, device,
+    precision)`` prepares from a scene; ``from_tables`` (used by
+    ``state.renderer_from_state``) from an already packed piece table.
+    Buffers: ``canonical`` ``[L, 32, 32, 32]`` pieces (float32, or bfloat16
+    with ``precision="bfloat16"``: half the device bytes, each cell widened
+    to float32 exactly in the kernel) and ``lut`` ``[4, size // 128, 128]``.
+
+    The scalar range and brick layout are fixed at construction;
+    ``set_transfer_function`` swaps the colormap / box transparency between
+    frames and ``update_data`` ingests new time-step values in place (the
+    reference re-prepares the whole pipeline per run,
+    miniapps/renderVolume*.cpp)."""
 
     def __init__(
         self,
@@ -111,16 +182,17 @@ class FastSceneRenderer(nn.Module):
         parameters: RenderParameters,
         color_map: Optional[ColorMap] = None,
         device: Device = DEFAULT_DEVICE,
+        precision: str = "float32",
     ):
         super().__init__()
         validate_render_parameters(parameters)
+        _storage_dtype(precision)
         scalar_range = (
             geometry.scalar_range
             if geometry.has_scalar_range
             else compute_global_scalar_range(geometry)
         )
-        clip_start = float(np.clip(scalar_range[1], 0.0, 1.0))
-        apply_clip = 1.0 > clip_start + SOFT_CLIP_TOLERANCE
+        clip_start, apply_clip = _soft_clip(scalar_range)
         t = geometry.scalar_transform
         # trilinear: 1-cell ghost rings make cube splits seam-free (the
         # core shrinks to MAX_CUBE - 2 so the stored block still fits)
@@ -181,33 +253,35 @@ class FastSceneRenderer(nn.Module):
             ghost=ghost,
             bounds=bounds,
             tight_bounds=compute_tight_bounds(geometry, bounds),
-            visible=np.array(
-                [_range_visible(lo, hi, scalar_range, lut_alpha)
-                 for lo, hi in piece_ranges],
-                dtype=bool,
-            ),
+            visible=None,
+            piece_ranges=piece_ranges,
+            precision=precision,
             device=device,
         )
+        self.geometry = geometry
 
     @classmethod
     def from_tables(cls, parameters: RenderParameters, device: Device = DEFAULT_DEVICE,
                     **tables) -> "FastSceneRenderer":
         """A renderer over an already packed scene (``state.py`` lists the
-        tables); every piece counts as visible."""
+        tables).  ``visible`` defaults to the mask that ``piece_ranges``
+        give under the LUT, else to every piece; ``precision`` defaults to
+        the canonical table's."""
         self = cls.__new__(cls)
         nn.Module.__init__(self)
         validate_render_parameters(parameters)
-        tables.setdefault(
-            "visible", np.ones(len(tables["canonical"]), dtype=bool)
-        )
+        tables.setdefault("visible", None)
+        tables.setdefault("piece_ranges", None)
+        tables.setdefault("precision", None)
         self._setup(parameters, device=device, **tables)
+        self.geometry = None
         return self
 
     def _setup(
         self, parameters, *, canonical, box_min, box_max, dims_world, parents,
         owners, parent_min, parent_max, lut, lut_alpha, scalar_range,
         reference_sample_distance, ghost, bounds, tight_bounds, visible,
-        device,
+        piece_ranges, precision, device,
     ):
         dev = resolve_device(device)
         self.device = dev
@@ -224,6 +298,7 @@ class FastSceneRenderer(nn.Module):
         self.pad_h = -(-self.render_height // wl.TILE_H) * wl.TILE_H
         self.cube = MAX_CUBE  # stored edge = row stride = max_slices
         self.ghost = int(ghost)
+        self.core = MAX_CUBE - 2 * self.ghost  # largest piece core edge
         self.box_min = np.asarray(box_min, np.float64)
         self.box_max = np.asarray(box_max, np.float64)
         self.dims_world = np.asarray(dims_world, np.int32)
@@ -233,24 +308,56 @@ class FastSceneRenderer(nn.Module):
         self._parent_max = np.asarray(parent_max, np.float64)
         self._lut = np.asarray(lut, np.float32)
         self._lut_alpha = np.asarray(lut_alpha)
-        self.visible = np.asarray(visible, bool)
         self.register_buffer("lut", torch.tensor(self._lut, device=dev))
+        if not isinstance(canonical, torch.Tensor):
+            canonical = torch.from_numpy(np.ascontiguousarray(canonical, np.float32))
+        if precision is None:
+            precision = "bfloat16" if canonical.dtype == torch.bfloat16 else "float32"
+        self.precision = precision
+        # bfloat16 storage: cast after the float32 pre-transform and ghost
+        # fill, on the device (round to nearest even, as XLA casts)
         self.register_buffer(
-            "canonical",
-            torch.tensor(np.asarray(canonical), dtype=torch.float32, device=dev),
+            "canonical", canonical.to(dev).to(_storage_dtype(precision))
         )
+        # space skipping: pieces whose value range maps to zero opacity
+        # under the transfer function are culled; kept as a mask that
+        # set_transfer_function re-derives from ``piece_ranges``
+        self.piece_ranges = (
+            None if piece_ranges is None
+            else [tuple(map(float, r)) for r in np.asarray(piece_ranges)]
+        )
+        if visible is None:
+            visible = self._visible_mask()
+        self.visible = np.asarray(visible, bool)
         # per-octant ordering-key memo (visibility.OrderKeyCache)
         self._order_cache = OrderKeyCache(
             self.box_min, self.box_max, self._parent_min, self._parent_max
         )
+        # render_batch's readback: a side stream and two pinned staging
+        # buffers (slot -> uint8 tensor, one per chunk in flight), made at
+        # first use
+        self._copy_stream: Optional[torch.cuda.Stream] = None
+        self._staging: dict = {}
         self._set_canonical()
 
+    def _visible_mask(self) -> np.ndarray:
+        """Per piece: does its value range reach a LUT entry with alpha >
+        0?  Every piece when the ranges are unknown."""
+        if self.piece_ranges is None:
+            return np.ones(self.canonical.shape[0], dtype=bool)
+        return np.array(
+            [_range_visible(lo, hi, self.scalar_range, self._lut_alpha)
+             for lo, hi in self.piece_ranges],
+            dtype=bool,
+        )
+
     def _set_canonical(self) -> None:
-        """Per-axis value extrema of the piece table, reduced on the device:
-        per slice (occupied-slice bounds) and per 8 x 8 stored (u, v) block
-        of each slice (per-item slice bands).  Core slice k is stored at
-        k + ghost; the in-plane ring joins the extrema (bilinear samples
-        it), which only widens the ranges."""
+        """Per-axis value extrema of the piece table, reduced on the device
+        from the stored values (bfloat16-rounded under that precision, then
+        widened): per slice (occupied-slice bounds) and per 8 x 8 stored
+        (u, v) block of each slice (per-item slice bands).  Core slice k is
+        stored at k + ghost; the in-plane ring joins the extrema (bilinear
+        samples it), which only widens the ranges."""
         g = self.ghost
         canonical = self.canonical
         self._slice_minmax = {}
@@ -266,16 +373,129 @@ class FastSceneRenderer(nn.Module):
             num, s_cap, c, _ = v.shape
             blocks = v.reshape(num, s_cap, nq, c // nq, nq, c // nq)
             self._slice_minmax[a] = (
-                v.amin(dim=(2, 3)).cpu().numpy(), v.amax(dim=(2, 3)).cpu().numpy()
+                v.amin(dim=(2, 3)).float().cpu().numpy(),
+                v.amax(dim=(2, 3)).float().cpu().numpy(),
             )
             quads = torch.stack(
                 [blocks.amin(dim=(3, 5)), blocks.amax(dim=(3, 5))]
-            ).cpu().numpy()
+            ).float().cpu().numpy()
             self._slice_quad_minmax[a] = (quads[0], quads[1])
         self._packed_axis: Optional[int] = None
         self._packed_vol: Optional[torch.Tensor] = None
         self._axis_meta_cache: dict = {}
         self._packed_cache: dict = {}  # axis -> repacked table (<= 3 copies)
+
+    def set_transfer_function(
+        self,
+        color_map: Optional[ColorMap] = None,
+        box_transparency: Optional[float] = None,
+    ) -> None:
+        """Swap the colormap / per-box transparency without repacking bricks.
+
+        Only the LUT, the piece-visibility mask and the LUT-dependent
+        occupancy caches change (the scalar range and soft clip are baked
+        into the brick data at prepare time, exactly as the reference fixes
+        them per run)."""
+        if box_transparency is not None:
+            self.parameters.box_transparency = box_transparency
+        alpha_scale = float(
+            np.clip(1.0 - self.parameters.box_transparency, 0.0, 1.0)
+        )
+        table = build_color_table(
+            alpha_scale, 1.0, self.scalar_range, color_map,
+            size=self.parameters.lut_size,
+        )
+        self._lut = wl.build_log_lut(table)
+        self._lut_alpha = table[:, 3].copy()
+        self.lut = torch.tensor(self._lut, device=self.device)
+        self._occ_bits_cache = {}  # block occupancy depends on the LUT
+        self._axis_meta_cache = {}  # dims[:, 7] depends on the LUT
+        if self.piece_ranges is not None:
+            self.visible = self._visible_mask()
+
+    def update_data(self, brick_arrays) -> None:
+        """Per-timestep in-situ update: new scalar values, same brick layout.
+
+        The time-series workload (the reference's renderVolumeTime miniapp,
+        miniapps/renderVolumeTime.cpp) re-renders a fixed grid hierarchy as
+        values evolve under a fixed scalar range and transfer function.
+        This swaps the device piece table in place.  Tensor inputs (any
+        tensor among them) are pre-transformed, ghost-filled, split and
+        reduced on this renderer's device (``device_scene``): the values
+        never visit the host.  NumPy inputs (the plotfile-driven time
+        series) are pre-transformed in float64 on the host like the
+        constructor's, and the whole piece table ships as ONE upload.
+        Camera metadata, owners, order keys and the LUT are untouched.
+        ``brick_arrays`` must match ``geometry.bricks`` in order and shape.
+        """
+        if self.geometry is None:
+            raise ValueError(
+                "update_data needs a renderer built from a SceneGeometry"
+            )
+        bricks = self.geometry.bricks
+        if len(brick_arrays) != len(bricks):
+            raise ValueError(
+                f"expected {len(bricks)} brick arrays, got {len(brick_arrays)}"
+            )
+        t = self.geometry.scalar_transform
+        clip_start, apply_clip = _soft_clip(self.scalar_range)
+        all_host = all(isinstance(a, np.ndarray) for a in brick_arrays)
+        datas = []
+        for brick, arr in zip(bricks, brick_arrays):
+            if tuple(arr.shape) != tuple(np.shape(brick.data)):
+                raise ValueError(
+                    f"brick shape changed: {tuple(arr.shape)} vs "
+                    f"{tuple(np.shape(brick.data))}"
+                )
+            if all_host:
+                datas.append(_pretransform(arr, t, clip_start, apply_clip))
+            else:
+                from .device_scene import _pretransform_device
+
+                datas.append(_pretransform_device(
+                    torch.as_tensor(arr).to(self.device), t, clip_start,
+                    apply_clip,
+                ))
+        padded_list = [None] * len(datas)
+        if self.ghost and len(datas) > 1:
+            from .ghost import ghost_fill
+
+            padded_list = ghost_fill(
+                datas, [(b.min_corner, b.max_corner) for b in bricks],
+                self.ghost,
+            )
+        piece_arrays, ranges = [], []
+        c = self.cube
+        for parent, brick in enumerate(bricks):
+            for block, _mn, _mx, _dims in _split_to_cubes(
+                datas[parent], brick.min_corner, brick.max_corner, self.core,
+                ghost=self.ghost, padded=padded_list[parent],
+            ):
+                d0, d1, d2 = block.shape
+                if all_host:
+                    ranges.append((float(block.min()), float(block.max())))
+                    buf = np.zeros((c, c, c), np.float32)
+                    buf[:d0, :d1, :d2] = block
+                    piece_arrays.append(buf)
+                else:
+                    ranges.append(torch.stack([block.amin(), block.amax()]))
+                    piece_arrays.append(torch.nn.functional.pad(
+                        block, (0, c - d2, 0, c - d1, 0, c - d0)))
+        if all_host:
+            canonical = torch.from_numpy(np.stack(piece_arrays)).to(self.device)
+        else:
+            canonical = torch.stack(piece_arrays)
+            ranges = [tuple(r) for r in torch.stack(ranges).cpu().tolist()]
+        canonical = canonical.to(self.canonical.dtype)
+        if canonical.shape != self.canonical.shape:
+            raise ValueError(
+                "piece table shape changed; construct a new renderer for a "
+                "regridded hierarchy"
+            )
+        self.canonical = canonical
+        self._set_canonical()
+        self.piece_ranges = ranges
+        self.visible = self._visible_mask()
 
     def _axis_metadata(self, axis: int):
         """Per-axis piece tables in the kernel's permuted layout: (meta
@@ -418,44 +638,72 @@ class FastSceneRenderer(nn.Module):
                for k, v in host.items()}
         return dict(meta=meta_dev, dims=dims_dev, **dev)
 
+    def _kernel_kw(self) -> dict:
+        return dict(
+            width=self.pad_w, height=self.pad_h, max_slices=self.cube,
+            logical_width=self.render_width, logical_height=self.render_height,
+            sampling=self.parameters.sampling, ghost=self.ghost,
+            classification=self.parameters.classification,
+        )
+
+    def _assemble(self, out_c, out_d, tile_ids, bytes_out=False) -> torch.Tensor:
+        """One frame's compacted kernel output ``[S, 4, 8, 128]`` /
+        ``[S, 8, 128]`` (``out_c`` None: every item culled) -> the
+        output-resolution frame on the device: ``[W*H, 5]`` float32, or
+        with ``bytes_out`` ``[W*H, 4]`` (``"rgb"``: ``[W*H, 3]``) uint8 by
+        the Mesa byte codec.  Byte-first when there is no AA: the compact
+        output is encoded, then scattered and untiled as bytes (a quarter
+        of the float bytes to move, alpha dropped before the scatter for
+        ``"rgb"``); with AA the float frame is downsampled, then encoded."""
+        tiles_x = self.pad_w // wl.TILE_W
+        tiles_y = self.pad_h // wl.TILE_H
+        num_tiles = tiles_x * tiles_y
+        h, w = self.render_height, self.render_width
+        if out_c is not None and bytes_out and self.sqrt_aa == 1:
+            enc = color_to_byte_device(out_c)
+            if bytes_out == "rgb":
+                enc = enc[:, :3]
+            nch = enc.shape[1]
+            keep = tile_ids.long() < num_tiles
+            full = torch.zeros((num_tiles,) + tuple(enc.shape[1:]),
+                               dtype=torch.uint8, device=enc.device)
+            full[tile_ids.long()[keep]] = enc[keep]
+            c = full.reshape(tiles_y, tiles_x, nch, wl.TILE_H, wl.TILE_W)
+            c = c.permute(0, 3, 1, 4, 2).reshape(self.pad_h, self.pad_w, nch)
+            return c[:h, :w].reshape(-1, nch)
+        if out_c is None:
+            frame = torch.zeros((h * w, 5), dtype=torch.float32, device=self.device)
+            frame[:, 4] = float("inf")
+        else:
+            out_c, out_d = tm.scatter_tiles(out_c, out_d, tile_ids, num_tiles)
+            c = out_c.reshape(tiles_y, tiles_x, 4, wl.TILE_H, wl.TILE_W)
+            c = c.permute(0, 3, 1, 4, 2).reshape(self.pad_h, self.pad_w, 4)
+            d = out_d.reshape(tiles_y, tiles_x, wl.TILE_H, wl.TILE_W)
+            d = d.permute(0, 2, 1, 3).reshape(self.pad_h, self.pad_w)
+            frame = torch.cat([c, d[..., None]], dim=-1)
+            frame = frame[:h, :w].reshape(-1, 5)
+        if self.sqrt_aa > 1:
+            frame = _device_downsample(frame, w, h, self.sqrt_aa)
+        if bytes_out:
+            frame = color_to_byte_device(frame[:, :4])
+            if bytes_out == "rgb":
+                frame = frame[:, :3]
+        return frame
+
     def render_frame(self, camera: CameraParameters) -> torch.Tensor:
         """The output-resolution [width*height, 5] frame on the device:
         one kernel launch, scatter of the compacted grid, untile, crop, AA
         downsample."""
         inputs = self.frame_inputs(camera)
         if inputs is None:
-            frame = torch.zeros(
-                (self.render_height * self.render_width, 5),
-                dtype=torch.float32, device=self.device,
-            )
-            frame[:, 4] = float("inf")
-        else:
-            out_c, out_d = tm.tilemarch_render(
-                self._packed_vol, inputs["meta"], inputs["dims"], self.lut,
-                inputs["cam"], inputs["offsets"], inputs["bricks"],
-                inputs["owners"], inputs["item_bounds"], inputs["tile_ids"],
-                width=self.pad_w, height=self.pad_h, max_slices=self.cube,
-                logical_width=self.render_width,
-                logical_height=self.render_height,
-                sampling=self.parameters.sampling, ghost=self.ghost,
-                classification=self.parameters.classification,
-            )
-            tiles_x = self.pad_w // wl.TILE_W
-            tiles_y = self.pad_h // wl.TILE_H
-            out_c, out_d = tm.scatter_tiles(
-                out_c, out_d, inputs["tile_ids"], tiles_x * tiles_y
-            )
-            c = out_c.reshape(tiles_y, tiles_x, 4, wl.TILE_H, wl.TILE_W)
-            c = c.permute(0, 3, 1, 4, 2).reshape(self.pad_h, self.pad_w, 4)
-            d = out_d.reshape(tiles_y, tiles_x, wl.TILE_H, wl.TILE_W)
-            d = d.permute(0, 2, 1, 3).reshape(self.pad_h, self.pad_w)
-            frame = torch.cat([c, d[..., None]], dim=-1)
-            frame = frame[: self.render_height, : self.render_width].reshape(-1, 5)
-        if self.sqrt_aa > 1:
-            frame = _device_downsample(
-                frame, self.render_width, self.render_height, self.sqrt_aa
-            )
-        return frame
+            return self._assemble(None, None, None)
+        out_c, out_d = tm.tilemarch_render(
+            self._packed_vol, inputs["meta"], inputs["dims"], self.lut,
+            inputs["cam"], inputs["offsets"], inputs["bricks"],
+            inputs["owners"], inputs["item_bounds"], inputs["tile_ids"],
+            **self._kernel_kw(),
+        )
+        return self._assemble(out_c, out_d, inputs["tile_ids"])
 
     def render(
         self,
@@ -484,3 +732,197 @@ class FastSceneRenderer(nn.Module):
             return image.pixels
         return pixels
 
+    def render_batch(
+        self,
+        cameras,
+        overlay: bool = True,
+        output_pattern: Optional[str] = None,
+        max_chunk_bytes: int = 64 << 20,
+        bytes_out=False,
+    ) -> np.ndarray:
+        """Render a camera sequence with ONE kernel launch per chunk.
+
+        The animation workloads (orbits, time series: the reference's
+        render_volume_rotate.py / render_volume_time.py drive one blocking
+        render() per frame) pay a launch and a readback per frame.  This
+        groups consecutive same-march-axis frames (the volume and piece
+        tables are axis-fixed; only the 20-float camera pack and the CSR
+        work list vary per frame), pads their work rows to a power-of-two
+        width, and renders power-of-two chunks of at most 16 frames, and at
+        most ``max_chunk_bytes`` of output frames, through
+        ``ops.tilemarch.tilemarch_render_batch``.  Each chunk's frames are
+        assembled on the device and copied to the host once, on a side
+        stream into pinned memory, while the next chunk renders (a
+        one-deep pipeline).  Frames whose work list culls away entirely
+        come back as cleared frames, like ``render``.
+
+        Returns [len(cameras), width*height, 5] float32 frames in input
+        order; ``output_pattern`` (e.g. "frame_{:04d}.ppm") saves each.
+        With ``bytes_out=True`` frames come back as [B, width*height, 4]
+        RGBA uint8 (the Mesa byte codec applied on the device: a fifth of
+        the float bytes to read back), with ``bytes_out="rgb"`` as
+        [B, width*height, 3] (alpha dropped on the device; PPM/PNG never
+        read it).  ``overlay`` requires float frames.  ``last_batch_stats``
+        splits the wall time: host prep, dispatch, readback.
+        Beyond reference: the reference has no batched render entry."""
+        cameras = list(cameras)
+        if bytes_out and overlay:
+            raise ValueError("bytes_out requires overlay=False (the "
+                             "wireframe overlay blends float pixels)")
+        num_out = self.parameters.width * self.parameters.height
+        chans = (3 if bytes_out == "rgb" else 4) if bytes_out else 5
+        frame_bytes = num_out * (chans if bytes_out else 5 * 4)
+        num_tiles = (self.pad_w // wl.TILE_W) * (self.pad_h // wl.TILE_H)
+        cap = max(1, min(16, max_chunk_bytes // frame_bytes))
+        cap = 1 << (cap.bit_length() - 1)  # pow2: few distinct shapes
+        out = np.empty((len(cameras), num_out, chans),
+                       np.uint8 if bytes_out else np.float32)
+        stats = {
+            "frames": len(cameras), "dispatch_count": 0,
+            "host_prep_ms": 0.0, "dispatch_ms": 0.0,
+            "readback_ms": 0.0, "readback_mb": 0.0,
+        }
+        batch_t0 = time.perf_counter()
+        pending = []  # one-deep pipeline: [(frame indices, readback handle)]
+
+        def drain():
+            # the previous chunk: its copy ran beside this chunk's launches
+            while pending:
+                idx, handle = pending.pop()
+                t0 = time.perf_counter()
+                host = self._finish_readback(handle)
+                out[idx] = host
+                stats["readback_mb"] += host.nbytes / 1e6
+                stats["readback_ms"] += (time.perf_counter() - t0) * 1e3
+
+        def flush(axis, vol, group):
+            _meta, _dims, meta, dims = self._axis_meta_cache[axis]
+            w_pad = _pow2(max(len(inp["bricks"]) for _, inp in group))
+            c0 = 0
+            while c0 < len(group):
+                # largest power-of-two sub-chunk that fits
+                size = min(cap, 1 << ((len(group) - c0).bit_length() - 1))
+                part = group[c0: c0 + size]
+                c0 += size
+                t0 = time.perf_counter()
+                tables = pack_batch_tables([inp for _, inp in part], num_tiles,
+                                           w_pad)
+                stats["host_prep_ms"] += (time.perf_counter() - t0) * 1e3
+                t0 = time.perf_counter()
+                cams, offs, brs, ows, ibs, tids = (
+                    torch.from_numpy(tables[k]).to(self.device)
+                    for k in BATCH_TABLES
+                )
+                out_c, out_d = tm.tilemarch_render_batch(
+                    vol, meta, dims, self.lut, cams, offs, brs, ows, ibs, tids,
+                    **self._kernel_kw(),
+                )
+                frames = torch.stack([
+                    self._assemble(out_c[f], out_d[f], tids[f], bytes_out)
+                    for f in range(size)
+                ])
+                handle = self._start_readback(frames, stats["dispatch_count"] % 2)
+                stats["dispatch_ms"] += (time.perf_counter() - t0) * 1e3
+                stats["dispatch_count"] += 1
+                drain()
+                pending.append(([i for i, _ in part], handle))
+
+        group: List = []  # consecutive same-axis frames: [(index, inputs)]
+        axis = vol = None
+        for i, camera in enumerate(cameras):
+            t0 = time.perf_counter()
+            inputs = self.frame_inputs(camera, as_numpy=True)
+            if inputs is None:  # every item culled: a cleared frame
+                out[i] = self._assemble(None, None, None, bytes_out).cpu().numpy()
+            stats["host_prep_ms"] += (time.perf_counter() - t0) * 1e3
+            if inputs is None:
+                continue
+            if group and self._packed_axis != axis:
+                flush(axis, vol, group)
+                group = []
+            axis, vol = self._packed_axis, self._packed_vol
+            group.append((i, inputs))
+            # flush full windows eagerly, so the host preps the next
+            # window's work lists while the card renders this one
+            if len(group) >= 16:
+                flush(axis, vol, group)
+                group = []
+        if group:
+            flush(axis, vol, group)
+        drain()
+
+        stats["total_ms"] = (time.perf_counter() - batch_t0) * 1e3
+        # ordering-key memo effectiveness over the whole renderer life
+        stats["order_cache_hits"] = self._order_cache.hits
+        stats["order_cache_misses"] = self._order_cache.misses
+        self.last_batch_stats = stats
+        return self._batch_outputs(out, cameras, overlay, output_pattern, bytes_out)
+
+    def _start_readback(self, frames: torch.Tensor, slot: int):
+        """Start copying one chunk's device frames to the host: on the side
+        stream, into pinned staging buffer ``slot``, behind an event
+        recorded after the frames' assembly, so that the copy runs beside
+        the launches queued next.  Returns what ``_finish_readback``
+        takes.  Frames on the CPU are already on the host."""
+        if frames.device.type != "cuda":
+            return frames, None
+        nbytes = frames.numel() * frames.element_size()
+        staging = self._staging.get(slot)
+        if staging is None or staging.numel() < nbytes:
+            staging = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+            self._staging[slot] = staging
+        host = staging[:nbytes].view(frames.dtype).view(frames.shape)
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(frames.device)
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(frames.device))
+        done = torch.cuda.Event()
+        with torch.cuda.stream(self._copy_stream):
+            self._copy_stream.wait_event(ready)
+            host.copy_(frames, non_blocking=True)
+            done.record(self._copy_stream)
+        # ``frames`` stays referenced until the copy is done, so the
+        # allocator cannot hand its memory to a later launch
+        return host, (done, frames)
+
+    @staticmethod
+    def _finish_readback(handle) -> np.ndarray:
+        """Wait for the chunk's copy; its frames as a host array (a view
+        of the staging buffer, valid until the slot's next use)."""
+        host, copying = handle
+        if copying is not None:
+            copying[0].synchronize()
+        return host.numpy()
+
+    def _batch_outputs(
+        self, out, cameras, overlay, output_pattern, bytes_out
+    ) -> np.ndarray:
+        """render_batch's tail: wireframe overlays + per-frame saves."""
+        if overlay or output_pattern:
+            from .image import ImageBuffer, ImageKind
+
+            kind = (
+                ImageKind.RGBA_U8 if bytes_out
+                else ImageKind.RGBA_F32_DEPTH_SORT
+            )
+            for i, camera in enumerate(cameras):
+                px = out[i]
+                if bytes_out == "rgb":
+                    # the save path's u8 kind carries alpha; re-attach an
+                    # opaque byte on the host (the readback stays 3-channel)
+                    px = np.concatenate(
+                        [px, np.full((px.shape[0], 1), 255, np.uint8)],
+                        axis=1,
+                    )
+                image = ImageBuffer(
+                    kind, self.parameters.width, self.parameters.height, px,
+                )
+                if overlay:
+                    render_bounding_box_overlay(
+                        self.tight_bounds, camera, 1, image
+                    )
+                if output_pattern:
+                    from . import io as image_io
+
+                    image_io.save_image(image, output_pattern.format(i))
+        return out

@@ -6,7 +6,8 @@ piece.  Split boundaries inside a brick fill the ring from the same brick
 boundaries: each ring cell whose centre lies inside another brick takes
 that brick's nearest-cell value, so abutting bricks interpolate
 seam-free.  Ring cells outside every brick stay edge-replicated.  The
-port of the JAX package's ``ghost.ghost_fill`` on host arrays.
+port of the JAX package's ``ghost.ghost_fill``, on NumPy arrays or on
+tensors (which stay on their device; the ring positions are host work).
 """
 
 from __future__ import annotations
@@ -14,6 +15,17 @@ from __future__ import annotations
 from typing import List, Sequence, Tuple
 
 import numpy as np
+import torch
+
+
+def edge_pad(data, ghost: int):
+    """``data`` padded by ``ghost`` cells on every side by edge
+    replication (``np.pad(..., mode="edge")``), for an array or a float
+    tensor."""
+    if isinstance(data, np.ndarray):
+        return np.pad(data, ghost, mode="edge")
+    pad = (ghost,) * 6
+    return torch.nn.functional.pad(data[None, None], pad, mode="replicate")[0, 0]
 
 
 def _ring_slabs(shape: np.ndarray, ghost: int) -> List[Tuple[slice, ...]]:
@@ -39,13 +51,13 @@ def _ring_slabs(shape: np.ndarray, ghost: int) -> List[Tuple[slice, ...]]:
 
 
 def ghost_fill(
-    pre_bricks: Sequence[np.ndarray],  # per brick: (nx, ny, nz) pre-transformed
+    pre_bricks: Sequence,  # per brick: (nx, ny, nz) pre-transformed array/tensor
     boxes: Sequence[Tuple[np.ndarray, np.ndarray]],  # (min_corner, max_corner)
     ghost: int = 1,
 ) -> List[np.ndarray]:
     """Edge-pad every brick by ``ghost`` cells and fill ring cells covered
     by another brick with that brick's nearest-cell value.  Returns the
-    padded arrays (shape + 2*ghost per axis)."""
+    padded arrays or tensors (shape + 2*ghost per axis)."""
     num = len(pre_bricks)
     mins = np.array([np.asarray(b[0], float) for b in boxes])
     maxs = np.array([np.asarray(b[1], float) for b in boxes])
@@ -80,7 +92,7 @@ def ghost_fill(
 
     out = []
     for i in range(num):
-        padded = np.pad(pre_bricks[i], ghost, mode="edge")
+        padded = edge_pad(pre_bricks[i], ghost)
         cand = np.nonzero(overlap[i])[0]
         for sl in _ring_slabs(shapes[i], ghost) if cand.size else ():
             axes_idx = [np.arange(s.start, s.stop) for s in sl]
@@ -96,9 +108,11 @@ def ghost_fill(
                 src = np.floor((pos - mins[j]) / spans[j]).astype(np.int64)
                 src = np.clip(src, 0, shapes[j] - 1)
                 src[~inside] = 0
+                if isinstance(padded, torch.Tensor):
+                    src = torch.from_numpy(src).to(padded.device)
+                    inside = torch.from_numpy(inside).to(padded.device)
                 vals = pre_bricks[j][src[..., 0], src[..., 1], src[..., 2]]
-                region = padded[sl]
-                region[inside] = np.asarray(vals)[inside]
-                padded[sl] = region
+                region = padded[sl]  # a view: the assignment writes through
+                region[inside] = vals[inside]
         out.append(padded)
     return out

@@ -38,7 +38,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signature of each kernel's launch function
 _SIGNATURES = {
-    "tilemarch": ("avr_tilemarch_launch", [_P] * 13 + [_I] * 6 + [_F, _F, _I, _I, _P]),
+    "tilemarch": ("avr_tilemarch_launch",
+                  [_P] * 13 + [_I] * 8 + [_F, _F, _I, _I, _I, _P]),
     "slicemarch": ("avr_slicemarch_launch", [_P] * 11 + [_I] * 7 + [_F, _F, _I, _I, _P]),
     "composite": ("avr_composite_launch", [_P] * 7 + [_I, _I, _P]),
 }

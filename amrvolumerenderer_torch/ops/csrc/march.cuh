@@ -20,6 +20,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -88,9 +89,19 @@ __device__ __forceinline__ int clampi(int x, int lo, int hi) {
   return min(max(x, lo), hi);
 }
 
-// The piece tables a march reads.
+// A stored volume cell as float32: float32 as is, bfloat16 widened
+// exactly (the TPU kernel upcasts each bf16 slice the same way,
+// ops/tilemarch.py:409-415).
+__device__ __forceinline__ float cell_value(const float* p) { return *p; }
+__device__ __forceinline__ float cell_value(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+
+// The piece tables a march reads; T is the stored volume's element type
+// (float or __nv_bfloat16).
+template <typename T>
 struct Pieces {
-  const float* vol;   // [B, S, 1024] packed slices (row stride dims[6])
+  const T* vol;       // [B, S, 1024] packed slices (row stride dims[6])
   const float* meta;  // [B, 12] pmin(3) pmax(3) cell(3) pad(3), permuted
   const int* dims;    // [B, 8] n_slices nu nv perm(3) nv_stride bounds
   int stored_slices;  // S
@@ -160,8 +171,8 @@ __device__ __forceinline__ void classify(const float* lut, int entries,
 // body: the slice-march kernel's rolled loop rounds alpha = a * (1 - acc_a)
 // before the colour FMAs; the tile-march kernel's (unrolled form) fuses
 // (s * a) * (1 - acc_a).  ``lut`` is the [4, E] table of this piece.
-template <bool kTrilinear, bool kPre, bool kRolled>
-__device__ Layer march_item(const Pieces& p, const float* lut, int brick,
+template <bool kTrilinear, bool kPre, bool kRolled, typename T>
+__device__ Layer march_item(const Pieces<T>& p, const float* lut, int brick,
                             int packed_bounds, const Ray& ray) {
   const float* m = p.meta + static_cast<int64_t>(brick) * 12;
   const int* dm = p.dims + static_cast<int64_t>(brick) * 8;
@@ -212,7 +223,7 @@ __device__ Layer march_item(const Pieces& p, const float* lut, int brick,
   const float t_hi = tmax;
   const int hi_k = min(s_hi, p.max_slices);
   const int lim = min(s_hi, n_slices);
-  const float* vol_b =
+  const T* vol_b =
       p.vol + static_cast<int64_t>(brick) * p.stored_slices * kTileP;
   const int entries = p.lut_entries;
 
@@ -235,7 +246,7 @@ __device__ Layer march_item(const Pieces& p, const float* lut, int brick,
         clampi(s_lo + s_hi - 1 - k_load, 0, p.max_slices - 1 - ghost);
     const int slice = clampi((backward ? k_rev_load : k_load) + ghost, 0,
                              p.stored_slices - 1);
-    const float* sl = vol_b + static_cast<int64_t>(slice) * kTileP;
+    const T* sl = vol_b + static_cast<int64_t>(slice) * kTileP;
 
     float s[4];
     if (!kTrilinear) {
@@ -248,7 +259,8 @@ __device__ Layer march_item(const Pieces& p, const float* lut, int brick,
       const int iv = clampi(static_cast<int>(fminf(fmaxf(fv, -1.0f), 1e9f)),
                             0, nv - 1);
       const int flat = (iu + ghost) * nv_stride + (iv + ghost);
-      classify(lut, entries, ray, sl[clampi(flat, 0, kTileP - 1)], s);
+      classify(lut, entries, ray, cell_value(sl + clampi(flat, 0, kTileP - 1)),
+               s);
     } else {
       // in-slice bilinear with clamp-to-edge over core + ghost ring
       const float g = static_cast<float>(ghost);
@@ -269,7 +281,9 @@ __device__ Layer march_item(const Pieces& p, const float* lut, int brick,
                          (iu0 + ghost) * nv_stride + (iv1 + ghost),
                          (iu1 + ghost) * nv_stride + (iv1 + ghost)};
       float v[4];
-      for (int i = 0; i < 4; ++i) v[i] = sl[clampi(fl[i], 0, kTileP - 1)];
+      for (int i = 0; i < 4; ++i) {
+        v[i] = cell_value(sl + clampi(fl[i], 0, kTileP - 1));
+      }
       if (kPre) {
         // classify each corner, then interpolate the classified channels;
         // opacity interpolates in log-transmittance space, with L = -inf

@@ -26,7 +26,7 @@ namespace {
 using namespace avr;
 
 struct Params {
-  Pieces pieces;
+  Pieces<float> pieces;
   const float* lut;       // [B, 4, E] per-piece r, g, b, log(1 - alpha)
   const float* cam;       // [20] camera pack
   const int* bricks;      // [W] piece per work item

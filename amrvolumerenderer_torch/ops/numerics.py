@@ -6,12 +6,13 @@ op for op like plain PyTorch:
 
   * it contracts ``a * b + c`` into one fused multiply-add wherever the
     product has a single use inside one fusion (LLVM's FMA combine);
-  * its float32 ``exp`` is a Cephes-style polynomial, not the libm one;
+  * its float32 ``exp`` and ``log`` are Cephes-style polynomials, not the
+    libm ones;
   * its float32 ``rsqrt`` is two Newton steps seeded with the x86 rsqrt
     estimate (``vrsqrtps``), which is a table of 12-bit values indexed by
     the exponent parity and the top 10 mantissa bits.
 
-These helpers reproduce all three, so the plain versions (``march``) and
+These helpers reproduce them, so the plain versions (``march``) and
 the CUDA kernels (``csrc/march.cuh``, which takes ``RSQRT_SEED`` as an
 argument) match the JAX reference bit for bit on the tested scenes
 (tests/test_torch_tilemarch.py, tests/test_torch_slicemarch.py).  The FMA sites were read off XLA's
@@ -158,6 +159,46 @@ def exp(x: Tensor) -> Tensor:
         p = fma(p, r, coef)
     y = fma(p, r * r, r) + 1.0
     return y * ((n.to(torch.int32) + 127) << 23).view(torch.float32)
+
+
+# XLA's float32 log (Cephes, via Julien Pommier's SSE library): split off
+# the exponent, a degree-8 polynomial in the mantissa around 1, ln 2 in two
+# parts.  Coefficients as XLA's optimised IR spells them.
+LOG_P = tuple(float.fromhex(h) for h in (
+    "0x1.204376p-4", "-0x1.d7a370p-4", "0x1.de4a34p-4", "-0x1.fcba9ep-4",
+    "0x1.23d37ep-3", "-0x1.555ca0p-3", "0x1.999d58p-3", "-0x1.fffff8p-3",
+    "0x1.555554p-2",
+))
+LOG_Q1 = float.fromhex("-0x1.bd0106p-13")
+LOG_Q2 = float.fromhex("0x1.63p-1")
+LOG_SQRTHF = float.fromhex("0x1.6a09e6p-1")
+MIN_NORMAL = float.fromhex("0x1p-126")
+
+
+def log(x: Tensor) -> Tensor:
+    """XLA's float32 ``log``, operation for operation, including its
+    treatment of subnormal inputs as zero (-inf)."""
+    x = torch.where(torch.abs(x) < MIN_NORMAL, 0.0, x)
+    bits = torch.clamp(torch.nan_to_num(x, nan=0.0), min=MIN_NORMAL).view(torch.int32)
+    m = ((bits & -2139095041) | 0x3F000000).view(torch.float32)  # [0.5, 1)
+    small = m < LOG_SQRTHF
+    e = (((bits >> 23) - 127).float() + 1.0) - torch.where(small, 1.0, 0.0)
+    t = (m - 1.0) + torch.where(small, m, 0.0)
+    t2 = t * t
+    t3 = t2 * t
+    y = fma(t, LOG_P[0], LOG_P[1])
+    y1 = fma(t, LOG_P[3], LOG_P[4])
+    y2 = fma(t, LOG_P[6], LOG_P[7])
+    y = fma(y, t, LOG_P[2])
+    y1 = fma(y1, t, LOG_P[5])
+    y2 = fma(y2, t, LOG_P[8])
+    y = fma(y, t3, y1)
+    y = fma(y, t3, y2)
+    y = fma(y, t3, LOG_Q1 * e)
+    out = fma(LOG_Q2, e, fma(t2, -0.5, t) + y)
+    out = torch.where(x == 0.0, -float("inf"), out)
+    out = torch.where(x == float("inf"), float("inf"), out)
+    return torch.where((x < 0.0) | torch.isnan(x), float("nan"), out)
 
 
 def rsqrt_seed(x: Tensor) -> Tensor:

@@ -1,14 +1,18 @@
 """Tile-march render: slice march + per-owner run composite in one pass.
 
-``tilemarch_render`` is the entry the renderer calls.  On a CUDA tensor it
-launches the hand-written kernel (``csrc/tilemarch.cu``); on a CPU tensor
-it runs ``tilemarch_reference``, the same function in plain PyTorch.  Both
-take the JAX package's ``ops/tilemarch.py::tilemarch_render`` arguments
-(single frame, float32 volume, full-brick gather) and return its outputs:
-``([G, 4, 8, 128], [G, 8, 128])`` tile-space colour and depth, one row per
-grid step, where step ``g`` renders frame tile ``tile_ids[g]`` and a
-sentinel step (``tile_ids == num_tiles``, empty work list) comes back as
-background.
+``tilemarch_render`` (one frame) and ``tilemarch_render_batch`` (F frames
+in one launch) are the entries the renderer calls.  On a CUDA tensor they
+launch the hand-written kernel (``csrc/tilemarch.cu``; a single frame is
+F = 1 of the same launch); on a CPU tensor they run ``tilemarch_reference``
+/ ``tilemarch_batch_reference``, the same function in plain PyTorch.  They
+take the JAX package's ``ops/tilemarch.py::tilemarch_render`` /
+``tilemarch_render_batch`` arguments (full-brick gather) on a float32 or a
+bfloat16 volume, and return its outputs: ``([G, 4, 8, 128], [G, 8, 128])``
+tile-space colour and depth, one row per grid step (``[F, S, ...]`` for a
+batch), where step ``g`` renders frame tile ``tile_ids[g]`` and a sentinel
+step (``tile_ids == num_tiles``, empty work list) comes back as background.
+A bfloat16 volume widens to float32 exactly before any arithmetic, as the
+TPU kernel upcasts each slice.
 
 Rounding follows the JAX reference as XLA compiles it for the CPU, op
 for op (``numerics``): fused multiply-adds where XLA contracts, XLA's
@@ -46,7 +50,7 @@ def _defaults(dims, tile_bricks, item_bounds, tile_ids, width, height):
 
 
 def tilemarch_reference(
-    vol: Tensor,  # [B, S, 8, 128] f32 packed slice bricks
+    vol: Tensor,  # [B, S, 8, 128] f32 or bf16 packed slice bricks
     meta: Tensor,  # [B, 12] f32 pmin(3) pmax(3) cell(3) pad(3), permuted
     dims: Tensor,  # [B, 8] i32 n_slices nu nv perm(3) nv_stride bounds
     lut: Tensor,  # [4, size // 128, 128] f32 (r, g, b, log(1 - alpha))
@@ -136,6 +140,85 @@ def tilemarch_reference(
     )
 
 
+def tilemarch_batch_reference(
+    vol: Tensor,
+    meta: Tensor,
+    dims: Tensor,
+    lut: Tensor,
+    cams: Tensor,  # [F, 20] per-frame camera packs
+    tile_offsets: Tensor,  # [F, S + 1]
+    tile_bricks: Tensor,  # [F, W]
+    tile_owners: Tensor,  # [F, W]
+    item_bounds: Tensor,  # [F, W]
+    tile_ids: Tensor,  # [F, S]
+    **kw,
+) -> Tuple[Tensor, Tensor]:
+    """The batched kernel in plain PyTorch: ``tilemarch_reference`` frame
+    by frame.  Returns ``([F, S, 4, 8, 128], [F, S, 8, 128])``."""
+    outs = [
+        tilemarch_reference(vol, meta, dims, lut, cams[f], tile_offsets[f],
+                            tile_bricks[f], tile_owners[f], item_bounds[f],
+                            tile_ids[f], **kw)
+        for f in range(tile_ids.shape[0])
+    ]
+    return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
+
+
+def _launch(vol, meta, dims, lut, cams, tile_offsets, tile_bricks, tile_owners,
+            item_bounds, tile_ids, frames, steps, items, *, width, height,
+            max_slices, logical_width, logical_height, sampling, ghost,
+            classification) -> Tuple[Tensor, Tensor]:
+    """Check every argument against what the CUDA kernel takes and launch
+    it on the current stream for ``frames`` frames of ``steps`` grid steps
+    and ``items``-long work rows.  Returns the flat ``[F * S, ...]``
+    outputs.  A failed build or launch raises."""
+    check_args(width, height, sampling, classification)
+    dev = vol.device
+    i32, f32_ = torch.int32, torch.float32
+    num_bricks, stored = vol.shape[0], vol.shape[1]
+    if vol.dtype not in (f32_, torch.bfloat16):
+        raise TypeError(f"vol has dtype {vol.dtype}, expected float32 or bfloat16")
+    require(vol, "vol", vol.dtype, (num_bricks, stored, SUBLANES, LANES), dev)
+    require(meta, "meta", f32_, (num_bricks, 12), dev)
+    require(dims, "dims", i32, (num_bricks, 8), dev)
+    if lut.dim() != 3 or lut.shape[0] != 4 or lut.shape[2] != LANES:
+        raise ValueError(f"lut has shape {tuple(lut.shape)}, expected [4, n, 128]")
+    require(lut, "lut", f32_, tuple(lut.shape), dev)
+    lead = (frames,) if cams.dim() == 2 else ()
+    require(cams, "cam", f32_, lead + (20,), dev)
+    require(tile_offsets, "tile_offsets", i32, lead + (steps + 1,), dev)
+    require(tile_bricks, "tile_bricks", i32, lead + (items,), dev)
+    require(tile_owners, "tile_owners", i32, lead + (items,), dev)
+    require(item_bounds, "item_bounds", i32, lead + (items,), dev)
+    require(tile_ids, "tile_ids", i32, lead + (steps,), dev)
+    if not 0 < max_slices <= stored:
+        raise ValueError(f"max_slices {max_slices} outside (0, {stored}]")
+
+    out_c = torch.empty((frames * steps, 4, SUBLANES, LANES), dtype=f32_, device=dev)
+    out_d = torch.empty((frames * steps, SUBLANES, LANES), dtype=f32_, device=dev)
+    if frames * steps == 0:
+        return out_c, out_d
+    from . import _build
+
+    lib = _build.load("tilemarch")
+    seed = seed_table(dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.avr_tilemarch_launch(
+        vol.data_ptr(), meta.data_ptr(), dims.data_ptr(), lut.data_ptr(),
+        cams.data_ptr(), tile_offsets.data_ptr(), tile_bricks.data_ptr(),
+        tile_owners.data_ptr(), item_bounds.data_ptr(), tile_ids.data_ptr(),
+        seed.data_ptr(), out_c.data_ptr(), out_d.data_ptr(),
+        frames, steps, items, stored, lut.shape[1] * LANES, width // TILE_W,
+        max_slices, ghost, f32(2.0 / (logical_width or width)),
+        f32(2.0 / (logical_height or height)),
+        int(sampling == "trilinear"), int(classification == "pre"),
+        int(vol.dtype == torch.bfloat16), stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"tilemarch kernel launch failed: CUDA error {rc}")
+    return out_c, out_d
+
+
 def tilemarch_render(
     vol: Tensor,
     meta: Tensor,
@@ -159,9 +242,9 @@ def tilemarch_render(
 ) -> Tuple[Tensor, Tensor]:
     """Render + composite one frame; arguments as ``tilemarch_reference``.
 
-    A CUDA ``vol`` launches the CUDA kernel on the current stream (a failed
-    build or launch raises); a CPU ``vol`` runs the plain version.
-    ``tilemarch_render.launches`` counts kernel launches."""
+    A CUDA ``vol`` launches the CUDA kernel (one frame) on the current
+    stream (a failed build or launch raises); a CPU ``vol`` runs the plain
+    version.  ``tilemarch_render.launches`` counts kernel launches."""
     kw = dict(
         width=width, height=height, max_slices=max_slices,
         logical_width=logical_width, logical_height=logical_height,
@@ -172,56 +255,70 @@ def tilemarch_render(
         return tilemarch_reference(*args, item_bounds, tile_ids, **kw)
     if vol.device.type != "cuda":
         raise ValueError(f"tilemarch_render has no kernel for {vol.device}")
-    check_args(width, height, sampling, classification)
     item_bounds, tile_ids = _defaults(
         dims, tile_bricks, item_bounds, tile_ids, width, height
     )
-    dev = vol.device
-    i32, f32_ = torch.int32, torch.float32
-    num_bricks, stored = vol.shape[0], vol.shape[1]
-    steps = tile_ids.shape[0]
-    items = tile_bricks.shape[0]
-    require(vol, "vol", f32_, (num_bricks, stored, SUBLANES, LANES), dev)
-    require(meta, "meta", f32_, (num_bricks, 12), dev)
-    require(dims, "dims", i32, (num_bricks, 8), dev)
-    if lut.dim() != 3 or lut.shape[0] != 4 or lut.shape[2] != LANES:
-        raise ValueError(f"lut has shape {tuple(lut.shape)}, expected [4, n, 128]")
-    require(lut, "lut", f32_, tuple(lut.shape), dev)
-    require(cam, "cam", f32_, (20,), dev)
-    require(tile_offsets, "tile_offsets", i32, (steps + 1,), dev)
-    require(tile_bricks, "tile_bricks", i32, (items,), dev)
-    require(tile_owners, "tile_owners", i32, (items,), dev)
-    require(item_bounds, "item_bounds", i32, (items,), dev)
-    require(tile_ids, "tile_ids", i32, (steps,), dev)
-    if not 0 < max_slices <= stored:
-        raise ValueError(f"max_slices {max_slices} outside (0, {stored}]")
-
-    out_c = torch.empty((steps, 4, SUBLANES, LANES), dtype=f32_, device=dev)
-    out_d = torch.empty((steps, SUBLANES, LANES), dtype=f32_, device=dev)
-    if steps == 0:
-        return out_c, out_d
-    from . import _build
-
-    lib = _build.load("tilemarch")
-    seed = seed_table(dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.avr_tilemarch_launch(
-        vol.data_ptr(), meta.data_ptr(), dims.data_ptr(), lut.data_ptr(),
-        cam.data_ptr(), tile_offsets.data_ptr(), tile_bricks.data_ptr(),
-        tile_owners.data_ptr(), item_bounds.data_ptr(), tile_ids.data_ptr(),
-        seed.data_ptr(), out_c.data_ptr(), out_d.data_ptr(),
-        steps, stored, lut.shape[1] * LANES, width // TILE_W, max_slices,
-        ghost, f32(2.0 / (logical_width or width)),
-        f32(2.0 / (logical_height or height)),
-        int(sampling == "trilinear"), int(classification == "pre"), stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"tilemarch kernel launch failed: CUDA error {rc}")
-    tilemarch_render.launches += 1
-    return out_c, out_d
+    out = _launch(*args, item_bounds, tile_ids, 1, tile_ids.shape[0],
+                  tile_bricks.shape[0], **kw)
+    if tile_ids.shape[0]:
+        tilemarch_render.launches += 1
+    return out
 
 
 tilemarch_render.launches = 0
+
+
+def tilemarch_render_batch(
+    vol: Tensor,
+    meta: Tensor,
+    dims: Tensor,
+    lut: Tensor,
+    cams: Tensor,  # [F, 20] per-frame camera packs
+    tile_offsets: Tensor,  # [F, S + 1] i32 CSR offsets per frame
+    tile_bricks: Tensor,  # [F, W] i32 brick per work item
+    tile_owners: Tensor,  # [F, W] i32 owner per work item
+    item_bounds: Tensor,  # [F, W] i32 packed slice band per work item
+    tile_ids: Tensor,  # [F, S] i32 frame tile per grid step
+    *,
+    width: int,
+    height: int,
+    max_slices: int,
+    logical_width: Optional[int] = None,
+    logical_height: Optional[int] = None,
+    sampling: str = "nearest",
+    ghost: int = 0,
+    classification: str = "post",
+) -> Tuple[Tensor, Tensor]:
+    """F frames in ONE launch (grid = F * S steps): the JAX package's
+    ``tilemarch_render_batch``.  The volume and piece tables are shared;
+    each frame has its camera pack and CSR work row (offsets index into
+    the frame's own row).  Returns ``([F, S, 4, 8, 128], [F, S, 8, 128])``.
+
+    A CUDA ``vol`` launches the CUDA kernel on the current stream; a CPU
+    ``vol`` runs ``tilemarch_batch_reference``.
+    ``tilemarch_render_batch.launches`` counts kernel launches."""
+    kw = dict(
+        width=width, height=height, max_slices=max_slices,
+        logical_width=logical_width, logical_height=logical_height,
+        sampling=sampling, ghost=ghost, classification=classification,
+    )
+    args = (vol, meta, dims, lut, cams, tile_offsets, tile_bricks, tile_owners,
+            item_bounds, tile_ids)
+    if vol.device.type == "cpu":
+        return tilemarch_batch_reference(*args, **kw)
+    if vol.device.type != "cuda":
+        raise ValueError(f"tilemarch_render_batch has no kernel for {vol.device}")
+    if tile_ids.dim() != 2 or tile_bricks.dim() != 2:
+        raise ValueError("tile_ids and tile_bricks must be [F, S] and [F, W]")
+    frames, steps = tile_ids.shape
+    out_c, out_d = _launch(*args, frames, steps, tile_bricks.shape[1], **kw)
+    if frames * steps:
+        tilemarch_render_batch.launches += 1
+    return (out_c.reshape(frames, steps, 4, SUBLANES, LANES),
+            out_d.reshape(frames, steps, SUBLANES, LANES))
+
+
+tilemarch_render_batch.launches = 0
 
 
 def scatter_tiles(

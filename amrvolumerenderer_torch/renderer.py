@@ -4,7 +4,8 @@ Mirrors the JAX package's ``renderer.py`` (and VolumeRenderer.cpp's
 renderScene / renderSingleTrial flow, cpp:947-1339) for one device:
 bounds and scalar range, visibility order, the fused frame on the device
 (slice-march + tile composite, or tile-march), the bounds wireframe
-overlay and PPM/PNG output.
+overlay and PPM/PNG output; ``render_orbit`` renders a camera orbit
+through the batched tile-march path.
 """
 
 from __future__ import annotations
@@ -503,3 +504,75 @@ def render_scene(
         color_map, num_ranks=num_ranks, verbose=verbose, method=method,
         device=dev,
     )
+
+
+def render_orbit(
+    output_pattern: str,
+    parameters: RenderParameters,
+    geometry: SceneGeometry,
+    frames: int,
+    camera: Optional[CameraParameters] = None,
+    color_map: Optional[ColorMap] = None,
+    total_degrees: float = 360.0,
+    verbose: bool = True,
+    device: Device = DEFAULT_DEVICE,
+) -> None:
+    """Render a ``frames``-frame orbit animation through the persistent
+    batched renderer: the scene is prepared once
+    (``fast_scene.FastSceneRenderer``) and consecutive frames render in
+    batched kernel launches (``render_batch``).  The base camera
+    (explicit, or the seeded auto-orbit of VolumeRenderer.cpp:974-1023) is
+    frame 0 exactly; later frames rotate it about the up axis
+    (``camera.orbit_camera_sequence``).  Beyond reference as a product
+    surface: the reference's rotation miniapp re-runs the whole pipeline
+    per frame (python/examples/render_volume_rotate.py).
+
+    ``output_pattern`` must contain a ``{}``-style field for the frame
+    index (e.g. ``"frame_{:04d}.png"``)."""
+    from .camera import orbit_camera_sequence
+    from .fast_scene import FastSceneRenderer
+
+    validate_render_parameters(parameters)
+    if frames <= 0:
+        raise ValueError("orbit frames must be positive")
+    if parameters.render_method not in ("auto", "slicemarch", "tilemarch"):
+        raise ValueError(
+            "orbit rendering runs on the fast kernel family; "
+            "render_method must be auto, slicemarch, or tilemarch "
+            f"(got {parameters.render_method!r})"
+        )
+    try:
+        output_pattern.format(0)
+    except (IndexError, KeyError, ValueError) as error:
+        raise ValueError(
+            f"orbit output pattern {output_pattern!r} must format a frame "
+            "index (e.g. 'frame_{:04d}.png')"
+        ) from error
+    if (parameters.devices or 1) > 1:
+        raise ValueError(
+            "multi-device rendering is not ported to PyTorch yet (ROADMAP.md "
+            "module item 9); use devices=1"
+        )
+    dev = resolve_device(device)
+    if verbose:
+        name = (
+            f"{dev} ({torch.cuda.get_device_name(dev)})"
+            if dev.type == "cuda" else "cpu"
+        )
+        print(f"volume_renderer: Using PyTorch volume mapper on {name}")
+    bounds = compute_global_bounds(geometry)
+    if camera is None:
+        camera = auto_orbit_camera(
+            bounds, parameters.camera_seed, parameters.camera_up
+        )
+    cameras = orbit_camera_sequence(camera, frames, total_degrees)
+    renderer = FastSceneRenderer(geometry, parameters, color_map, device=dev)
+    start = time.perf_counter()
+    renderer.render_batch(cameras, output_pattern=output_pattern)
+    if verbose:
+        elapsed = time.perf_counter() - start
+        print(
+            f"Render: {frames} orbit frame(s) took {elapsed:.4f} s "
+            f"({elapsed / frames * 1e3:.2f} ms/frame incl. host prep)"
+        )
+        print(f"Saved orbit frames to '{output_pattern}'")

@@ -1,11 +1,21 @@
 """Carry a prepared scene across packages: state dict <-> renderer.
 
 A renderer has no weights; its state is the packed scene.  ``STATE_KEYS``
-lists it: the canonical piece table ``[L, 32, 32, 32]`` f32, the piece
-boxes, core dims, parents and owners, the parent (brick) boxes, the
-log-LUT ``[4, size // 128, 128]`` and its alpha column, the scalar range,
-the reference sample distance, the ghost width and the padded and tight
-bounds (each ``[2, 3]``: min, max).
+lists it: the canonical piece table ``[L, 32, 32, 32]`` (float32, or
+bfloat16), the piece boxes, core dims, parents and owners, the parent
+(brick) boxes, the log-LUT ``[4, size // 128, 128]`` and its alpha column,
+the scalar range, the reference sample distance, the ghost width and the
+padded and tight bounds (each ``[2, 3]``: min, max).  ``OPTIONAL_KEYS``
+adds what a renderer has when it has it: the piece-visibility mask (which
+``set_transfer_function`` changes), the per-piece value ranges it is
+derived from, and the storage precision.
+
+A bfloat16 table is carried as the JAX package holds it: NumPy's view of
+a JAX bfloat16 array has the ``bfloat16`` dtype of ``ml_dtypes``, which
+``torch`` does not take, so the port reads its 16-bit patterns and
+reinterprets them (``_canonical_tensor``) without importing ml_dtypes.  The
+port's own bfloat16 table goes out as its float32 widening, which is
+exact, with ``precision`` saying how to store it.
 
 ``state_from_renderer`` reads those attributes with NumPy from any object
 that has them (a JAX ``FastSceneRenderer`` or the port's);
@@ -21,6 +31,7 @@ from typing import Dict
 import dataclasses
 
 import numpy as np
+import torch
 
 from .device import DEFAULT_DEVICE, Device
 from .fast_scene import FastSceneRenderer
@@ -50,19 +61,45 @@ STATE_KEYS = {
     "bounds": "bounds",
     "tight_bounds": "tight_bounds",
 }
+OPTIONAL_KEYS = {
+    "visible": "visible",
+    "piece_ranges": "piece_ranges",
+    "precision": "precision",
+}
 
 
 def _to_numpy(value) -> np.ndarray:
     if hasattr(value, "min_corner"):  # VolumeBounds of either package
         return np.stack([value.min_corner, value.max_corner])
     if hasattr(value, "detach"):  # torch tensor on any device
-        return value.detach().cpu().numpy()
+        value = value.detach().cpu()
+        if value.dtype == torch.bfloat16:
+            value = value.float()  # exact; ``precision`` keeps the storage
+        return value.numpy()
     return np.asarray(value)
 
 
+def _canonical_tensor(canonical) -> torch.Tensor:
+    """The canonical table as a CPU tensor of its own dtype: float32, or
+    bfloat16 from an ``ml_dtypes`` bfloat16 array (its 16-bit patterns,
+    reinterpreted)."""
+    arr = np.asarray(canonical)
+    if arr.dtype.name == "bfloat16":
+        bits = np.ascontiguousarray(arr).view(np.int16)
+        return torch.from_numpy(bits).view(torch.bfloat16)
+    return torch.from_numpy(np.ascontiguousarray(arr, np.float32))
+
+
 def state_from_renderer(obj) -> Dict[str, np.ndarray]:
-    """The packed-scene state of ``obj`` as NumPy arrays."""
-    return {key: _to_numpy(getattr(obj, attr)) for key, attr in STATE_KEYS.items()}
+    """The packed-scene state of ``obj`` as NumPy arrays (and, for the
+    optional keys it has, its visibility mask, piece ranges and
+    precision)."""
+    state = {key: _to_numpy(getattr(obj, attr)) for key, attr in STATE_KEYS.items()}
+    for key, attr in OPTIONAL_KEYS.items():
+        value = getattr(obj, attr, None)
+        if value is not None:
+            state[key] = value if key == "precision" else _to_numpy(value)
+    return state
 
 
 def renderer_from_state(
@@ -89,6 +126,12 @@ def renderer_from_state(
             f"parameters ask for {parameters.lut_size}"
         )
     tables = {key: np.asarray(state[key]) for key in STATE_KEYS}
+    tables["canonical"] = _canonical_tensor(state["canonical"])
+    for key in OPTIONAL_KEYS:
+        if state.get(key) is not None:
+            tables[key] = state[key]
+    if "precision" in tables:
+        tables["precision"] = str(tables["precision"])
     tables["lut"] = lut
     tables["ghost"] = ghost
     tables["scalar_range"] = tuple(float(v) for v in tables["scalar_range"])

@@ -8,14 +8,28 @@ Run from the root of a checkout, with no arguments:
 It builds the port's three CUDA kernels (tile-march, slice-march, tile
 composite) from the checkout's sources, all at once, holds each against
 the golden rows and against its plain PyTorch version on the card, drives
-both main paths through the entry points a user calls: a 512-brick 256^3
-plotfile at 1024x1024 through ``amrvolumerenderer_torch.render`` and the
-CLI (more than 96 pieces: the tile-march route), and bench.py's 3-level
-scene at 1024x1024 through ``render_scene`` for three knob sets (at most 96
-pieces: the slice-march + composite route), plus one 2048^2 AA=4 frame.
-It times every kernel and its plain version and splits the host wall time
-of the one-shot route.  Every phase asserts; any failure ends the run with
-a non-zero exit code.  The second-to-last line of standard output is a
+both one-shot main paths through the entry points a user calls: a
+512-brick 256^3 plotfile at 1024x1024 through
+``amrvolumerenderer_torch.render`` and the CLI (more than 96 pieces: the
+tile-march route), and bench.py's 3-level scene at 1024x1024 through
+``render_scene`` for three knob sets (at most 96 pieces: the slice-march +
+composite route), plus one 2048^2 AA=4 frame.  It times every kernel and
+its plain version and splits the host wall time of the one-shot route.
+
+Then the animation path (phases 8-13): the batched tile-march kernel on
+float32 and bfloat16 volumes against its plain version;
+``FastSceneRenderer.render_batch`` over a 16-frame orbit that crosses
+march axes against per-frame ``render``, bit for bit, in every output mode
+and at 2048^2 AA=4; the bfloat16 frame against the float32 one;
+``set_transfer_function`` against a renderer built with the new map;
+four ``update_data`` time steps on the 512-brick scene from CUDA tensors
+and from NumPy arrays against the plain path on the CPU; orbits through
+``render(plotfile, orbit_frames=)`` and the CLI's ``--orbit-frames``, with
+every batched launch of those orbits (float32 and bfloat16) replayed
+against the plain version on its own arguments; and the batched kernel's
+and ``render_batch``'s times, with ``render_batch``'s pinned side-stream
+readback against a plain ``.cpu()`` in alternating pairs.  Every phase asserts;
+any failure ends the run with a non-zero exit code.  The second-to-last line of standard output is a
 JSON object with each kernel's launches, error, times and bound; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 outside a checkout of the repository, it exits non-zero and prints no
@@ -26,6 +40,7 @@ the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -152,6 +167,28 @@ def max_diff(got: np.ndarray, ref: np.ndarray):
     return same, float(np.abs(got[fin] - ref[fin]).max()) if fin.any() else 0.0
 
 
+def batch_case(torch, fsr, cams):
+    """The batched tile-march kernel's arguments for ``cams`` (one march
+    axis) on ``fsr``: (positional args, keywords, per-frame host inputs)."""
+    from amrvolumerenderer_torch.fast_scene import BATCH_TABLES, pack_batch_tables
+
+    frames, axes = [], set()
+    for c in cams:
+        frames.append(fsr.frame_inputs(c, as_numpy=True))
+        axes.add(fsr._packed_axis)
+    assert len(axes) == 1 and all(f is not None for f in frames), axes
+    num_tiles = (fsr.pad_w // 32) * (fsr.pad_h // 32)
+    tables = pack_batch_tables(frames, num_tiles)
+    _m, _d, meta, dims = fsr._axis_meta_cache[fsr._packed_axis]
+    args = (fsr._packed_vol, meta, dims, fsr.lut) + tuple(
+        torch.from_numpy(tables[k]).to(fsr.device) for k in BATCH_TABLES)
+    kw = dict(width=fsr.pad_w, height=fsr.pad_h, max_slices=fsr.cube,
+              logical_width=fsr.render_width, logical_height=fsr.render_height,
+              sampling=fsr.parameters.sampling, ghost=fsr.ghost,
+              classification=fsr.parameters.classification)
+    return args, kw, frames
+
+
 def valid_samples(torch, meta, dims, cam, bricks, tiles, bounds, tiles_x,
                   logical_w, logical_h, max_slices):
     """Valid samples of a march over (piece, tile, band) items: pixels x
@@ -247,7 +284,11 @@ def main() -> int:
     from amrvolumerenderer_torch.api import LevelBox, LevelGeometry, RenderParameters
     from amrvolumerenderer_torch.compositor import sort_layers
     from amrvolumerenderer_torch.driver import load_plotfile_geometry, write_plotfile
+    from amrvolumerenderer_torch.camera import camera_basis, orbit_camera_sequence
+    from amrvolumerenderer_torch import fast_scene
     from amrvolumerenderer_torch.fast_scene import FastSceneRenderer
+    from amrvolumerenderer_torch.ops.worklist import choose_march_axis
+    from amrvolumerenderer_torch.types import color_map_from_tuples
     from amrvolumerenderer_torch.ops import _build
     from amrvolumerenderer_torch.ops import composite as comp
     from amrvolumerenderer_torch.ops import slicemarch as sm
@@ -267,10 +308,34 @@ def main() -> int:
     counters = {"tilemarch": tm.tilemarch_render,
                 "slicemarch": sm.slicemarch_render_worklist_raw,
                 "composite": comp.composite_tiles}
+    batch_fn = tm.tilemarch_render_batch  # its launches count both batch entries
 
     def reset_counts():
         for fn in counters.values():
             fn.launches = 0
+        batch_fn.launches = 0
+
+    @contextlib.contextmanager
+    def recorded_batches():
+        """Record the arguments of every batched launch that
+        ``FastSceneRenderer`` makes inside the block; the launches still go
+        through the counted wrapper."""
+        seen = []
+
+        class Recording:
+            def __getattr__(self, attr):
+                return getattr(tm, attr)
+
+            @staticmethod
+            def tilemarch_render_batch(*args, **kw):
+                seen.append((args, kw))
+                return batch_fn(*args, **kw)
+
+        fast_scene.tm = Recording()
+        try:
+            yield seen
+        finally:
+            fast_scene.tm = tm
 
     def counts():
         return {name: fn.launches for name, fn in counters.items()}
@@ -326,7 +391,7 @@ def main() -> int:
         result = []
         for k, p in pairs:
             same, d = max_diff(k.cpu().numpy(), p.cpu().numpy())
-            worst[name] = max(worst[name], d)
+            worst[name] = max(worst.get(name, 0.0), d)
             result.append((same, d))
         log(f"{label}: max |diff| " + ", ".join(f"{d:.3g}" for _, d in result)
             + f", non-finite pattern same {all(s for s, _ in result)}")
@@ -682,11 +747,333 @@ def main() -> int:
         f"{prep_ms:.3f} ms, render_frame (prep + kernel + assembly) "
         f"{frame_ms:.3f} ms, render (+ readback) {e2e_ms:.3f} ms")
 
+    # ---- phase 8: batched kernel vs plain, float32 and bfloat16 ------------
+    fsr_by = {"float32": fsr, "bfloat16": FastSceneRenderer(
+        geometry3, RenderParameters(width=1024, height=1024), device=dev,
+        precision="bfloat16")}
+    batch_name = {"float32": "tilemarch_batch", "bfloat16": "tilemarch_batch_bf16"}
+    for prec, r in fsr_by.items():
+        args, kw, _ = batch_case(torch, r, cams[:2])
+        assert args[0].dtype == getattr(torch, prec)
+        kc, kd = tm.tilemarch_render_batch(*args, **kw)
+        pc, pd = tm.tilemarch_batch_reference(*args, **kw)
+        torch.cuda.synchronize()
+        hold(batch_name[prec], f"phase 8: batched tile-march {prec} vs plain, 2 "
+             f"frames x {args[9].shape[1]} steps, {args[6].shape[1]}-item rows",
+             [(kc, pc), (kd, pd)])
+        for f in range(2):  # each frame against the one-frame launch
+            steps = int((args[9][f] < (r.pad_w // 32) * (r.pad_h // 32)).sum())
+            sc, sd = tm.tilemarch_render(*args[:4], *(a[f] for a in args[4:]), **kw)
+            assert torch.equal(sc[:steps], kc[f, :steps]), (prec, f)
+            assert torch.equal(sd[:steps], kd[f, :steps]), (prec, f)
+    log("phase 8: each batched frame equals its one-frame launch bit for bit")
+
+    # ---- phase 9: render_batch vs per-frame render -----------------------
+    orbit16 = orbit_camera_sequence(auto_orbit_camera(fsr.bounds), 16, 360.0)
+    axes16 = sorted({choose_march_axis(camera_basis(c)[0]) for c in orbit16})
+    batch16 = fsr.render_batch(orbit16, overlay=False)
+    singles = np.stack([fsr.render(c, overlay=False) for c in orbit16])
+    assert len(axes16) > 1 and np.array_equal(batch16, singles)
+    stats16 = dict(fsr.last_batch_stats)
+    rgba16 = fsr.render_batch(orbit16, overlay=False, bytes_out=True)
+    codec = np.clip((singles[..., :4] * np.float32(256.0)).astype(np.int32), 0, 255)
+    assert np.array_equal(rgba16, codec.astype(np.uint8)), "bytes_out != codec"
+    assert np.array_equal(fsr.render_batch(orbit16, overlay=False, bytes_out="rgb"),
+                          rgba16[..., :3]), "rgb != RGBA[:3]"
+    assert np.array_equal(fsr.render_batch(orbit16, overlay=False,
+                                           max_chunk_bytes=1), batch16)
+    log(f"phase 9: 16-frame orbit over 360 deg (march axes {axes16}) at 1024^2: "
+        f"render_batch == per-frame render bit for bit ({stats16['dispatch_count']} "
+        "launches); bytes_out == host codec; rgb == RGBA[:3]; max_chunk_bytes=1 "
+        f"== default; alpha > 0 on {float((batch16[..., 3] > 0).mean()):.4f}")
+    fsr_aa = FastSceneRenderer(geometry3, RenderParameters(
+        width=2048, height=2048, antialiasing=4), device=dev)
+    aa = fsr_aa.render_batch(cams[:2], overlay=False)
+    for i in range(2):
+        assert np.array_equal(aa[i], fsr_aa.render(cams[i], overlay=False)), i
+    assert aa.shape == (2, 2048 * 2048, 5) and np.isfinite(aa[..., :4]).all()
+    log(f"phase 9: 2 frames at 2048^2 AA=4: render_batch == render bit for bit, "
+        f"alpha > 0 on {float((aa[..., 3] > 0).mean()):.4f}")
+    del fsr_aa, aa
+
+    # ---- phase 10: bfloat16 storage -------------------------------------
+    bf = fsr_by["bfloat16"]
+    a32 = fsr.render(cams[0], overlay=False)
+    a16 = bf.render(cams[0], overlay=False)
+    bf_diff = float(np.abs(a32[:, :4] - a16[:, :4]).max())
+    nbytes = {k: r.canonical.numel() * r.canonical.element_size()
+              for k, r in fsr_by.items()}
+    log(f"phase 10: bfloat16 vs float32 frame: max |diff| {bf_diff:.4g} (limit "
+        f"0.02); canonical table {nbytes['float32']} bytes float32, "
+        f"{nbytes['bfloat16']} bytes bfloat16")
+    assert bf_diff < 0.02 and bf.canonical.dtype == torch.bfloat16
+    reset_counts()  # counted run: the bfloat16 animation path
+    bf.render_batch(cams, overlay=False, bytes_out=True)
+    torch.cuda.synchronize()
+    launches["tilemarch_batch_bf16"] = batch_fn.launches
+    log(f"phase 10: bfloat16 render_batch of the 8-camera orbit: launches "
+        f"{launches['tilemarch_batch_bf16']} batched, {counts()}")
+    assert launches["tilemarch_batch_bf16"] >= 1 and counts()["tilemarch"] == 0
+
+    # ---- phase 11: transfer-function swap and in-situ update --------------
+    step_map = [(0.0, 0.1, 0.2, 0.9, 0.0), (0.8, 0.1, 0.2, 0.9, 0.0),
+                (0.85, 0.9, 0.6, 0.1, 0.6), (1.0, 1.0, 1.0, 0.2, 0.9)]
+    params = RenderParameters(width=1024, height=1024)
+    swapped = FastSceneRenderer(geometry3, params, device=dev)
+    swapped.set_transfer_function(color_map=color_map_from_tuples(step_map))
+    built = FastSceneRenderer(geometry3, params, device=dev,
+                              color_map=color_map_from_tuples(step_map))
+    got_tf = swapped.render_batch(cams[:2], overlay=False)
+    assert np.array_equal(got_tf, built.render_batch(cams[:2], overlay=False))
+    assert np.array_equal(swapped.visible, built.visible)
+    log(f"phase 11: set_transfer_function == renderer built with the map, bit "
+        f"for bit; {int((~swapped.visible).sum())} of {len(swapped.visible)} "
+        "pieces culled")
+    del swapped, built
+    upd = {"cuda": FastSceneRenderer(geometry, RenderParameters(width=512, height=512),
+                                     device=dev)}
+    upd["cpu"] = FastSceneRenderer(geometry, RenderParameters(width=512, height=512),
+                                   device="cpu")
+    ucam = auto_orbit_camera(upd["cuda"].bounds)
+    base = [torch.from_numpy(np.asarray(b.data, np.float32)).to(dev)
+            for b in geometry.bricks]
+    for kind in ("tensor", "numpy"):
+        for step in range(1, 5):
+            mix = 0.15 * step
+            new = [b * (1.0 - mix) + (1.0 - b) * mix for b in base]
+            t0 = time.perf_counter()
+            if kind == "tensor":
+                upd["cuda"].update_data(new)
+                torch.cuda.synchronize()
+                update_s = time.perf_counter() - t0
+                upd["cpu"].update_data([a.cpu() for a in new])
+            else:
+                host = [a.cpu().numpy() for a in new]
+                t0 = time.perf_counter()
+                upd["cuda"].update_data(host)
+                torch.cuda.synchronize()
+                update_s = time.perf_counter() - t0
+                upd["cpu"].update_data(host)
+            assert torch.equal(upd["cuda"].canonical.cpu(), upd["cpu"].canonical)
+            g = upd["cuda"].render(ucam, overlay=False)
+            c = upd["cpu"].render(ucam, overlay=False)
+            same, d = max_diff(g, c)
+            log(f"phase 11: update_data ({kind}) step {step}: 512 bricks in "
+                f"{update_s * 1e3:.1f} ms, tables equal the CPU path's, frame vs "
+                f"plain CPU path max |diff| {d:.3g}, non-finite pattern same "
+                f"{same}, alpha > 0 on {float((g[:, 3] > 0).mean()):.4f}")
+            assert same and d <= ATOL
+    del upd, base, new
+
+    # ---- phase 12: orbit entry points -------------------------------------
+    def replay(name, label, recorded):
+        """Hold each recorded batched launch against the plain version on
+        the same arguments; returns [(frames, kernel ms)] per launch."""
+        timed = []
+        for args, kw in recorded:
+            kc, kd = batch_fn(*args, **kw)
+            pc, pd = tm.tilemarch_batch_reference(*args, **kw)
+            torch.cuda.synchronize()
+            frames = args[4].shape[0]
+            ms = min(event_ms(lambda: batch_fn(*args, **kw)) for _ in range(3))
+            hold(name, f"{label}: F={frames}, {args[9].shape[1]} steps, "
+                 f"{args[6].shape[1]}-item rows, kernel {ms:.4f} ms "
+                 f"({ms / frames:.4f} ms/frame)", [(kc, pc), (kd, pd)])
+            timed.append((frames, ms))
+        return timed
+
+    reset_counts()  # counted run: the float32 animation path, from render()
+    t0 = time.perf_counter()
+    with recorded_batches() as api_batches:
+        rc = amrvolumerenderer_torch.render(
+            plotfile, width=1024, height=1024, orbit_frames=4,
+            output=os.path.join(SCRATCH, "api_orbit.png"))
+    torch.cuda.synchronize()
+    orbit_s = time.perf_counter() - t0
+    launches["tilemarch_batch"] = batch_fn.launches
+    log(f"phase 12: render(plotfile, orbit_frames=4) at 1024^2: rc {rc}, "
+        f"{orbit_s:.3f} s wall (scene build included), launches "
+        f"{launches['tilemarch_batch']} batched of "
+        f"{[a[4].shape[0] for a, _ in api_batches]} frames, {counts()}")
+    assert rc == 0 and launches["tilemarch_batch"] == len(api_batches) >= 1
+    assert counts() == {"tilemarch": 0, "slicemarch": 0, "composite": 0}
+    for i in range(4):
+        assert os.path.exists(os.path.join(SCRATCH, f"api_orbit_{i:04d}.png")), i
+    # the batched kernel against its plain version at the shapes this run
+    # gave it (512 pieces, pow2-padded rows, sentinel steps)
+    replay("tilemarch_batch", "phase 12: render(orbit_frames=4) launch replayed",
+           api_batches)
+    del api_batches
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "amrvolumerenderer_torch.driver", "--width", "1024",
+         "--height", "1024", "--orbit-frames", "8", "--output",
+         os.path.join(SCRATCH, "cli_orbit.png"), plotfile],
+        cwd=ROOT, capture_output=True, text=True, timeout=600,
+    )
+    log(f"phase 12: CLI --orbit-frames 8 rc {cli.returncode} in "
+        f"{time.perf_counter() - t0:.3f} s")
+    assert cli.returncode == 0, cli.stderr[-4000:]
+    pngs = [read_png_rgb(os.path.join(SCRATCH, f"cli_orbit_{i:04d}.png"))
+            for i in range(8)]
+    # the two-shell field is symmetric under quarter turns, so frames 90
+    # degrees apart may repeat; neighbours 45 degrees apart differ
+    assert all(not np.array_equal(a, b) for a, b in zip(pngs, pngs[1:])), \
+        "neighbouring orbit frames are equal"
+    image, _ = render_scene("", RenderParameters(width=1024, height=1024),
+                            geometry, verbose=False, method="tilemarch", device=dev)
+
+    def png_bytes(pixels):
+        b = np.clip((pixels[:, :3] * np.float32(256.0)).astype(np.int32), 0, 255)
+        return b.astype(np.uint8).reshape(1024, 1024, 3)[::-1]
+
+    expect = png_bytes(image.pixels)
+    assert np.array_equal(pngs[0], expect), "orbit frame 0 != single render"
+    assert np.array_equal(read_png_rgb(os.path.join(SCRATCH, "api_orbit_0000.png")),
+                          expect)
+    log(f"phase 12: 8 PNGs, {len({p.tobytes() for p in pngs})} distinct, "
+        "neighbours differ; frame 0 (CLI and render()) equals the single "
+        "tile-march render")
+    # the CLI's orbit in this process, float32 and bfloat16: its chunking,
+    # every launch against the plain version, and the per-frame kernel
+    # time at the chunk sizes an orbit user gets
+    p12 = RenderParameters(width=1024, height=1024)
+    cams8 = orbit_camera_sequence(auto_orbit_camera(
+        compute_global_bounds(geometry), p12.camera_seed, p12.camera_up), 8, 360.0)
+    orbit8, orbit_f_ms = {}, {}
+    for prec, name in batch_name.items():
+        r = FastSceneRenderer(geometry, p12, device=dev, precision=prec)
+        with recorded_batches() as rec:
+            orbit8[prec] = r.render_batch(cams8)
+        sizes = [a[4].shape[0] for a, _ in rec]
+        log(f"phase 12: render_batch({prec}) of the CLI's 8-frame orbit, 512 "
+            f"bricks at 1024^2: {len(rec)} launches of {sizes} frames")
+        timed = replay(name, f"phase 12: batched tile-march {prec} vs plain, "
+                       "CLI orbit launch", rec)
+        orbit_f_ms[prec] = {f: min(ms / f for g, ms in timed if g == f)
+                            for f in sorted(set(sizes))}
+        log(f"phase 12: {smi}: batched tile-march {prec}, 512 bricks at "
+            "1024^2, kernel ms/frame by chunk size: " + ", ".join(
+                f"F={f} {v:.4f}" for f, v in orbit_f_ms[prec].items()))
+        del r, rec
+    for i, png in enumerate(pngs):
+        assert np.array_equal(png, png_bytes(orbit8["float32"][i])), i
+    bf_orbit = float(np.abs(orbit8["float32"][..., :4]
+                            - orbit8["bfloat16"][..., :4]).max())
+    log(f"phase 12: every CLI frame equals the in-process render_batch frame; "
+        f"bfloat16 vs float32 orbit max |diff| {bf_orbit:.4g} (limit 0.02)")
+    assert bf_orbit < 0.02
+    del orbit8
+
+    # ---- phase 13: timing of the animation path ----------------------------
+    log(f"phase 13: {smi}")
+    one_axis = orbit_camera_sequence(auto_orbit_camera(fsr.bounds), 8, 8.0)
+    batch_times, batch_bounds = {}, {}
+    for prec, r in fsr_by.items():
+        args8, kw8, frames8 = batch_case(torch, r, one_axis)
+        singles1 = [batch_case(torch, r, [c])[0] for c in one_axis]
+        pairs2 = [batch_case(torch, r, one_axis[j:j + 2])[0] for j in range(0, 8, 2)]
+        batch_fn(*args8, **kw8)  # warm-up
+        f8 = [event_ms(lambda: batch_fn(*args8, **kw8)) / 8 for _ in range(3)]
+        f2 = [sum(event_ms(lambda a=a: batch_fn(*a, **kw8)) for a in pairs2) / 8
+              for _ in range(3)]
+        f1 = [sum(event_ms(lambda a=a: batch_fn(*a, **kw8)) for a in singles1) / 8
+              for _ in range(3)]
+        plain = event_ms(lambda: tm.tilemarch_batch_reference(*args8, **kw8)) / 8
+        samples, nbytes_ = 0, 0
+        for fr, cam_t in zip(frames8, args8[4]):
+            ids = torch.from_numpy(fr["tile_ids"]).to(dev)
+            wt = torch.repeat_interleave(
+                ids.long(), torch.diff(torch.from_numpy(fr["offsets"]).to(dev).long()))
+            br = torch.from_numpy(fr["bricks"]).to(dev)
+            ib = torch.from_numpy(fr["item_bounds"]).to(dev)
+            samples += valid_samples(torch, args8[1], args8[2], cam_t, br, wt, ib,
+                                     r.pad_w // 32, 1024, 1024, r.cube)
+            nbytes_ += (band_bytes(torch, br, ib, args8[2], r.cube,
+                                   cell_bytes=args8[0].element_size())
+                        + r.lut.numel() * 4 + len(fr["tile_ids"]) * 1024 * 20)
+        batch_bounds[prec] = bound(nbytes_ / 8, samples * SAMPLE_FLOPS[
+            ("nearest", "post")] / 8)
+        batch_times[prec] = (min(f8), plain, min(f1), f8, f1)
+        log(f"phase 13: batched tile-march {prec}, 8 frames of one march axis at "
+            f"1024^2: F=8 {min(f8):.4f} ms/frame (runs "
+            f"{', '.join(f'{v:.4f}' for v in f8)}), F=2 {min(f2):.4f} ms/frame "
+            f"(runs {', '.join(f'{v:.4f}' for v in f2)}), F=1 {min(f1):.4f} ms/frame "
+            f"(runs {', '.join(f'{v:.4f}' for v in f1)}), plain PyTorch "
+            f"{plain:.4f} ms/frame; bound {batch_bounds[prec][0]:.5f} ms/frame "
+            f"({batch_bounds[prec][1]}; {samples / 8:.0f} valid samples/frame)")
+    for mode in (True, "rgb"):
+        fsr.render_batch(cams, overlay=False, bytes_out=mode)  # warm-up
+        runs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fsr.render_batch(cams, overlay=False, bytes_out=mode)
+            runs.append(((time.perf_counter() - t0) * 1e3 / 8,
+                         dict(fsr.last_batch_stats)))
+        wall, st = min(runs, key=lambda x: x[0])
+        log(f"phase 13: render_batch(8-camera orbit, bytes_out={mode!r}) at "
+            f"1024^2: {wall:.3f} ms/frame wall (runs "
+            f"{', '.join(f'{w:.3f}' for w, _ in runs)}); per frame host prep "
+            f"{st['host_prep_ms'] / 8:.3f} ms, dispatch {st['dispatch_ms'] / 8:.3f} "
+            f"ms, readback {st['readback_ms'] / 8:.3f} ms "
+            f"({st['readback_mb'] / 8:.3f} MB); {st['dispatch_count']} launches")
+
+    # readback: the pinned side-stream copy render_batch makes against a
+    # plain .cpu() of each chunk, in alternating pairs, on 32 frames of one
+    # march axis (two 16-frame chunks) and bench.py's 8-camera orbit (four
+    # 2-frame chunks), bytes_out=True; both variants warmed first
+    def plain_readback(on):
+        if on:
+            fsr._start_readback = lambda frames, slot: frames
+            fsr._finish_readback = lambda frames: frames.cpu().numpy()
+        else:
+            fsr.__dict__.pop("_start_readback", None)
+            fsr.__dict__.pop("_finish_readback", None)
+
+    orbit32 = orbit_camera_sequence(auto_orbit_camera(fsr.bounds), 32, 16.0)
+    workloads = {"32 frames, 2 chunks": orbit32, "8-camera orbit, 4 chunks": cams}
+    refs = {k: fsr.render_batch(v, overlay=False, bytes_out=True)
+            for k, v in workloads.items()}
+    rb_samples = {(k, v): [] for k in workloads for v in ("pinned", "plain")}
+    pairs = 10
+    for turn in range(pairs + 1):  # turn 0 warms both variants
+        order = ("pinned", "plain") if turn % 2 else ("plain", "pinned")
+        for variant in order:
+            plain_readback(variant == "plain")
+            for k, cams_k in workloads.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = fsr.render_batch(cams_k, overlay=False, bytes_out=True)
+                wall = (time.perf_counter() - t0) * 1e3 / len(cams_k)
+                assert np.array_equal(got, refs[k]), (variant, k)
+                if turn:
+                    rb_samples[(k, variant)].append(
+                        (wall, fsr.last_batch_stats["readback_ms"] / len(cams_k)))
+    plain_readback(False)
+    for k in workloads:
+        med = {v: float(np.median([w for w, _ in rb_samples[(k, v)]]))
+               for v in ("pinned", "plain")}
+        log(f"phase 13: {smi}: readback, {k}, bytes_out, {pairs} alternating "
+            f"pairs: " + "; ".join(
+                f"{v}: wall median {med[v]:.3f} ms/frame (runs "
+                f"{', '.join(f'{w:.3f}' for w, _ in rb_samples[(k, v)])}), readback "
+                f"{', '.join(f'{r:.3f}' for _, r in rb_samples[(k, v)])} ms/frame"
+                for v in ("pinned", "plain"))
+            + f"; pinned/plain wall {med['pinned'] / med['plain']:.3f}")
+
     sources = {
         "tilemarch": ("ops/csrc/tilemarch.cu", "amrvolumerenderer_tpu/ops/tilemarch.py:819"),
         "slicemarch": ("ops/csrc/slicemarch.cu", "amrvolumerenderer_tpu/ops/slicemarch.py:750"),
         "composite": ("ops/csrc/composite.cu", "amrvolumerenderer_tpu/ops/composite.py:114"),
+        "tilemarch_batch": ("ops/csrc/tilemarch.cu",
+                            "amrvolumerenderer_tpu/ops/tilemarch.py:711"),
+        "tilemarch_batch_bf16": ("ops/csrc/tilemarch.cu",
+                                 "amrvolumerenderer_tpu/ops/tilemarch.py:711"),
     }
+    for prec, name in batch_name.items():
+        times[name] = batch_times[prec][:2]
+        bounds_ms[name] = batch_bounds[prec]
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
@@ -699,7 +1086,7 @@ def main() -> int:
         "bound_ms": bounds_ms[name][0],
         "bound_by": bounds_ms[name][1],
         "library_ms": None,
-    } for name in counters]}))
+    } for name in sources]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),
@@ -708,9 +1095,10 @@ def main() -> int:
     return 0
 
 
-def band_bytes(torch, bricks, bounds, dims, max_slices) -> int:
+def band_bytes(torch, bricks, bounds, dims, max_slices, cell_bytes=4) -> int:
     """Bytes of the distinct (piece, slice) pairs the items' slice bands
-    touch, 4 KiB each: the volume a march must read at least once."""
+    touch, 1024 cells of ``cell_bytes`` each: the volume a march must read
+    at least once."""
     b = bounds.long()
     d = dims.long()[bricks.long()]
     lo = torch.where(b > 0, b >> 16, 0)
@@ -724,7 +1112,7 @@ def band_bytes(torch, bricks, bounds, dims, max_slices) -> int:
         touched.index_put_((bricks.long()[chunk, None].expand_as(mask)[mask],
                             k[None].expand_as(mask)[mask]),
                            torch.ones((), dtype=torch.bool, device=dims.device))
-    return int(touched.sum()) * 4096
+    return int(touched.sum()) * 1024 * cell_bytes
 
 
 if __name__ == "__main__":

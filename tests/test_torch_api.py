@@ -113,7 +113,8 @@ def test_cli_matches_jax(tmp_path, plotfile, flags):
     (["--device", "cuda"], "no CUDA device"),
     (["--device", "cpu", "--render-method", "raymarch"], "ROADMAP.md module item 4"),
     (["--device", "cpu", "--devices", "2"], "ROADMAP.md module item 9"),
-    (["--device", "cpu", "--orbit-frames", "3"], "ROADMAP.md module item 6"),
+    (["--device", "cpu", "--orbit-frames", "3", "--render-method", "raymarch"],
+     "fast kernel family"),
     (["--device", "tpu"], "device must be"),
 ])
 def test_cli_errors_are_clean(tmp_path, plotfile, capsys, argv, message):

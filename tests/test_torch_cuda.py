@@ -1,6 +1,7 @@
-"""The port's CUDA kernels on the card: tile-march, slice-march and the tile
-composite (marked ``cuda``; every test skips itself when
-``torch.cuda.is_available()`` is false).
+"""The port's CUDA kernels on the card: tile-march (one frame and batched,
+float32 and bfloat16 volumes), slice-march and the tile composite (marked
+``cuda``; every test skips itself when ``torch.cuda.is_available()`` is
+false).
 
 This file imports neither jax nor the tests' conftest (which does), so it
 runs on a machine that has only PyTorch:
@@ -19,12 +20,17 @@ import pytest
 import torch
 
 from amrvolumerenderer_torch import api
-from amrvolumerenderer_torch.camera import auto_orbit_camera
+from amrvolumerenderer_torch.camera import (
+    auto_orbit_camera,
+    camera_basis,
+    orbit_camera_sequence,
+)
 from amrvolumerenderer_torch.compositor import sort_layers
-from amrvolumerenderer_torch.fast_scene import FastSceneRenderer
+from amrvolumerenderer_torch.fast_scene import FastSceneRenderer, pack_batch_tables
 from amrvolumerenderer_torch.ops import composite as comp
 from amrvolumerenderer_torch.ops import slicemarch as sm
 from amrvolumerenderer_torch.ops import tilemarch as tm
+from amrvolumerenderer_torch.ops.worklist import choose_march_axis
 from amrvolumerenderer_torch.renderer import (
     compute_global_bounds,
     compute_global_scalar_range,
@@ -237,3 +243,89 @@ def test_sentinel_steps_and_wrapper_checks(cuda):
             fsr._packed_vol.double(), inputs["meta"], inputs["dims"],
             fsr.lut[None].expand(fsr._packed_vol.shape[0], -1, -1, -1).contiguous(),
             inputs["cam"], inputs["bricks"], inputs["bricks"], **kw)
+
+
+def batch_case(dev, precision, count=3, size=(256, 192)):
+    """A renderer of the 3-level scene and the batched kernel's tables for
+    ``count`` orbit frames that share a march axis (on ``dev``)."""
+    fsr = FastSceneRenderer(three_level_geometry(), RenderParameters(
+        width=size[0], height=size[1]), device=dev, precision=precision)
+    base = auto_orbit_camera(fsr.bounds)
+    cams = orbit_camera_sequence(base, 8 * count, 45.0)[:count]
+    frames = [fsr.frame_inputs(c, as_numpy=True) for c in cams]
+    assert len(fsr._axis_meta_cache) == 1  # one march axis
+    num_tiles = (fsr.pad_w // 32) * (fsr.pad_h // 32)
+    tables = {k: torch.from_numpy(v).to(dev)
+              for k, v in pack_batch_tables(frames, num_tiles).items()}
+    _m, _d, meta, dims = fsr._axis_meta_cache[fsr._packed_axis]
+    args = (fsr._packed_vol, meta, dims, fsr.lut, tables["cam"],
+            tables["offsets"], tables["bricks"], tables["owners"],
+            tables["item_bounds"], tables["tile_ids"])
+    kw = dict(width=fsr.pad_w, height=fsr.pad_h, max_slices=fsr.cube,
+              logical_width=fsr.render_width, logical_height=fsr.render_height)
+    return fsr, frames, args, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["float32", "bfloat16"])
+def test_batched_kernel_matches_plain_and_single(cuda, precision):
+    fsr, frames, args, kw = batch_case(cuda, precision)
+    assert fsr._packed_vol.dtype == (torch.bfloat16 if precision == "bfloat16"
+                                     else torch.float32)
+    before = tm.tilemarch_render_batch.launches
+    kc, kd = tm.tilemarch_render_batch(*args, **kw)
+    pc, pd = tm.tilemarch_batch_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert tm.tilemarch_render_batch.launches == before + 1
+    assert kc.shape == (3,) + tuple(args[9].shape[1:]) + (4, 8, 128)
+    assert (pc[:, :, 3] > 0).float().mean() > 0.1
+    assert_close(kc, pc)
+    assert_close(kd, pd)
+    # each frame of the batch equals the one-frame launch, bit for bit
+    for f, inp in enumerate(frames):
+        steps = len(inp["tile_ids"])
+        one = [torch.from_numpy(np.ascontiguousarray(inp[k])).to(cuda) for k in (
+            "cam", "offsets", "bricks", "owners", "item_bounds", "tile_ids")]
+        sc, sd = tm.tilemarch_render(*args[:4], *one, **kw)
+        assert torch.equal(kc[f, :steps], sc) and torch.equal(kd[f, :steps], sd)
+
+
+@pytest.mark.cuda
+def test_render_batch_equals_render_bit_for_bit(cuda):
+    """A 16-frame orbit over 360 degrees crosses march axes; every batched
+    mode equals the per-frame render (floats, bytes, rgb)."""
+    fsr = FastSceneRenderer(three_level_geometry(), RenderParameters(
+        width=128, height=96), device=cuda)
+    cams = orbit_camera_sequence(auto_orbit_camera(fsr.bounds), 16, 360.0)
+    before = (tm.tilemarch_render_batch.launches, tm.tilemarch_render.launches)
+    batch = fsr.render_batch(cams, overlay=False)
+    assert tm.tilemarch_render_batch.launches > before[0]
+    assert tm.tilemarch_render.launches == before[1]
+    assert len({choose_march_axis(camera_basis(c)[0]) for c in cams}) > 1
+    singles = np.stack([fsr.render(c, overlay=False) for c in cams])
+    np.testing.assert_array_equal(batch, singles)
+    rgba = fsr.render_batch(cams, overlay=False, bytes_out=True)
+    want = np.clip((singles[..., :4] * np.float32(256.0)).astype(np.int32), 0, 255)
+    np.testing.assert_array_equal(rgba, want.astype(np.uint8))
+    np.testing.assert_array_equal(
+        fsr.render_batch(cams, overlay=False, bytes_out="rgb"), rgba[..., :3])
+    np.testing.assert_array_equal(
+        fsr.render_batch(cams, overlay=False, max_chunk_bytes=1), batch)
+
+
+@pytest.mark.cuda
+def test_batched_wrapper_checks(cuda):
+    fsr, frames, args, kw = batch_case(cuda, "float32", count=2, size=(64, 64))
+    with pytest.raises(TypeError, match="dtype"):
+        tm.tilemarch_render_batch(*args[:5], args[5].long(), *args[6:], **kw)
+    with pytest.raises(ValueError, match="shape"):
+        tm.tilemarch_render_batch(*args[:4], args[4][:, :19].contiguous(),
+                                  *args[5:], **kw)
+    with pytest.raises(ValueError, match="shape"):
+        tm.tilemarch_render_batch(*args[:6], args[6][:1], *args[7:], **kw)
+    with pytest.raises(ValueError):
+        tm.tilemarch_render_batch(*args[:9], args[9][0], **kw)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tm.tilemarch_render_batch(args[0].double(), *args[1:], **kw)
+    with pytest.raises(ValueError, match="is on cpu"):
+        tm.tilemarch_render_batch(*args[:8], args[8].cpu(), args[9], **kw)

@@ -1,7 +1,9 @@
 """The port stands alone: in a fresh interpreter where importing ``jax``,
 ``jaxlib`` or ``amrvolumerenderer_tpu`` raises, every module of
-``amrvolumerenderer_torch`` imports, and the CLI renders a plotfile through
-the default (slice-march) route on the CPU."""
+``amrvolumerenderer_torch`` imports (the animation path's ``transforms``
+and ``device_scene`` among them), and the CLI renders a plotfile through
+the default (slice-march) route and an orbit through the batched
+tile-march path on the CPU."""
 
 import os
 import subprocess
@@ -78,3 +80,18 @@ def test_port_imports_and_renders_with_jax_and_reference_blocked(
         f.readline()
         img = np.frombuffer(f.read(), np.uint8).reshape(h, w, 3)
     assert (w, h) == (40, 32) and (img > 0).mean() > 0.1
+
+
+def test_port_renders_orbit_with_jax_and_reference_blocked(tmp_path, plotfile):
+    out = tmp_path / "orbit.ppm"
+    path = os.environ.get("PYTHONPATH")
+    env = dict(os.environ, PYTHONPATH=REPO + (os.pathsep + path if path else ""))
+    proc = subprocess.run(
+        [sys.executable, "-c", BLOCKED_RUN, "--width", "32", "--height", "32",
+         "--device", "cpu", "--orbit-frames", "2", "--output", str(out), plotfile],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "imported" in proc.stdout and "Saved orbit frames" in proc.stdout
+    frames = [(tmp_path / f"orbit_{i:04d}.ppm").read_bytes() for i in range(2)]
+    assert all(f.startswith(b"P6") for f in frames) and frames[0] != frames[1]
