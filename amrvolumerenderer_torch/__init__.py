@@ -1,11 +1,13 @@
 """amrvolumerenderer_torch: the AMR volume renderer on PyTorch and CUDA.
 
 A port of ``amrvolumerenderer_tpu`` (JAX/Pallas on a TPU) for one NVIDIA
-Hopper GPU: the single-device render path, from plotfile, CLI and API
-down to hand-written CUDA kernels (``ops/csrc/``): the slice-march and tile
-composite kernels of the one-shot route, and the tile-march kernel for
+Hopper GPU: the render path, from plotfile, CLI and API down to
+hand-written CUDA kernels (``ops/csrc/``): the slice-march and tile
+composite kernels of the one-shot route, the tile-march kernel for
 scenes of more than 96 pieces and for the animation path
-(``FastSceneRenderer.render_batch``, orbits, in-situ ``update_data``).  It imports neither jax nor the JAX
+(``FastSceneRenderer.render_batch``, orbits, in-situ ``update_data``), and
+the one-shot multi-device render (``devices=N``: the dense slice-march
+kernel per shard and the direct-send exchange, ``parallel/``).  It imports neither jax nor the JAX
 package: the host modules (types, scene, amr, plotfile, camera, colormap,
 visibility, native) are its own copies.
 
@@ -78,7 +80,10 @@ def render(
     binding, module.cpp:276-303) plus ``device``.  ``orbit_frames`` /
     ``orbit_degrees`` render an N-frame orbit animation through the batched
     renderer (frame index appended to ``output``, as the CLI's
-    ``--orbit-frames``).  ``devices > 1`` is not ported yet and raises."""
+    ``--orbit-frames``).  ``devices=N`` renders one frame over N shards
+(placed round-robin over the visible cards; the CPU with
+``device="cpu"``); orbits over several devices are not ported yet and
+raise."""
     import math
 
     import numpy as np

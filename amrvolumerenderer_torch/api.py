@@ -70,7 +70,7 @@ class RenderOptions:
     sampling: str = "nearest"  # or "trilinear"
     classification: str = "post"  # or "pre" (trilinear only)
     lut_size: int = 256  # transfer-function LUT entries (multiple of 128)
-    devices: Optional[int] = None  # more than one is not ported yet
+    devices: Optional[int] = None  # shards of one frame, round-robin over the cards
     render_method: str = "auto"  # auto (= slicemarch), slicemarch, tilemarch
     multichip_pipeline: str = "auto"
     multichip_transport: str = "float32"

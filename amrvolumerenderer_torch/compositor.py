@@ -1,9 +1,12 @@
-"""Sort-last compositing order and its host oracle.
+"""Sort-last compositing: the layer order, the run-grouped fold and its
+host oracle.
 
 The port's part of the JAX package's ``compositor.py``: the global layer
-order of composeLayered (DirectSendBase.cpp:378-388) and the
-reference-faithful host fold that the tests hold the device composite
-against.  The device fold itself is ``ops/composite.py``.
+order of composeLayered (DirectSendBase.cpp:378-388), the reference-
+faithful host fold that the tests hold the device composites against, and
+``_composite_sorted_runs``, the run-grouped fold the multi-device
+pipelines run on each shard (PyTorch on the layers' device).  The
+single-device tile fold is the ``ops/composite.py`` kernel.
 """
 
 from __future__ import annotations
@@ -11,8 +14,10 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
+import torch
 
 from .image import blend_depth_sort
+from .ops.numerics import fma
 
 
 def sort_layers(
@@ -46,3 +51,62 @@ def composite_layers_host(
     if accumulated is None:
         return np.zeros((layers.shape[1], 5), dtype=np.float32)
     return accumulated
+
+
+def _blend_rows(top: torch.Tensor, bottom: torch.Tensor) -> torch.Tensor:
+    """``blend_depth_sort`` of two [P, 5] tensors, rounded as XLA:CPU
+    contracts it: one FMA per colour channel (``ops.march.blend``'s
+    arithmetic, on the four channels at once)."""
+    top_front = top[:, 4:] <= bottom[:, 4:]
+    front = torch.where(top_front, top, bottom)
+    back = torch.where(top_front, bottom, top)
+    rgba = fma(back[:, :4], 1.0 - front[:, 3:4], front[:, :4])
+    return torch.cat([rgba, torch.minimum(top[:, 4:], bottom[:, 4:])], dim=-1)
+
+
+def _composite_sorted_runs(
+    sorted_layers: torch.Tensor,  # [L, P, 5] already in blend order
+    sorted_owners: torch.Tensor,  # [L] int32 on the layers' device
+) -> torch.Tensor:
+    """Run-grouped fold over pre-sorted layers (compositor.py:81-119 of
+    the JAX package): one pass carries (run accumulator, total
+    accumulator); where the owner changes between consecutive layers the
+    finished run folds into the total.  The owner test stays on the device
+    (``torch.where``, no host sync), as the JAX loop body selects."""
+    num_layers = sorted_layers.shape[0]
+    dev = sorted_layers.device
+    empty = torch.zeros_like(sorted_layers[0])
+    empty[:, 4] = float("inf")
+    if num_layers == 0:
+        return empty
+    same = torch.zeros(num_layers, dtype=torch.bool, device=dev)
+    same[1:] = sorted_owners[1:] == sorted_owners[:-1]
+    run_acc, total_acc = empty, empty
+    have_total = torch.zeros((), dtype=torch.bool, device=dev)
+    for i in range(num_layers):
+        layer = sorted_layers[i]
+        same_owner = same[i]
+        # close the previous run when the owner changes
+        closed_total = torch.where(
+            have_total, _blend_rows(total_acc, run_acc), run_acc)
+        total_acc = torch.where(same_owner, total_acc, closed_total)
+        have_total = torch.where(same_owner, have_total, have_total | (i > 0))
+        # extend or restart the run
+        run_acc = torch.where(same_owner, _blend_rows(run_acc, layer), layer)
+    return torch.where(have_total, _blend_rows(total_acc, run_acc), run_acc)
+
+
+def composite_layers_device(
+    layers: torch.Tensor,  # [L, P, 5]
+    depth_hints: np.ndarray,  # [L] (host)
+    owners: np.ndarray,  # [L] (host)
+    local_indices: np.ndarray,  # [L] (host)
+) -> torch.Tensor:
+    """Layered composite on the layers' device: host-side sort, device
+    fold.  Returns [P, 5]."""
+    order = sort_layers(depth_hints, owners, local_indices)
+    dev = layers.device
+    sorted_owners = torch.from_numpy(
+        np.asarray(owners)[order].astype(np.int32)).to(dev)
+    return _composite_sorted_runs(
+        layers[torch.from_numpy(order).to(dev).long()], sorted_owners)

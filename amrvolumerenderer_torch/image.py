@@ -2,7 +2,8 @@
 
 The NumPy parts of the JAX package's ``image.py`` (``ImageKind``,
 ``ImageBuffer``, ``color_to_byte`` and the per-kind blends), plus
-``color_to_byte_device``, its torch twin for frames on the device.
+``color_to_byte_device`` and ``byte_to_color_device``, the byte codec's
+torch twins for tensors on the device.
 A pixel buffer is a ``[num_pixels, C]`` array with the reference's
 flat-pixel region window ``[region_begin, region_end)``.
 """
@@ -49,6 +50,19 @@ def color_to_byte_device(colors: torch.Tensor) -> torch.Tensor:
     in the JAX package's device codec (NaN -> 0)."""
     scaled = torch.nan_to_num(colors * 256.0, nan=0.0).clamp(-1.0, 256.0)
     return torch.clamp(scaled.to(torch.int32), 0, 255).to(torch.uint8)
+
+
+_INV_255 = float(np.float32(1.0) / np.float32(255.0))
+
+
+def byte_to_color_device(b: torch.Tensor) -> torch.Tensor:
+    """Byte -> float ``b / 255`` on the tensor's device (Common/Color.hpp:
+    36-64), rounded as the JAX package's device twin runs: every caller
+    jits it, and XLA:CPU compiles the division by the constant 255 into a
+    multiply by its float32 reciprocal (read off the optimised HLO; up to
+    6e-8 from an IEEE division).  A uint8 input lands in [0, 1], so the
+    host codec's clip is the identity here."""
+    return b.to(torch.float32) * _INV_255
 
 
 # Pixel-wise blend rules: ``top`` is blended on top of ``bottom``.

@@ -359,19 +359,27 @@ def render_single_trial(
     device: Device = DEFAULT_DEVICE,
 ) -> Tuple[ImageBuffer, RenderTiming]:
     """One full render: visibility order, the fused frame on ``device``
-    (render + composite + AA downsample), overlay, save
-    (VolumeRenderer.cpp:1103-1339).  ``scalar_range`` must be the one
-    ``render_scene`` derives from ``geometry``."""
+    (render + composite + AA downsample; over ``parameters.devices``
+    shards when more than one), overlay, save (VolumeRenderer.cpp:
+    1103-1339).  ``scalar_range`` must be the one ``render_scene`` derives
+    from ``geometry``."""
     from .renderer_fast import (
+        render_composited_sharded,
         render_composited_slicemarch,
         render_composited_tilemarch,
     )
 
     dev = resolve_device(device)
-    if (parameters.devices or 1) > 1:
+    num_devices = parameters.devices or 1
+    if num_devices < 1:
+        raise ValueError("devices must be a positive device count")
+    if num_devices > 1 and method not in ("auto", "slicemarch"):
+        # the sharded pipelines are slice-march based; overriding an
+        # explicitly requested kernel would hand back other pixels unasked
         raise ValueError(
-            "multi-device rendering is not ported to PyTorch yet (ROADMAP.md "
-            "module item 9); use devices=1"
+            f"render method '{method}' is single-device; multi-device "
+            "rendering uses the slicemarch pipeline (use 'auto' or "
+            "'slicemarch' with devices > 1)"
         )
     resolved = resolve_render_method(method, parameters.sampling)
     timing = RenderTiming()
@@ -403,7 +411,18 @@ def render_single_trial(
     timing.visibility_seconds = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    if resolved == "tilemarch":
+    if num_devices > 1:
+        # the shards of one process over the visible cards (round-robin);
+        # the reference's mpirun distribution (VolumeRenderer.cpp:1201-1249)
+        composited = render_composited_sharded(
+            geometry, parameters, camera, scalar_range,
+            reference_sample_distance, render_width, render_height,
+            color_map, num_devices, downsample_block=sqrt_aa,
+            pipeline=parameters.multichip_pipeline,
+            transport=parameters.multichip_transport,
+            rank_order=rank_order, device=dev,
+        )
+    elif resolved == "tilemarch":
         composited = render_composited_tilemarch(
             geometry, parameters, camera, color_map, device=dev
         )
@@ -550,8 +569,9 @@ def render_orbit(
         ) from error
     if (parameters.devices or 1) > 1:
         raise ValueError(
-            "multi-device rendering is not ported to PyTorch yet (ROADMAP.md "
-            "module item 9); use devices=1"
+            "multi-device orbits run on the persistent renderer "
+            "(MultiChipSceneRenderer), which is not ported to PyTorch yet "
+            "(ROADMAP.md module item 9); use devices=1"
         )
     dev = resolve_device(device)
     if verbose:

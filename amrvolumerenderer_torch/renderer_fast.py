@@ -11,7 +11,8 @@ for scenes of at most ``TILEMARCH_PIECE_THRESHOLD`` pieces, and hands
 larger scenes to ``render_composited_tilemarch``, the fused march +
 composite kernel under ``fast_scene.FastSceneRenderer``, whose memory does
 not grow with the piece count.  ``render_layers_slicemarch`` returns the
-per-piece layers instead (the layered path).
+per-piece layers instead (the layered path).  ``render_composited_sharded``
+renders a frame over several shards (``parallel.directsend``).
 """
 
 from __future__ import annotations
@@ -629,6 +630,203 @@ def render_composited_slicemarch(
     if block > 1:
         frame = _device_downsample(frame, render_width, render_height, block)
     return frame.cpu().numpy()
+
+
+def _fetch_global(shards) -> np.ndarray:
+    """The pixel shards of a sharded frame, concatenated on the host."""
+    return np.concatenate([s.cpu().numpy() for s in shards])
+
+
+def render_composited_sharded(
+    geometry: SceneGeometry,
+    parameters: RenderParameters,
+    camera: CameraParameters,
+    scalar_range: Tuple[float, float],
+    reference_sample_distance: float,
+    render_width: int,
+    render_height: int,
+    color_map: Optional[ColorMap],
+    num_devices: int,
+    downsample_block: int = 1,
+    pipeline: str = "auto",
+    transport: str = "float32",
+    rank_order: Optional[np.ndarray] = None,
+    device: Device = DEFAULT_DEVICE,
+) -> np.ndarray:
+    """The composited frame over ``num_devices`` shards (the reference's
+    ``mpirun`` distribution, VolumeRenderer/main.cpp:19-36): pieces are
+    placed on the shards of a ``parallel.directsend.Mesh`` per frame,
+    rendered, exchanged and folded there, and the pixel shards are
+    gathered to the host.
+
+    ``pipeline`` picks the exchange: ``"depth"`` (and ``"auto"``) gives
+    each shard a contiguous run of the global depth order and exchanges D
+    partial frames (the dense slice-march kernel per shard, or the
+    tile-march kernel above ``TILEMARCH_PIECE_THRESHOLD`` pieces);
+    ``"layered"`` places pieces in (owner, local) order and exchanges
+    every layer.  Returns the [(render_width / block) * (render_height /
+    block), 5] frame."""
+    from .compositor import sort_layers
+    from .parallel.directsend import (
+        make_mesh,
+        pack_contiguous,
+        pack_depth_contiguous,
+        paste_rect,
+        paste_tiles,
+        render_and_composite_sharded_slicemarch,
+        render_depth_contiguous_slicemarch,
+        render_depth_contiguous_tilemarch,
+        select_compaction,
+    )
+
+    if pipeline not in ("auto", "depth", "layered"):
+        raise ValueError(f"unknown multichip pipeline '{pipeline}'")
+    mesh = make_mesh(num_devices, device)
+    prep = prepare_slicemarch_scene(
+        geometry, parameters, camera, scalar_range, reference_sample_distance,
+        render_width, render_height, color_map,
+    )
+    num_pixels = render_width * render_height
+    block = max(downsample_block, 1)
+    if prep is None:
+        return _background((render_width // block) * (render_height // block))
+    pad_pixels = prep["pad_w"] * prep["pad_h"]
+    if pad_pixels % num_devices:
+        raise ValueError(
+            f"padded frame ({prep['pad_w']}x{prep['pad_h']}) is not divisible "
+            f"by the device count {num_devices}"
+        )
+
+    owner_keys = visibility_owner_keys(prep["owners"], rank_order)
+    # coverage-compacted exchange: only covered pixels cross between shards
+    rect, tiles = select_compaction(
+        prep["coverage"], prep["pad_w"], prep["pad_h"], wl.TILE_W, wl.TILE_H,
+        num_devices,
+    )
+    kw = dict(
+        width=prep["pad_w"], height=prep["pad_h"], max_slices=prep["s_max"],
+        logical_width=render_width, logical_height=render_height,
+        sampling=parameters.sampling, ghost=prep["ghost"], transport=transport,
+        rect=rect, tiles=tiles, classification=parameters.classification,
+    )
+    if pipeline == "layered":
+        # static placement in global (owner, local) order, so the shards'
+        # stable depth argsort reproduces the reference layer order
+        key_order = np.lexsort((prep["local_indices"], owner_keys))
+        (p_vol, p_meta, p_dims, p_luts), valid, p_hints = pack_contiguous(
+            num_devices, prep["depth_hints"][key_order],
+            prep["vol"][key_order], prep["meta"][key_order],
+            prep["dims"][key_order], prep["luts"][key_order],
+        )
+        frame = render_and_composite_sharded_slicemarch(
+            mesh, p_vol, p_meta, p_dims, p_luts, prep["cam"], valid, p_hints,
+            **kw)
+    else:
+        # per-frame depth-contiguous placement in the single-device fold's
+        # (hint, owner, local) order
+        key_order = sort_layers(
+            prep["depth_hints"], owner_keys, prep["local_indices"]
+        )
+        tables = (prep["vol"][key_order], prep["meta"][key_order],
+                  prep["dims"][key_order])
+        ties = np.arange(len(key_order), dtype=np.int32)
+        hints = prep["depth_hints"][key_order]
+        if prep["vol"].shape[0] > TILEMARCH_PIECE_THRESHOLD:
+            # deep-AMR scenes: each shard renders and pre-composites its
+            # run in the tile-march kernel, O(pixels) memory per shard
+            (p_vol, p_meta, p_dims), _valid, _hints = pack_depth_contiguous(
+                hints, ties, num_devices, *tables)
+            num_tiles = (prep["pad_w"] // wl.TILE_W) * (prep["pad_h"] // wl.TILE_H)
+            worklists = _depth_contiguous_tile_worklists(
+                prep["wb"], prep["wt"], prep["wbounds"], key_order,
+                num_devices, num_tiles,
+            )
+            frame = render_depth_contiguous_tilemarch(
+                mesh, p_vol, p_meta, p_dims,
+                np.ascontiguousarray(prep["luts"][0]), prep["cam"],
+                *worklists, **kw)
+        else:
+            (p_vol, p_meta, p_dims, p_luts), valid, p_hints = (
+                pack_depth_contiguous(hints, ties, num_devices, *tables,
+                                      prep["luts"][key_order]))
+            frame = render_depth_contiguous_slicemarch(
+                mesh, p_vol, p_meta, p_dims, p_luts, prep["cam"], valid,
+                p_hints, **kw)
+
+    frame = paste_rect(_fetch_global(frame), rect, prep["pad_w"], prep["pad_h"])
+    frame = paste_tiles(frame, tiles, prep["pad_w"], prep["pad_h"])
+    frame = frame.reshape(prep["pad_h"], prep["pad_w"], 5)
+    frame = frame[:render_height, :render_width].reshape(num_pixels, 5)
+    if block > 1:
+        tw, th = render_width // block, render_height // block
+        c = frame[:, :4].reshape(th, block, tw, block, 4).mean(axis=(1, 3))
+        out = np.empty((tw * th, 5), np.float32)
+        out[:, :4] = c.reshape(tw * th, 4)
+        out[:, 4] = np.inf
+        return out
+    return frame
+
+
+def _depth_contiguous_tile_worklists(
+    wb: np.ndarray,
+    wt: np.ndarray,
+    wbounds: np.ndarray,
+    key_order: np.ndarray,
+    num_devices: int,
+    num_tiles: int,
+):
+    """Per-shard CSR tile work lists for the tile-march pipeline.
+
+    ``key_order`` is the global depth sort of the pieces;
+    ``pack_depth_contiguous`` gives shard d the d-th contiguous chunk, slot
+    order = depth order.  Work items (from the global culled work list)
+    are deduplicated (the list pads by repeating its last item, which
+    would composite twice in a CSR fold), split by shard, ordered per tile
+    by global depth position and re-indexed to local slots.  Run keys are
+    the slot index: every piece is its own run.
+
+    Returns (offsets [D, T+1] i32, bricks [D, Wmax] i32, owners [D, Wmax]
+    i32, ibounds [D, Wmax] i32)."""
+    from .parallel.directsend import _contiguous_chunk_counts
+
+    n = len(key_order)
+    counts = _contiguous_chunk_counts(n, num_devices)
+    pos_of_piece = np.empty(n, np.int64)
+    pos_of_piece[np.asarray(key_order)] = np.arange(n)
+    starts = np.r_[0, np.cumsum(counts)]
+    device_of_pos = np.repeat(np.arange(num_devices), counts)
+    slot_of_pos = np.arange(n) - starts[device_of_pos]
+
+    # dedup (piece, tile) pairs keeping the first occurrence's bounds
+    pairs = np.asarray(wb, np.int64) * num_tiles + np.asarray(wt, np.int64)
+    _, first = np.unique(pairs, return_index=True)
+    wb_u = np.asarray(wb)[first]
+    wt_u = np.asarray(wt)[first]
+    bounds_u = np.asarray(wbounds)[first]
+
+    pos = pos_of_piece[wb_u]
+    dev = device_of_pos[pos]
+    slot = slot_of_pos[pos]
+
+    offsets = np.zeros((num_devices, num_tiles + 1), np.int32)
+    w_per_dev = np.bincount(dev, minlength=num_devices)
+    wmax = max(int(w_per_dev.max()) if len(w_per_dev) else 0, 1)
+    bricks = np.zeros((num_devices, wmax), np.int32)
+    owners = np.zeros((num_devices, wmax), np.int32)
+    ibounds = np.zeros((num_devices, wmax), np.int32)
+    for d in range(num_devices):
+        sel = dev == d
+        order = np.lexsort((pos[sel], wt_u[sel]))
+        t_d = wt_u[sel][order]
+        s_d = slot[sel][order]
+        b_d = bounds_u[sel][order]
+        w = len(t_d)
+        tile_counts = np.bincount(t_d, minlength=num_tiles)
+        offsets[d, 1:] = np.cumsum(tile_counts).astype(np.int32)
+        bricks[d, :w] = s_d
+        owners[d, :w] = s_d  # run key = slot: one run per piece
+        ibounds[d, :w] = b_d
+    return offsets, bricks, owners, ibounds
 
 
 def render_layers_slicemarch(

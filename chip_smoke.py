@@ -5,8 +5,9 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the port's three CUDA kernels (tile-march, slice-march, tile
-composite) from the checkout's sources, all at once, holds each against
+It builds the port's three CUDA kernel libraries (tile-march, slice-march
+with its work-list and dense entries, tile composite) from the checkout's
+sources, all at once, holds each against
 the golden rows and against its plain PyTorch version on the card, drives
 both one-shot main paths through the entry points a user calls: a
 512-brick 256^3 plotfile at 1024x1024 through
@@ -28,7 +29,20 @@ and from NumPy arrays against the plain path on the CPU; orbits through
 every batched launch of those orbits (float32 and bfloat16) replayed
 against the plain version on its own arguments; and the batched kernel's
 and ``render_batch``'s times, with ``render_batch``'s pinned side-stream
-readback against a plain ``.cpu()`` in alternating pairs.  Every phase asserts;
+readback against a plain ``.cpu()`` in alternating pairs.
+
+Then the one-shot multi-device render over 8 shards on the card (phases
+14-19): the dense slice-march kernel (kernel 4) against its plain version
+for every shard of the golden scene and of the 3-level scene at 1024^2
+(16 nearest and 28 trilinear pieces, padding slots included); the golden
+rows ``slicemarch-8dev-*`` through ``api.render(devices=8)``;
+``render_scene(devices=8)`` on the 3-level scene over both pipelines and
+transports against the one-device frame, with every kernel-4 launch
+replayed against the plain version; the 512-brick plotfile through
+``render(plotfile, devices=8)`` and the CLI's ``--devices 8`` (the
+tile-march pipeline); one 2048^2 AA=4 frame with its peak memory; and
+kernel 4's times and bound with the sharded frame's wall split for 2 and 8
+shards.  Every phase asserts;
 any failure ends the run with a non-zero exit code.  The second-to-last line of standard output is a
 JSON object with each kernel's launches, error, times and bound; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -309,11 +323,13 @@ def main() -> int:
                 "slicemarch": sm.slicemarch_render_worklist_raw,
                 "composite": comp.composite_tiles}
     batch_fn = tm.tilemarch_render_batch  # its launches count both batch entries
+    dense_fn = sm.slicemarch_render  # kernel 4, in the slicemarch library
 
     def reset_counts():
         for fn in counters.values():
             fn.launches = 0
         batch_fn.launches = 0
+        dense_fn.launches = 0
 
     @contextlib.contextmanager
     def recorded_batches():
@@ -1062,6 +1078,342 @@ def main() -> int:
                 for v in ("pinned", "plain"))
             + f"; pinned/plain wall {med['pinned'] / med['plain']:.3f}")
 
+    # ---- phases 14-19: the one-shot multi-device render (devices=8) --------
+    from amrvolumerenderer_torch.parallel import directsend as ds
+
+    def dense_case(geom, params, camera, width, height, num):
+        """Kernel 4's per-shard arguments for one depth-contiguous frame of
+        ``geom`` over ``num`` shards, as the pipeline packs them: (prep,
+        mesh, sharded tables, [(args, kw)] per shard)."""
+        b = compute_global_bounds(geom)
+        prep = rf.prepare_slicemarch_scene(
+            geom, params, camera, compute_global_scalar_range(geom),
+            compute_reference_sample_distance(geom, b), width, height, None)
+        order = sort_layers(prep["depth_hints"], prep["owners"],
+                            prep["local_indices"])
+        packed, valid, hints = ds.pack_depth_contiguous(
+            prep["depth_hints"][order], np.arange(len(order), dtype=np.int32),
+            num, *(prep[k][order] for k in ("vol", "meta", "dims", "luts")))
+        mesh = ds.make_mesh(num, dev)
+        tables = ds.shard_leading(mesh, *packed, valid, hints)
+        cam = ds._constant_camera(prep["cam"]).to(dev)
+        kw = dict(width=prep["pad_w"], height=prep["pad_h"],
+                  max_slices=prep["s_max"], logical_width=width,
+                  logical_height=height, sampling=params.sampling,
+                  ghost=prep["ghost"], classification=params.classification)
+        return prep, mesh, tables, [(tuple(t[r] for t in tables[:4]) + (cam,), kw)
+                                    for r in range(num)]
+
+    def hold_dense(label, shards):
+        """Each shard's kernel-4 launch against the plain version on the
+        same arguments."""
+        pairs = []
+        for args, kw in shards:
+            kc, kd = dense_fn(*args, **kw)
+            pc, pd = sm.untile(*sm.slicemarch_dense_reference(*args, **kw),
+                               kw["width"], kw["height"])
+            pairs += [(kc, pc), (kd, pd)]
+        torch.cuda.synchronize()
+        hold("slicemarch_dense", label, pairs)
+
+    # phase 14: kernel 4 vs plain on the card, one launch per shard
+    r2_geometry = api.load_amr_geometry(r2, 0, -1, 0, False, True, verbose=False)
+    p14 = [("golden scene 48x48", r2_geometry, RenderParameters(width=48, height=48),
+            None, 48, 48)]
+    for sampling, classification, lut_size in KNOBS[:2]:
+        p14.append((f"3-level 1024x1024 {sampling}/{classification}/{lut_size}",
+                    geometry3, RenderParameters(
+                        width=1024, height=1024, sampling=sampling,
+                        classification=classification, lut_size=lut_size),
+                    auto_orbit_camera(bounds3), 1024, 1024))
+    for label, geom, params, camera, w, h in p14:
+        camera = camera or auto_orbit_camera(compute_global_bounds(geom))
+        prep, _, tables, shards = dense_case(geom, params, camera, w, h, 8)
+        slots = int(tables[4][0].numel())
+        hold_dense(f"phase 14: kernel 4 vs plain, {label}: "
+                   f"{prep['vol'].shape[0]} pieces over 8 shards of {slots} slots "
+                   f"({8 * slots - prep['vol'].shape[0]} padding)", shards)
+
+    # phase 15: the golden rows slicemarch-8dev-* through api.render(devices=8)
+    for row, opts in (("slicemarch-8dev-depth-f32", dict(multichip_pipeline="depth")),
+                      ("slicemarch-8dev-layered-f32",
+                       dict(multichip_pipeline="layered")),
+                      ("slicemarch-8dev-depth-ubyte",
+                       dict(multichip_pipeline="depth", multichip_transport="ubyte"))):
+        reset_counts()
+        image, _ = api.render(r2, api.RenderOptions(
+            width=48, height=48, devices=8, render_method="slicemarch",
+            device="cuda", output_filename=os.path.join(SCRATCH, f"{row}.ppm"),
+            **opts), verbose=False)
+        same, diff = max_diff(image.pixels, golden[row])
+        log(f"phase 15: api.render(devices=8) vs {row}: non-finite pattern same "
+            f"{same}, max |diff| {diff:.3g} (atol {ATOL:g}); launches kernel 4 "
+            f"{dense_fn.launches}, {counts()}")
+        assert same and diff <= ATOL, row
+        assert dense_fn.launches == 8 and not any(counts().values())
+
+    @contextlib.contextmanager
+    def recorded_dense():
+        """Record the arguments of every kernel-4 launch the pipelines make
+        inside the block; the launches still go through the counted
+        wrapper."""
+        seen = []
+
+        class Recording:
+            def __getattr__(self, attr):
+                return getattr(sm, attr)
+
+            @staticmethod
+            def slicemarch_render(*args, **kw):
+                seen.append((args, kw))
+                return dense_fn(*args, **kw)
+
+        ds.sm = Recording()
+        try:
+            yield seen
+        finally:
+            ds.sm = sm
+
+    @contextlib.contextmanager
+    def unfolded_camera():
+        """The sharded pipelines with the camera pack as a one-device frame
+        takes it.  The JAX pipelines' programs fold the camera into their
+        ray arithmetic (``directsend._constant_camera``, ROADMAP.md section
+        3), which moves rays by an ulp and can flip a sample at a cell or
+        LUT-bin edge; without it the pipeline alone is held at 1e-5."""
+        folded = ds._constant_camera
+        ds._constant_camera = ds._as_tensor
+        try:
+            yield
+        finally:
+            ds._constant_camera = folded
+
+    def near_one_device(label, render_sharded, one):
+        """Hold a sharded frame against the one-device frame: with the
+        camera unfolded within 1e-5 (the JAX tests' bound,
+        tests/test_multichip_product.py:262); as rendered, the same
+        non-finite pattern and at most 0.1% of pixels beyond 1e-5."""
+        frame = render_sharded()
+        with unfolded_camera():
+            plain = render_sharded()
+        same_p, d_p = max_diff(plain, one)
+        same, d = max_diff(frame, one)
+        diff = np.where(np.isfinite(one), np.abs(frame - one), 0.0).max(axis=1)
+        beyond = int((diff > 1e-5).sum())
+        log(f"{label}: vs one device, camera unfolded: max |diff| {d_p:.3g}, "
+            f"non-finite pattern same {same_p}; as rendered (JAX's folded "
+            f"camera): max |diff| {d:.3g}, {beyond} of {len(diff)} pixels beyond "
+            f"1e-5, non-finite pattern same {same}")
+        assert same_p and d_p <= 1e-5 and same and beyond <= 1e-3 * len(diff)
+        return frame
+
+    # phase 16: the 3-level scene at 1024^2 over 8 shards, both pipelines and
+    # transports, against the one-device frame; every launch replayed
+    p16 = RenderParameters(width=1024, height=1024)
+    one_device, _ = render_scene("", p16, geometry3, verbose=False, device=dev)
+    for pipeline, transport in (("depth", "float32"), ("layered", "float32"),
+                                ("depth", "ubyte"), ("layered", "ubyte")):
+        params = RenderParameters(width=1024, height=1024, devices=8,
+                                  multichip_pipeline=pipeline,
+                                  multichip_transport=transport)
+        reset_counts()  # counted run: the multi-device main path
+        t0 = time.perf_counter()
+        with recorded_dense() as rec:
+            image, _ = render_scene("", params, geometry3, verbose=False, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = dense_fn.launches
+        if (pipeline, transport) == ("depth", "float32"):
+            launches["slicemarch_dense"] = got
+        d_rgba = float(np.abs(image.pixels[:, :4] - one_device.pixels[:, :4]).max())
+        log(f"phase 16: render_scene(devices=8) 3-level 1024x1024 {pipeline}/"
+            f"{transport}: {wall:.3f} s wall, launches kernel 4 {got} "
+            f"({[a[0].shape[0] for a, _ in rec]} slots each), {counts()}; vs "
+            f"one device: colour max |diff| {d_rgba:.3g}")
+        assert got == 8 == len(rec) and not any(counts().values())
+        if transport == "float32":
+            near_one_device(f"phase 16: {pipeline}/{transport}", lambda: render_scene(
+                "", params, geometry3, verbose=False, device=dev)[0].pixels,
+                one_device.pixels)
+        else:
+            assert d_rgba < 0.02
+        hold_dense(f"phase 16: {pipeline}/{transport}: the 8 launches replayed",
+                   rec)
+        del rec
+
+    # phase 17: the 512-brick plotfile through render(devices=8) and the CLI
+    png_api8 = os.path.join(SCRATCH, "radial_devices8.png")
+    png_cli8 = os.path.join(SCRATCH, "radial_cli_devices8.png")
+    reset_counts()  # counted run: the tile-march pipeline over 8 shards
+    t0 = time.perf_counter()
+    rc = amrvolumerenderer_torch.render(plotfile, width=1024, height=1024,
+                                        devices=8, output=png_api8)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    log(f"phase 17: render(plotfile, devices=8) 512 bricks at 1024x1024: rc {rc}, "
+        f"{wall:.3f} s wall, launches {counts()}, kernel 4 {dense_fn.launches}")
+    assert rc == 0 and counts() == {"tilemarch": 8, "slicemarch": 0, "composite": 0}
+    assert dense_fn.launches == 0
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "amrvolumerenderer_torch.driver", "--width", "1024",
+         "--height", "1024", "--devices", "8", "--output", png_cli8, plotfile],
+        cwd=ROOT, capture_output=True, text=True, timeout=600,
+    )
+    log(f"phase 17: CLI --devices 8 rc {cli.returncode} in "
+        f"{time.perf_counter() - t0:.3f} s")
+    assert cli.returncode == 0, cli.stderr[-4000:]
+    image1, _ = render_scene("", RenderParameters(width=1024, height=1024),
+                             geometry, verbose=False, device=dev)
+    frame8 = near_one_device("phase 17: 512 bricks, 8 shards", lambda: render_scene(
+        "", RenderParameters(width=1024, height=1024, devices=8), geometry,
+        verbose=False, device=dev)[0].pixels, image1.pixels)
+    rgb_api, rgb_cli = read_png_rgb(png_api8), read_png_rgb(png_cli8)
+    byte_d = int(np.abs(rgb_api.astype(int) - png_bytes(image1.pixels)).max())
+    log(f"phase 17: render() PNG == CLI PNG {np.array_equal(rgb_api, rgb_cli)}, "
+        f"== the 8-shard frame's bytes "
+        f"{np.array_equal(rgb_api, png_bytes(frame8))}, vs one-device bytes max "
+        f"{byte_d}")
+    assert np.array_equal(rgb_api, rgb_cli) and np.array_equal(rgb_api, png_bytes(frame8))
+    assert byte_d <= 1
+
+    # phase 18: one 2048^2 AA=4 depth frame over 8 shards
+    params = RenderParameters(width=2048, height=2048, antialiasing=4, devices=8)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    image, _ = render_scene("", params, geometry3, verbose=False, device=dev)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    covered = float((image.pixels[:, 3] > 0).mean())
+    log(f"phase 18: 2048x2048 AA=4 devices=8 (depth): {wall:.3f} s wall, kernel 4 "
+        f"launches {dense_fn.launches}, peak device memory {peak:.3f} GiB, alpha "
+        f"> 0 on {covered:.4f}")
+    assert dense_fn.launches == 8
+    assert ALPHA_FRACTION[0] <= covered <= ALPHA_FRACTION[1], covered
+    one_aa, _ = render_scene("", RenderParameters(width=2048, height=2048,
+                                                  antialiasing=4),
+                             geometry3, verbose=False, device=dev)
+    near_one_device("phase 18: 2048x2048 AA=4", lambda: render_scene(
+        "", params, geometry3, verbose=False, device=dev)[0].pixels, one_aa.pixels)
+    del image, one_aa
+
+    # phase 19: kernel 4's times and bound; the sharded frame's wall split
+    log(f"phase 19: {smi}")
+    prep19, _, tables19, shards19 = dense_case(
+        geometry3, RenderParameters(width=1024, height=1024), cams[0], 1024, 1024, 8)
+    for args, kw in shards19:  # warm-up
+        dense_fn(*args, **kw)
+    per_frame = [event_ms(lambda: [dense_fn(*a, **k) for a, k in shards19])
+                 for _ in range(3)]
+    per_launch = [min(event_ms(lambda a=a, k=k: dense_fn(*a, **k)) for _ in range(3))
+                  for a, k in shards19]
+    plain_frame = event_ms(lambda: [sm.slicemarch_dense_reference(*a, **k)
+                                    for a, k in shards19])
+    samples, nbytes = 0, 0
+    kw19 = shards19[0][1]
+    num_tiles = (kw19["width"] // 32) * (kw19["height"] // 32)
+    for args, kw in shards19:
+        slots = args[0].shape[0]
+        bricks = torch.arange(slots, device=dev).repeat_interleave(num_tiles)
+        tiles = torch.arange(num_tiles, device=dev).repeat(slots)
+        bounds = args[2][:, 7].long()[bricks]
+        samples += valid_samples(torch, args[1], args[2], args[4], bricks, tiles,
+                                 bounds, kw["width"] // 32, 1024, 1024,
+                                 kw["max_slices"])
+        nbytes += (band_bytes(torch, bricks, bounds, args[2], kw["max_slices"])
+                   + args[3].numel() * 4 + slots * num_tiles * 1024 * 20)
+    bounds_ms["slicemarch_dense"] = bound(nbytes, samples * SAMPLE_FLOPS[
+        ("nearest", "post")])
+    times["slicemarch_dense"] = (min(per_frame), plain_frame)
+    log(f"phase 19: kernel 4, 3-level 1024x1024 nearest/post/256 over 8 shards "
+        f"({prep19['vol'].shape[0]} pieces, {args[0].shape[0]} slots per shard): "
+        f"{min(per_frame):.4f} ms per frame of 8 launches (runs "
+        f"{', '.join(f'{v:.4f}' for v in per_frame)}), per launch "
+        f"{', '.join(f'{v:.4f}' for v in per_launch)} ms; plain PyTorch "
+        f"{plain_frame:.4f} ms per frame; bound {bounds_ms['slicemarch_dense'][0]:.5f}"
+        f" ms ({bounds_ms['slicemarch_dense'][1]}; {samples} valid samples, "
+        f"{nbytes} bytes); kernel at "
+        f"{bounds_ms['slicemarch_dense'][0] / min(per_frame):.4f} of its bound")
+    del tables19, shards19
+
+    def sharded_split(camera, num, pipeline):
+        """Host wall split of one sharded frame (depth or layered pipeline,
+        float32), synchronised after each stage; returns ([ms per stage],
+        the frame)."""
+        sync = torch.cuda.synchronize
+        t = [time.perf_counter()]
+        prep = rf.prepare_slicemarch_scene(geometry3, params19, camera, srange3,
+                                           rsd3, 1024, 1024, None)
+        rect, tiles = ds.select_compaction(prep["coverage"], prep["pad_w"],
+                                           prep["pad_h"], 32, 32, num)
+        t.append(time.perf_counter())
+        if pipeline == "layered":
+            order = np.lexsort((prep["local_indices"], prep["owners"]))
+            packed, valid, hints = ds.pack_contiguous(
+                num, prep["depth_hints"][order],
+                *(prep[k][order] for k in ("vol", "meta", "dims", "luts")))
+        else:
+            order = sort_layers(prep["depth_hints"], prep["owners"],
+                                prep["local_indices"])
+            packed, valid, hints = ds.pack_depth_contiguous(
+                prep["depth_hints"][order], np.arange(len(order), dtype=np.int32),
+                num, *(prep[k][order] for k in ("vol", "meta", "dims", "luts")))
+        t.append(time.perf_counter())
+        mesh = ds.make_mesh(num, dev)
+        tables = ds.shard_leading(mesh, *packed, valid, hints)
+        sync(); t.append(time.perf_counter())
+        kw = dict(max_slices=prep["s_max"], logical_width=1024, logical_height=1024,
+                  ghost=prep["ghost"])
+        layers, hints = ds._render_shards(mesh, tables, prep["cam"], rect, tiles,
+                                          prep["pad_w"], prep["pad_h"], **kw)
+        sync(); t.append(time.perf_counter())
+        if pipeline == "layered":
+            received = ds._exchange(mesh, layers)
+            gathered = ds.all_gather(mesh, hints)
+            sync(); t.append(time.perf_counter())
+            out = ds._fold_layers(mesh, received, gathered)
+        else:
+            partials = ds._local_precomposite(mesh, layers, hints)
+            sync(); t.append(time.perf_counter())
+            received = ds._exchange(mesh, partials)
+            sync(); t.append(time.perf_counter())
+            out = ds._fold_partials(mesh, received)
+        sync(); t.append(time.perf_counter())
+        frame = ds.paste_tiles(ds.paste_rect(rf._fetch_global(out), rect,
+                                             prep["pad_w"], prep["pad_h"]),
+                               tiles, prep["pad_w"], prep["pad_h"])
+        frame = frame.reshape(prep["pad_h"], prep["pad_w"], 5)[:1024, :1024]
+        t.append(time.perf_counter())
+        ms = np.diff(t) * 1e3
+        if pipeline == "layered":  # no local fold
+            ms = np.concatenate([ms[:4], [0.0], ms[4:]])
+        return ms, frame.reshape(-1, 5)
+
+    params19 = RenderParameters(width=1024, height=1024)
+    stages = ("host prep", "packing", "uploads", "per-shard render", "local fold",
+              "exchange", "fold", "gather")
+    for num in (2, 8):
+        for pipeline in ("depth", "layered"):
+            ms0, frame = sharded_split(cams[0], num, pipeline)  # warm-up
+            whole = rf.render_composited_sharded(
+                geometry3, params19, cams[0], srange3, rsd3, 1024, 1024, None, num,
+                pipeline=pipeline, device=dev)
+            assert np.array_equal(frame, whole), (num, pipeline)
+            split = np.mean([sharded_split(c, num, pipeline)[0] for c in cams], axis=0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for c in cams:
+                rf.render_composited_sharded(geometry3, params19, c, srange3, rsd3,
+                                             1024, 1024, None, num,
+                                             pipeline=pipeline, device=dev)
+            total = (time.perf_counter() - t0) * 1e3 / len(cams)
+            log(f"phase 19: {smi}: render_composited_sharded D={num} {pipeline}/"
+                "float32, 3-level 1024x1024, host wall per frame (8 orbit cameras): "
+                + ", ".join(f"{s} {v:.3f} ms" for s, v in zip(stages, split))
+                + f"; sum {split.sum():.3f} ms; whole call {total:.3f} ms")
+
     sources = {
         "tilemarch": ("ops/csrc/tilemarch.cu", "amrvolumerenderer_tpu/ops/tilemarch.py:819"),
         "slicemarch": ("ops/csrc/slicemarch.cu", "amrvolumerenderer_tpu/ops/slicemarch.py:750"),
@@ -1070,6 +1422,8 @@ def main() -> int:
                             "amrvolumerenderer_tpu/ops/tilemarch.py:711"),
         "tilemarch_batch_bf16": ("ops/csrc/tilemarch.cu",
                                  "amrvolumerenderer_tpu/ops/tilemarch.py:711"),
+        "slicemarch_dense": ("ops/csrc/slicemarch.cu",
+                             "amrvolumerenderer_tpu/ops/slicemarch.py:555"),
     }
     for prec, name in batch_name.items():
         times[name] = batch_times[prec][:2]

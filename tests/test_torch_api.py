@@ -112,7 +112,8 @@ def test_cli_matches_jax(tmp_path, plotfile, flags):
 @pytest.mark.parametrize("argv,message", [
     (["--device", "cuda"], "no CUDA device"),
     (["--device", "cpu", "--render-method", "raymarch"], "ROADMAP.md module item 4"),
-    (["--device", "cpu", "--devices", "2"], "ROADMAP.md module item 9"),
+    (["--device", "cpu", "--devices", "2", "--orbit-frames", "2"],
+     "ROADMAP.md module item 9"),
     (["--device", "cpu", "--orbit-frames", "3", "--render-method", "raymarch"],
      "fast kernel family"),
     (["--device", "tpu"], "device must be"),
@@ -138,7 +139,8 @@ def test_api_errors(tmp_path):
                    verbose=False)
     with pytest.raises(ValueError, match="multi-device"):
         api.render(data, api.RenderOptions(width=32, height=32, device="cpu",
-                                           output_filename=out, devices=2),
+                                           output_filename=out, devices=2,
+                                           render_method="tilemarch"),
                    verbose=False)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):

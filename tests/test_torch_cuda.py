@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card: tile-march (one frame and batched,
-float32 and bfloat16 volumes), slice-march and the tile composite (marked
-``cuda``; every test skips itself when ``torch.cuda.is_available()`` is
-false).
+float32 and bfloat16 volumes), slice-march (work list and dense), the tile
+composite, and the multi-device route over 8 shards of one card against
+the same route on the CPU (marked ``cuda``; every test skips itself when
+``torch.cuda.is_available()`` is false).
 
 This file imports neither jax nor the tests' conftest (which does), so it
 runs on a machine that has only PyTorch:
@@ -35,6 +36,7 @@ from amrvolumerenderer_torch.renderer import (
     compute_global_bounds,
     compute_global_scalar_range,
     compute_reference_sample_distance,
+    render_scene,
 )
 from amrvolumerenderer_torch.renderer_fast import (
     prepare_slicemarch_scene,
@@ -57,14 +59,16 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-def r2_data():
-    """The golden manifest's scene (tests/conftest.make_r2_scene_data(16, 8))."""
-    c = np.arange(16) / 15
+def r2_data(n=16, box=8):
+    """The golden manifest's scene (tests/conftest.make_r2_scene_data(n, box);
+    the default is the manifest's 16^3 in 8 boxes)."""
+    c = np.arange(n) / (n - 1)
     f = c[:, None, None] ** 2 + c[None, :, None] ** 2 + c[None, None, :] ** 2
-    boxes = [LevelBox(f[i:i + 8, j:j + 8, k:k + 8], np.array([i, j, k]))
-             for i in (0, 8) for j in (0, 8) for k in (0, 8)]
+    boxes = [LevelBox(f[i:i + box, j:j + box, k:k + box], np.array([i, j, k]))
+             for i in range(0, n, box) for j in range(0, n, box)
+             for k in range(0, n, box)]
     return api.AmrData(level_data=[boxes],
-                       level_geometry=[LevelGeometry(np.zeros(3), np.full(3, 1 / 16))])
+                       level_geometry=[LevelGeometry(np.zeros(3), np.full(3, 1 / n))])
 
 
 def three_level_geometry(n=32):
@@ -329,3 +333,49 @@ def test_batched_wrapper_checks(cuda):
         tm.tilemarch_render_batch(args[0].double(), *args[1:], **kw)
     with pytest.raises(ValueError, match="is on cpu"):
         tm.tilemarch_render_batch(*args[:8], args[8].cpu(), args[9], **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("knobs", KNOBS, ids=lambda k: "-".join(map(str, k)))
+def test_dense_kernel_matches_plain(cuda, knobs):
+    """Kernel 4 on every (piece, tile) block, with a zero padding slot
+    appended: the slot comes out as colour 0 and depth +inf."""
+    cam = CameraParameters(eye=(-1.9, 2.3, -1.2), look_at=(0.5, 0.5, 0.5),
+                           up=(0, 1, 0))
+    prep, inp, args, kw = slicemarch_case(cuda, knobs, cam)
+    tables = [torch.cat([inp[k], torch.zeros_like(inp[k][:1])])
+              for k in ("vol", "meta", "dims", "luts")]
+    before = sm.slicemarch_render.launches
+    kc, kd = sm.slicemarch_render(*tables, inp["cam"], **kw)
+    pc, pd = sm.untile(*sm.slicemarch_dense_reference(*tables, inp["cam"], **kw),
+                       kw["width"], kw["height"])
+    torch.cuda.synchronize()
+    assert sm.slicemarch_render.launches == before + 1
+    assert (pc[:-1, :, 3] > 0).any(dim=0).float().mean() > 0.1
+    assert_close(kc, pc)
+    assert_close(kd, pd)
+    assert (kc[-1] == 0).all() and torch.isinf(kd[-1]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene,pipeline,transport", [
+    ("3lvl", "depth", "float32"), ("3lvl", "layered", "float32"),
+    ("3lvl", "depth", "ubyte"), ("125-bricks", "depth", "float32"),
+])
+def test_sharded_route_matches_cpu_route(cuda, scene, pipeline, transport):
+    """``render_scene(devices=8)``: 8 shards on the card equal 8 shards on
+    the CPU; one kernel launch per shard (the dense slice march, or the
+    tile march above 96 pieces)."""
+    geometry = (three_level_geometry() if scene == "3lvl" else
+                api.load_amr_geometry(r2_data(40, 8), 0, -1, 0, False, True,
+                                      verbose=False))
+    params = RenderParameters(width=256, height=192, devices=8,
+                              multichip_pipeline=pipeline,
+                              multichip_transport=transport)
+    counter = sm.slicemarch_render if scene == "3lvl" else tm.tilemarch_render
+    before = counter.launches
+    gpu, _ = render_scene("", params, geometry, verbose=False, device=cuda)
+    assert counter.launches == before + 8
+    cpu, _ = render_scene("", params, geometry, verbose=False, device="cpu")
+    assert (cpu.pixels[:, 3] > 0).mean() > 0.05
+    assert_close(torch.from_numpy(gpu.pixels), torch.from_numpy(cpu.pixels))

@@ -2,8 +2,9 @@
 ``jaxlib`` or ``amrvolumerenderer_tpu`` raises, every module of
 ``amrvolumerenderer_torch`` imports (the animation path's ``transforms``
 and ``device_scene`` among them), and the CLI renders a plotfile through
-the default (slice-march) route and an orbit through the batched
-tile-march path on the CPU."""
+the default (slice-march) route, over two shards (``--devices 2``, the
+``parallel`` package) and an orbit through the batched tile-march path on
+the CPU."""
 
 import os
 import subprocess
@@ -34,6 +35,7 @@ import amrvolumerenderer_torch
 
 names = [m.name for m in pkgutil.walk_packages(
     amrvolumerenderer_torch.__path__, "amrvolumerenderer_torch.")]
+assert "amrvolumerenderer_torch.parallel.directsend" in names, names
 for name in names:
     importlib.import_module(name)
 print("imported", len(names), "modules")
@@ -60,7 +62,7 @@ def plotfile(tmp_path_factory):
 
 
 @pytest.mark.parametrize("flags", [[], ["--sampling", "trilinear",
-                                        "--antialiasing", "4"]])
+                                        "--antialiasing", "4"], ["--devices", "2"]])
 def test_port_imports_and_renders_with_jax_and_reference_blocked(
         tmp_path, plotfile, flags):
     out = tmp_path / "standalone.ppm"
