@@ -5,8 +5,8 @@ The port's part of the JAX package's ``compositor.py``: the global layer
 order of composeLayered (DirectSendBase.cpp:378-388), the reference-
 faithful host fold that the tests hold the device composites against, and
 ``_composite_sorted_runs``, the run-grouped fold the multi-device
-pipelines run on each shard (PyTorch on the layers' device).  The
-single-device tile fold is the ``ops/composite.py`` kernel.
+pipelines run on each shard, through the ``ops/composite.py`` kernel on
+the layers' device.
 """
 
 from __future__ import annotations
@@ -17,7 +17,8 @@ import numpy as np
 import torch
 
 from .image import blend_depth_sort
-from .ops.numerics import fma
+from .ops import composite as comp
+from .ops.worklist import LANES, SUBLANES, TILE_P
 
 
 def sort_layers(
@@ -53,47 +54,37 @@ def composite_layers_host(
     return accumulated
 
 
-def _blend_rows(top: torch.Tensor, bottom: torch.Tensor) -> torch.Tensor:
-    """``blend_depth_sort`` of two [P, 5] tensors, rounded as XLA:CPU
-    contracts it: one FMA per colour channel (``ops.march.blend``'s
-    arithmetic, on the four channels at once)."""
-    top_front = top[:, 4:] <= bottom[:, 4:]
-    front = torch.where(top_front, top, bottom)
-    back = torch.where(top_front, bottom, top)
-    rgba = fma(back[:, :4], 1.0 - front[:, 3:4], front[:, :4])
-    return torch.cat([rgba, torch.minimum(top[:, 4:], bottom[:, 4:])], dim=-1)
-
-
 def _composite_sorted_runs(
     sorted_layers: torch.Tensor,  # [L, P, 5] already in blend order
     sorted_owners: torch.Tensor,  # [L] int32 on the layers' device
 ) -> torch.Tensor:
     """Run-grouped fold over pre-sorted layers (compositor.py:81-119 of
-    the JAX package): one pass carries (run accumulator, total
-    accumulator); where the owner changes between consecutive layers the
-    finished run folds into the total.  The owner test stays on the device
-    (``torch.where``, no host sync), as the JAX loop body selects."""
-    num_layers = sorted_layers.shape[0]
+    the JAX package): consecutive same-owner layers fold into a run, each
+    finished run into the total.  That is the tile composite's fold, so the
+    [P, 5] pixels go through ``ops.composite.composite_tiles`` as blocks of
+    1024 (zero padded) with every block covered: one kernel launch on a
+    CUDA tensor, its plain version on a CPU one.  Both round as XLA:CPU
+    contracts the JAX loop: one FMA per colour channel per blend."""
+    num_layers, num_pixels = sorted_layers.shape[:2]
     dev = sorted_layers.device
-    empty = torch.zeros_like(sorted_layers[0])
-    empty[:, 4] = float("inf")
     if num_layers == 0:
+        empty = torch.zeros((num_pixels, 5), dtype=torch.float32, device=dev)
+        empty[:, 4] = float("inf")
         return empty
-    same = torch.zeros(num_layers, dtype=torch.bool, device=dev)
-    same[1:] = sorted_owners[1:] == sorted_owners[:-1]
-    run_acc, total_acc = empty, empty
-    have_total = torch.zeros((), dtype=torch.bool, device=dev)
-    for i in range(num_layers):
-        layer = sorted_layers[i]
-        same_owner = same[i]
-        # close the previous run when the owner changes
-        closed_total = torch.where(
-            have_total, _blend_rows(total_acc, run_acc), run_acc)
-        total_acc = torch.where(same_owner, total_acc, closed_total)
-        have_total = torch.where(same_owner, have_total, have_total | (i > 0))
-        # extend or restart the run
-        run_acc = torch.where(same_owner, _blend_rows(run_acc, layer), layer)
-    return torch.where(have_total, _blend_rows(total_acc, run_acc), run_acc)
+    tiles = -(-num_pixels // TILE_P)
+    blocks = torch.nn.functional.pad(
+        sorted_layers, (0, 0, 0, tiles * TILE_P - num_pixels))
+    blocks = blocks.reshape(num_layers, tiles, TILE_P, 5)
+    colors = blocks[..., :4].transpose(2, 3).reshape(
+        num_layers, tiles, 4, SUBLANES, LANES).contiguous()
+    depths = blocks[..., 4].reshape(num_layers, tiles, SUBLANES, LANES).contiguous()
+    out_c, out_d = comp.composite_tiles(
+        colors, depths, torch.arange(num_layers, dtype=torch.int32, device=dev),
+        sorted_owners.to(torch.int32).contiguous(),
+        torch.ones((num_layers, tiles), dtype=torch.bool, device=dev))
+    out = torch.cat([out_c.reshape(tiles, 4, TILE_P).transpose(1, 2),
+                     out_d.reshape(tiles, TILE_P, 1)], dim=-1)
+    return out.reshape(tiles * TILE_P, 5)[:num_pixels]
 
 
 def composite_layers_device(

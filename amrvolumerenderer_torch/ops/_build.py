@@ -36,15 +36,12 @@ NVCC_FLAGS = [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# C signatures of each kernel library's launch functions
+# C signature of each kernel's launch function
 _SIGNATURES = {
-    "tilemarch": {"avr_tilemarch_launch":
-                  [_P] * 13 + [_I] * 8 + [_F, _F, _I, _I, _I, _P]},
-    "slicemarch": {
-        "avr_slicemarch_launch": [_P] * 11 + [_I] * 7 + [_F, _F, _I, _I, _P],
-        "avr_slicemarch_dense_launch": [_P] * 8 + [_I] * 7 + [_F, _F, _I, _I, _P],
-    },
-    "composite": {"avr_composite_launch": [_P] * 7 + [_I, _I, _P]},
+    "tilemarch": ("avr_tilemarch_launch",
+                  [_P] * 13 + [_I] * 8 + [_F, _F, _I, _I, _I, _P]),
+    "slicemarch": ("avr_slicemarch_launch", [_P] * 11 + [_I] * 7 + [_F, _F, _I, _I, _P]),
+    "composite": ("avr_composite_launch", [_P] * 7 + [_I, _I, _P]),
 }
 KERNELS = tuple(_SIGNATURES)
 
@@ -128,9 +125,9 @@ def load(name: str) -> ctypes.CDLL:
     if lib is None:
         build_all([name])
         lib = ctypes.CDLL(library_path(name))
-        for fn_name, argtypes in _SIGNATURES[name].items():
-            fn = getattr(lib, fn_name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+        fn_name, argtypes = _SIGNATURES[name]
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
         _loaded[name] = lib
     return lib

@@ -12,11 +12,12 @@ per-piece layers in tile order: ``[B, T, 4, 8, 128]`` colour and
 calls; ``slicemarch_render_worklist`` masks by coverage and untiles to
 row-major ``[B, H*W, 4]`` / ``[B, H*W]`` (the layered path).
 ``slicemarch_render``, the dense entry the multi-device pipelines run on
-each shard, marches every piece over every tile within the piece's band
-``dims[b, 7]`` and returns the same row-major layers with every block
-defined.  On a CUDA tensor the entries launch the hand-written kernel
-(``csrc/slicemarch.cu``); on a CPU tensor they run ``slicemarch_reference``
-/ ``slicemarch_dense_reference``, the same functions in plain PyTorch.
+each shard, runs the same kernel over the full list of (piece, tile)
+pairs (``dense_worklist``), each piece within its band ``dims[b, 7]``, and
+returns the same row-major layers with every block defined.  On a CUDA
+tensor the entries launch the hand-written kernel (``csrc/slicemarch.cu``);
+on a CPU tensor they run ``slicemarch_reference``, the same function in
+plain PyTorch.
 Rounding follows the JAX kernel as XLA compiles it for the CPU in
 interpret mode with the rolled march loop (``numerics``); the TPU's
 ``unroll`` tree combine is a latency device that the port leaves out.
@@ -219,6 +220,52 @@ def _check_tables(vol, meta, dims, lut, cam, max_slices) -> None:
         raise ValueError(f"max_slices {max_slices} outside (0, {stored}]")
 
 
+def _launch(vol, meta, dims, lut, cam, work_bricks, work_tiles, work_bounds,
+            *, width, height, max_slices, logical_width, logical_height,
+            sampling, ghost, classification) -> Tuple[Tensor, Tensor, bool]:
+    """Launch ``csrc/slicemarch.cu`` on the current stream over a work
+    list of CUDA tensors (a failed build or launch raises); returns the
+    tile-ordered layers and whether a kernel was launched."""
+    if vol.device.type != "cuda":
+        raise ValueError(f"slicemarch has no kernel for {vol.device}")
+    check_args(width, height, sampling, classification)
+    if work_bounds is None:
+        work_bounds = dims[work_bricks.long(), 7].contiguous()
+    dev = vol.device
+    i32, f32_ = torch.int32, torch.float32
+    num_bricks, stored = vol.shape[0], vol.shape[1]
+    items = work_bricks.shape[0]
+    num_tiles = (width // TILE_W) * (height // TILE_H)
+    _check_tables(vol, meta, dims, lut, cam, max_slices)
+    require(work_bricks, "work_bricks", i32, (items,), dev)
+    require(work_tiles, "work_tiles", i32, (items,), dev)
+    require(work_bounds, "work_bounds", i32, (items,), dev)
+
+    colors = torch.empty((num_bricks, num_tiles, 4, SUBLANES, LANES),
+                         dtype=f32_, device=dev)
+    depths = torch.empty((num_bricks, num_tiles, SUBLANES, LANES),
+                         dtype=f32_, device=dev)
+    if items == 0:
+        return colors, depths, False
+    from . import _build
+
+    lib = _build.load("slicemarch")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.avr_slicemarch_launch(
+        vol.data_ptr(), meta.data_ptr(), dims.data_ptr(), lut.data_ptr(),
+        cam.data_ptr(), work_bricks.data_ptr(), work_tiles.data_ptr(),
+        work_bounds.data_ptr(), seed_table(dev).data_ptr(),
+        colors.data_ptr(), depths.data_ptr(),
+        items, num_tiles, stored, lut.shape[2] * LANES, width // TILE_W,
+        max_slices, ghost, f32(2.0 / (logical_width or width)),
+        f32(2.0 / (logical_height or height)),
+        int(sampling == "trilinear"), int(classification == "pre"), stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"slicemarch kernel launch failed: CUDA error {rc}")
+    return colors, depths, True
+
+
 def slicemarch_render_worklist_raw(
     vol: Tensor,
     meta: Tensor,
@@ -249,99 +296,37 @@ def slicemarch_render_worklist_raw(
         logical_width=logical_width, logical_height=logical_height,
         sampling=sampling, ghost=ghost, classification=classification,
     )
-    args = (vol, meta, dims, lut, cam, work_bricks, work_tiles)
+    args = (vol, meta, dims, lut, cam, work_bricks, work_tiles, work_bounds)
     if vol.device.type == "cpu":
-        return slicemarch_reference(*args, work_bounds, **kw)
-    if vol.device.type != "cuda":
-        raise ValueError(f"slicemarch has no kernel for {vol.device}")
-    check_args(width, height, sampling, classification)
-    if work_bounds is None:
-        work_bounds = dims[work_bricks.long(), 7].contiguous()
-    dev = vol.device
-    i32, f32_ = torch.int32, torch.float32
-    num_bricks, stored = vol.shape[0], vol.shape[1]
-    items = work_bricks.shape[0]
-    num_tiles = (width // TILE_W) * (height // TILE_H)
-    _check_tables(vol, meta, dims, lut, cam, max_slices)
-    require(work_bricks, "work_bricks", i32, (items,), dev)
-    require(work_tiles, "work_tiles", i32, (items,), dev)
-    require(work_bounds, "work_bounds", i32, (items,), dev)
-
-    colors = torch.empty((num_bricks, num_tiles, 4, SUBLANES, LANES),
-                         dtype=f32_, device=dev)
-    depths = torch.empty((num_bricks, num_tiles, SUBLANES, LANES),
-                         dtype=f32_, device=dev)
-    if items == 0:
-        return colors, depths
-    from . import _build
-
-    lib = _build.load("slicemarch")
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.avr_slicemarch_launch(
-        vol.data_ptr(), meta.data_ptr(), dims.data_ptr(), lut.data_ptr(),
-        cam.data_ptr(), work_bricks.data_ptr(), work_tiles.data_ptr(),
-        work_bounds.data_ptr(), seed_table(dev).data_ptr(),
-        colors.data_ptr(), depths.data_ptr(),
-        items, num_tiles, stored, lut.shape[2] * LANES, width // TILE_W,
-        max_slices, ghost, f32(2.0 / (logical_width or width)),
-        f32(2.0 / (logical_height or height)),
-        int(sampling == "trilinear"), int(classification == "pre"), stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"slicemarch kernel launch failed: CUDA error {rc}")
-    slicemarch_render_worklist_raw.launches += 1
+        return slicemarch_reference(*args, **kw)
+    colors, depths, launched = _launch(*args, **kw)
+    slicemarch_render_worklist_raw.launches += int(launched)
     return colors, depths
 
 
 slicemarch_render_worklist_raw.launches = 0
 
 
+def dense_worklist(num_bricks: int, num_tiles: int,
+                   device) -> Tuple[Tensor, Tensor]:
+    """Every (piece, tile) pair, piece-major: ``(work_bricks,
+    work_tiles)`` of the dense render, which so names every block."""
+    bricks = torch.arange(num_bricks, dtype=torch.int32, device=device)
+    tiles = torch.arange(num_tiles, dtype=torch.int32, device=device)
+    return bricks.repeat_interleave(num_tiles), tiles.repeat(num_bricks)
+
+
 def slicemarch_dense_reference(
-    vol: Tensor,  # [B, S, 8, 128] f32 packed slices
-    meta: Tensor,  # [B, 12] f32
-    dims: Tensor,  # [B, 8] i32; band from dims[:, 7]
-    lut: Tensor,  # [B, 4, size // 128, 128] f32 per-piece log-LUT
-    cam: Tensor,  # [20] f32
-    *,
-    width: int,
-    height: int,
-    max_slices: int,
-    logical_width: Optional[int] = None,
-    logical_height: Optional[int] = None,
-    sampling: str = "nearest",
-    ghost: int = 0,
-    classification: str = "post",
+    vol: Tensor, meta: Tensor, dims: Tensor, lut: Tensor, cam: Tensor, **kw,
 ) -> Tuple[Tensor, Tensor]:
-    """The dense slice-march kernel in plain PyTorch: every piece over
-    every tile, each within its band ``dims[b, 7]``.  Returns tile-ordered
-    ``([B, T, 4, 8, 128], [B, T, 8, 128])`` with every block defined (a
-    tile the piece misses is colour 0, depth +inf).  One ``march_pieces``
-    call per piece keeps the working set at one piece's tiles."""
-    check_args(width, height, sampling, classification)
-    dev = vol.device
-    num_bricks = vol.shape[0]
-    num_tiles = (width // TILE_W) * (height // TILE_H)
-    colors = torch.empty((num_bricks, num_tiles, 4, SUBLANES, LANES),
-                         dtype=torch.float32, device=dev)
-    depths = torch.empty((num_bricks, num_tiles, SUBLANES, LANES),
-                         dtype=torch.float32, device=dev)
-    if num_bricks == 0 or num_tiles == 0:
-        return colors, depths
-    tiles = torch.arange(num_tiles, dtype=torch.int32, device=dev)
-    dirs, fwd_dot = tile_rays(tiles, cam, width, logical_width or width,
-                              logical_height or height)
-    lut_rows = lut.reshape(num_bricks, 4, -1)
-    for b in range(num_bricks):
-        bricks = torch.full((num_tiles,), b, dtype=torch.int32, device=dev)
-        c, d = march_pieces(
-            vol, meta, dims, lut_rows, bricks, cam, bricks,
-            dims[bricks.long(), 7], dirs, fwd_dot, max_slices=max_slices,
-            sampling=sampling, ghost=ghost, classification=classification,
-            rolled=True,
-        )
-        colors[b] = torch.stack(c, dim=1).reshape(num_tiles, 4, SUBLANES, LANES)
-        depths[b] = d.reshape(num_tiles, SUBLANES, LANES)
-    return colors, depths
+    """The dense render's plain version: ``slicemarch_reference`` over
+    ``dense_worklist``, every piece within its band ``dims[b, 7]``.
+    Returns tile-ordered ``([B, T, 4, 8, 128], [B, T, 8, 128])`` with every
+    block defined (a tile the piece misses is colour 0, depth +inf)."""
+    num_tiles = (kw["width"] // TILE_W) * (kw["height"] // TILE_H)
+    return slicemarch_reference(
+        vol, meta, dims, lut, cam,
+        *dense_worklist(vol.shape[0], num_tiles, vol.device), **kw)
 
 
 def slicemarch_render(
@@ -364,9 +349,10 @@ def slicemarch_render(
     ``([B, H*W, 4], [B, H*W])``, the untiled outputs of
     ``slicemarch_dense_reference`` (same arguments).
 
-    A CUDA ``vol`` launches the dense CUDA kernel on the current stream (a
-    failed build or launch raises); a CPU ``vol`` runs the plain version.
-    ``slicemarch_render.launches`` counts kernel launches."""
+    A CUDA ``vol`` launches the slice-march kernel over ``dense_worklist``
+    on the current stream (a failed build or launch raises); a CPU ``vol``
+    runs the plain version.  ``slicemarch_render.launches`` counts kernel
+    launches."""
     kw = dict(
         width=width, height=height, max_slices=max_slices,
         logical_width=logical_width, logical_height=logical_height,
@@ -375,34 +361,11 @@ def slicemarch_render(
     if vol.device.type == "cpu":
         colors, depths = slicemarch_dense_reference(vol, meta, dims, lut, cam, **kw)
         return untile(colors, depths, width, height)
-    if vol.device.type != "cuda":
-        raise ValueError(f"slicemarch has no kernel for {vol.device}")
-    check_args(width, height, sampling, classification)
-    dev, f32_ = vol.device, torch.float32
-    num_bricks, stored = vol.shape[0], vol.shape[1]
     num_tiles = (width // TILE_W) * (height // TILE_H)
-    _check_tables(vol, meta, dims, lut, cam, max_slices)
-    colors = torch.empty((num_bricks, num_tiles, 4, SUBLANES, LANES),
-                         dtype=f32_, device=dev)
-    depths = torch.empty((num_bricks, num_tiles, SUBLANES, LANES),
-                         dtype=f32_, device=dev)
-    if num_bricks == 0 or num_tiles == 0:
-        return untile(colors, depths, width, height)
-    from . import _build
-
-    lib = _build.load("slicemarch")
-    rc = lib.avr_slicemarch_dense_launch(
-        vol.data_ptr(), meta.data_ptr(), dims.data_ptr(), lut.data_ptr(),
-        cam.data_ptr(), seed_table(dev).data_ptr(), colors.data_ptr(),
-        depths.data_ptr(), num_bricks, num_tiles, stored,
-        lut.shape[2] * LANES, width // TILE_W, max_slices, ghost,
-        f32(2.0 / (logical_width or width)), f32(2.0 / (logical_height or height)),
-        int(sampling == "trilinear"), int(classification == "pre"),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"dense slicemarch kernel launch failed: CUDA error {rc}")
-    slicemarch_render.launches += 1
+    colors, depths, launched = _launch(
+        vol, meta, dims, lut, cam,
+        *dense_worklist(vol.shape[0], num_tiles, vol.device), None, **kw)
+    slicemarch_render.launches += int(launched)
     return untile(colors, depths, width, height)
 
 

@@ -19,7 +19,8 @@ process, the counterpart of JAX's single-controller ``shard_map``.
   producing device's current stream and before the consuming one's; on
   one card every copy is local and stays on that card's stream.
 * Each shard folds the layers of its pixel shard in the global (depth,
-  owner, local index) order with ``compositor._composite_sorted_runs``.
+  owner, local index) order with ``compositor._composite_sorted_runs``,
+  one tile-composite launch per fold.
 
 Functions that take a shard's tensors take its device from the mesh;
 none defaults to the CPU.  Results are lists of per-shard pixel shards

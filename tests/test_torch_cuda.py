@@ -365,7 +365,8 @@ def test_dense_kernel_matches_plain(cuda, knobs):
 def test_sharded_route_matches_cpu_route(cuda, scene, pipeline, transport):
     """``render_scene(devices=8)``: 8 shards on the card equal 8 shards on
     the CPU; one kernel launch per shard (the dense slice march, or the
-    tile march above 96 pieces)."""
+    tile march above 96 pieces) and one composite launch per shard and
+    fold (the local fold of the depth pipeline, then the exchanged one)."""
     geometry = (three_level_geometry() if scene == "3lvl" else
                 api.load_amr_geometry(r2_data(40, 8), 0, -1, 0, False, True,
                                       verbose=False))
@@ -373,9 +374,11 @@ def test_sharded_route_matches_cpu_route(cuda, scene, pipeline, transport):
                               multichip_pipeline=pipeline,
                               multichip_transport=transport)
     counter = sm.slicemarch_render if scene == "3lvl" else tm.tilemarch_render
-    before = counter.launches
+    before, folds = counter.launches, comp.composite_tiles.launches
     gpu, _ = render_scene("", params, geometry, verbose=False, device=cuda)
     assert counter.launches == before + 8
+    local_folds = 8 if (scene, pipeline) == ("3lvl", "depth") else 0
+    assert comp.composite_tiles.launches == folds + 8 + local_folds
     cpu, _ = render_scene("", params, geometry, verbose=False, device="cpu")
     assert (cpu.pixels[:, 3] > 0).mean() > 0.05
     assert_close(torch.from_numpy(gpu.pixels), torch.from_numpy(cpu.pixels))

@@ -167,6 +167,26 @@ def test_composite_sorted_runs_matches_jax():
         layers, hints, owners, local))
 
 
+@pytest.mark.parametrize("count,pixels", [(0, 40), (1, 40), (9, 2500)])
+def test_composite_sorted_runs_tile_blocks_match_jax(count, pixels):
+    """The fold goes through the tile composite in blocks of 1024 pixels:
+    a partial last block, several blocks, one layer, and no layer at all
+    (colour 0, depth +inf; JAX's loop needs a first layer)."""
+    rng = np.random.default_rng(count)
+    layers = seeded_layers(rng, count, pixels)
+    owners = np.sort(rng.integers(0, 3, count)).astype(np.int32)
+    if count:
+        want = jax_comp._composite_sorted_runs(jnp.asarray(layers),
+                                               jnp.asarray(owners))
+    else:
+        want = np.zeros((pixels, 5), np.float32)
+        want[:, 4] = np.inf
+    got = compositor._composite_sorted_runs(torch.from_numpy(layers),
+                                            torch.from_numpy(owners))
+    assert got.shape == (pixels, 5)
+    assert_matches(got.numpy(), want)
+
+
 def test_byte_decode_matches_jitted_jax():
     from amrvolumerenderer_tpu.image import byte_to_color_device as jax_decode
 
