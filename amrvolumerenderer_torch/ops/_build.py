@@ -40,13 +40,14 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "tilemarch": ("avr_tilemarch_launch",
                   [_P] * 13 + [_I] * 8 + [_F, _F, _I, _I, _I, _P]),
-    "slicemarch": ("avr_slicemarch_launch", [_P] * 11 + [_I] * 7 + [_F, _F, _I, _I, _P]),
+    "slicemarch": ("avr_slicemarch_launch",
+                   [_P] * 11 + [_I] * 7 + [_F, _F, _I, _I, _I, _P]),
     "composite": ("avr_composite_launch", [_P] * 7 + [_I, _I, _P]),
 }
 KERNELS = tuple(_SIGNATURES)
 
 _loaded: Dict[str, ctypes.CDLL] = {}
-build_log: Dict[str, str] = {}  # name -> nvcc output of this process's build
+build_log: Dict[str, str] = {}  # name -> nvcc output of the library's build
 build_seconds: Dict[str, float] = {}  # name -> compile wall time (0 if cached)
 
 
@@ -98,6 +99,9 @@ def build_all(names=KERNELS) -> None:
         out = library_path(name)
         if os.path.exists(out):
             build_seconds.setdefault(name, 0.0)
+            if name not in build_log and os.path.exists(out + ".log"):
+                with open(out + ".log") as f:
+                    build_log[name] = f.read()
             continue
         os.makedirs(BUILD_DIR, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
@@ -114,6 +118,8 @@ def build_all(names=KERNELS) -> None:
             os.unlink(tmp)
             failed.append(f"nvcc failed to build {name}.cu:\n{build_log[name]}")
         else:
+            with open(out + ".log", "w") as f:  # the ptxas report of a cached build
+                f.write(build_log[name])
             os.replace(tmp, out)  # atomic: concurrent builders never see half a file
     if failed:
         raise RuntimeError("\n".join(failed))

@@ -1,6 +1,6 @@
 // Tile-march: slice march + per-owner run composite in one pass, for F
 // frames in one launch.  One CUDA block per (frame, grid step, 8-row
-// quarter of the step's 32x32 pixel tile).
+// quarter of the step's 32x32 pixel tile), one pixel a thread.
 //
 // Replaces the TPU kernel amrvolumerenderer_tpu/ops/tilemarch.py::_kernel,
 // both entries: tilemarch_render (one frame) and tilemarch_render_batch
@@ -8,24 +8,24 @@
 // grid), on a float32 or a bfloat16 volume.  blockIdx.x runs over F * S
 // grid steps; step g belongs to frame f = g / S and reads that frame's
 // camera pack, CSR offsets, work row and tile ids, and writes its outputs
-// frame-major ([F, S, ...]).  A one-frame launch is F = 1.  Each thread owns
-// one pixel: it walks the step's work list front to back, marches every
-// item's piece (march.cuh) and folds each item's layer into its own
-// registers with the same-owner run fold of the JAX kernel
+// frame-major ([F, S, ...]).  A one-frame launch is F = 1.  Each thread
+// walks the step's work list front to back; every item marches its piece
+// over the part of the band its ray reaches (march.cuh::march_item) and the
+// thread folds the layers with the same-owner run fold of the JAX kernel
 // (ops/tilemarch.py:569-630).  Owner and brick stay two tables here; the
 // TPU kernel packs them as (owner << 16) | brick to save scalar memory,
 // which compares owners the same way for the owners below 2^15 that
 // build_tile_worklist allows.
 //
-// What bounds it on this card: bytes gathered per sample.  Every valid
-// sample reads 1 (nearest) or 4 (bilinear) scattered cells of the packed
-// brick slice (4 bytes each, 2 in bfloat16) plus 4 LUT floats, straight
-// from L2/HBM.
-// What the design does about that: nothing yet.  It is a plain global
-// gather; neighbouring pixels of a warp hit neighbouring cells of one slice,
-// so the reads coalesce only as far as the camera lets them.  A bfloat16
-// volume halves the bytes of each cell read.  Staging the item's slices in
-// shared memory is work for a later change.
+// What bounds it on this card: each valid sample is a dependent chain of a
+// cell read (1 nearest, 4 bilinear), 4 LUT reads, three IEEE divisions,
+// XLA's exp and the fold; per item and ray, a slab test.  The bytes a
+// frame needs (the bands' slices, the LUT, the output) are a few MB, so
+// latency and instruction issue bound it, not HBM.
+// What the design does about that (march.cuh): each ray marches only the
+// steps its interval reaches; blocks of 256 threads with no barrier, so
+// several blocks share an SM and hide each other's latency.  A bfloat16
+// volume halves the bytes of each cell read.
 //
 // Numerics: march.cuh (bit-exact with the JAX kernel in interpret mode);
 // a bfloat16 cell widens to float32 exactly before it is used.
@@ -67,10 +67,11 @@ __global__ void __launch_bounds__(kThreads) tilemarch_kernel(Params<T> p) {
   const int* bricks = p.bricks + row;
   const int* owners = p.owners + row;
   const int* ibounds = p.ibounds + row;
+  const float* cam = p.cams + static_cast<int64_t>(f) * 20;
+  const View view = make_view(cam);
   const Ray ray =
-      make_ray(p.cams + static_cast<int64_t>(f) * 20,
-               p.tile_ids[static_cast<int64_t>(f) * p.steps + step], p.tiles_x,
-               flat, p.ndc_sx, p.ndc_sy, p.rsqrt_seed);
+      make_ray(cam, p.tile_ids[static_cast<int64_t>(f) * p.steps + step],
+               p.tiles_x, flat, p.ndc_sx, p.ndc_sy, p.rsqrt_seed);
   const int begin = offsets[step];
   const int end = offsets[step + 1];
   Layer run = empty_layer();
@@ -78,7 +79,7 @@ __global__ void __launch_bounds__(kThreads) tilemarch_kernel(Params<T> p) {
   bool have_tot = false;
   for (int w = begin; w < end; ++w) {
     const Layer c = march_item<kTrilinear, kPre, false>(
-        p.pieces, p.lut, bricks[w], ibounds[w], ray);
+        p.pieces, view, ray, bricks[w], ibounds[w], p.lut);
     const bool same_owner = w > begin && owners[w] == owners[w - 1];
     if (same_owner) {
       run = blend(run, c);

@@ -12,9 +12,10 @@ per-piece layers in tile order: ``[B, T, 4, 8, 128]`` colour and
 calls; ``slicemarch_render_worklist`` masks by coverage and untiles to
 row-major ``[B, H*W, 4]`` / ``[B, H*W]`` (the layered path).
 ``slicemarch_render``, the dense entry the multi-device pipelines run on
-each shard, runs the same kernel over the full list of (piece, tile)
-pairs (``dense_worklist``), each piece within its band ``dims[b, 7]``, and
-returns the same row-major layers with every block defined.  On a CUDA
+each shard, marches every (piece, tile) pair, each piece within its band
+``dims[b, 7]`` (the kernel's dense mode; its plain version runs
+``slicemarch_reference`` over ``dense_worklist``), and returns the same
+row-major layers with every block defined.  On a CUDA
 tensor the entries launch the hand-written kernel (``csrc/slicemarch.cu``);
 on a CPU tensor they run ``slicemarch_reference``, the same function in
 plain PyTorch.
@@ -222,30 +223,40 @@ def _check_tables(vol, meta, dims, lut, cam, max_slices) -> None:
 
 def _launch(vol, meta, dims, lut, cam, work_bricks, work_tiles, work_bounds,
             *, width, height, max_slices, logical_width, logical_height,
-            sampling, ghost, classification) -> Tuple[Tensor, Tensor, bool]:
-    """Launch ``csrc/slicemarch.cu`` on the current stream over a work
-    list of CUDA tensors (a failed build or launch raises); returns the
-    tile-ordered layers and whether a kernel was launched."""
+            sampling, ghost, classification,
+            dense: bool = False) -> Tuple[Tensor, Tensor, bool]:
+    """Launch ``csrc/slicemarch.cu`` on the current stream (a failed build
+    or launch raises); returns the layers and whether a kernel was
+    launched.  Over a work list of CUDA tensors it returns tile-ordered
+    layers; with ``dense`` (no work list) every (piece, tile) pair, as
+    row-major ``[B, H*W, 4]`` / ``[B, H*W]`` layers."""
     if vol.device.type != "cuda":
         raise ValueError(f"slicemarch has no kernel for {vol.device}")
     check_args(width, height, sampling, classification)
-    if work_bounds is None:
-        work_bounds = dims[work_bricks.long(), 7].contiguous()
     dev = vol.device
     i32, f32_ = torch.int32, torch.float32
     num_bricks, stored = vol.shape[0], vol.shape[1]
-    items = work_bricks.shape[0]
     num_tiles = (width // TILE_W) * (height // TILE_H)
     _check_tables(vol, meta, dims, lut, cam, max_slices)
-    require(work_bricks, "work_bricks", i32, (items,), dev)
-    require(work_tiles, "work_tiles", i32, (items,), dev)
-    require(work_bounds, "work_bounds", i32, (items,), dev)
-
-    colors = torch.empty((num_bricks, num_tiles, 4, SUBLANES, LANES),
-                         dtype=f32_, device=dev)
-    depths = torch.empty((num_bricks, num_tiles, SUBLANES, LANES),
-                         dtype=f32_, device=dev)
-    if items == 0:
+    if dense:
+        items = num_bricks
+        colors = torch.empty((num_bricks, height * width, 4), dtype=f32_, device=dev)
+        depths = torch.empty((num_bricks, height * width), dtype=f32_, device=dev)
+        lists = (0, 0, 0)
+    else:
+        if work_bounds is None:
+            work_bounds = dims[work_bricks.long(), 7].contiguous()
+        items = work_bricks.shape[0]
+        require(work_bricks, "work_bricks", i32, (items,), dev)
+        require(work_tiles, "work_tiles", i32, (items,), dev)
+        require(work_bounds, "work_bounds", i32, (items,), dev)
+        colors = torch.empty((num_bricks, num_tiles, 4, SUBLANES, LANES),
+                             dtype=f32_, device=dev)
+        depths = torch.empty((num_bricks, num_tiles, SUBLANES, LANES),
+                             dtype=f32_, device=dev)
+        lists = (work_bricks.data_ptr(), work_tiles.data_ptr(),
+                 work_bounds.data_ptr())
+    if items == 0 or num_tiles == 0:
         return colors, depths, False
     from . import _build
 
@@ -253,13 +264,13 @@ def _launch(vol, meta, dims, lut, cam, work_bricks, work_tiles, work_bounds,
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.avr_slicemarch_launch(
         vol.data_ptr(), meta.data_ptr(), dims.data_ptr(), lut.data_ptr(),
-        cam.data_ptr(), work_bricks.data_ptr(), work_tiles.data_ptr(),
-        work_bounds.data_ptr(), seed_table(dev).data_ptr(),
+        cam.data_ptr(), *lists, seed_table(dev).data_ptr(),
         colors.data_ptr(), depths.data_ptr(),
         items, num_tiles, stored, lut.shape[2] * LANES, width // TILE_W,
         max_slices, ghost, f32(2.0 / (logical_width or width)),
         f32(2.0 / (logical_height or height)),
-        int(sampling == "trilinear"), int(classification == "pre"), stream,
+        int(sampling == "trilinear"), int(classification == "pre"),
+        int(dense), stream,
     )
     if rc != 0:
         raise RuntimeError(f"slicemarch kernel launch failed: CUDA error {rc}")
@@ -349,10 +360,11 @@ def slicemarch_render(
     ``([B, H*W, 4], [B, H*W])``, the untiled outputs of
     ``slicemarch_dense_reference`` (same arguments).
 
-    A CUDA ``vol`` launches the slice-march kernel over ``dense_worklist``
-    on the current stream (a failed build or launch raises); a CPU ``vol``
-    runs the plain version.  ``slicemarch_render.launches`` counts kernel
-    launches."""
+    A CUDA ``vol`` launches the slice-march kernel's dense mode on the
+    current stream over every (piece, tile) pair, which writes the
+    row-major layers itself (a failed build or launch raises); a CPU
+    ``vol`` runs the plain version.  ``slicemarch_render.launches`` counts
+    kernel launches."""
     kw = dict(
         width=width, height=height, max_slices=max_slices,
         logical_width=logical_width, logical_height=logical_height,
@@ -361,12 +373,10 @@ def slicemarch_render(
     if vol.device.type == "cpu":
         colors, depths = slicemarch_dense_reference(vol, meta, dims, lut, cam, **kw)
         return untile(colors, depths, width, height)
-    num_tiles = (width // TILE_W) * (height // TILE_H)
-    colors, depths, launched = _launch(
-        vol, meta, dims, lut, cam,
-        *dense_worklist(vol.shape[0], num_tiles, vol.device), None, **kw)
+    colors, depths, launched = _launch(vol, meta, dims, lut, cam, None, None,
+                                       None, dense=True, **kw)
     slicemarch_render.launches += int(launched)
-    return untile(colors, depths, width, height)
+    return colors, depths
 
 
 slicemarch_render.launches = 0

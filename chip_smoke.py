@@ -42,7 +42,15 @@ tile-march pipeline), with every kernel-4, tile-march and composite launch
 of those sharded frames replayed against its plain version on the same
 arguments; one 2048^2 AA=4 frame with its peak memory; and
 kernel 4's times and bound with the sharded frame's wall split for 2 and 8
-shards.  Every phase asserts;
+shards.
+
+Phase 1 also logs each kernel instantiation's registers, shared memory and
+spills (and fails on a spill) and counts the SASS instructions of one
+valid sample (``ops/csrc/sample_probe.cu``), from which the timing phases
+give an issue bound beside the FLOP bound.  Phase 20 holds the
+tile-march, slice-march and dense kernels against their plain versions
+with the eye inside the domain at 1024^2 (fov 45 and a fov-120 view whose
+tiles hold rays of both march directions).  Every phase asserts;
 any failure ends the run with a non-zero exit code.  The second-to-last line of standard output is a
 JSON object with each kernel's launches, error, times and bound; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -376,10 +384,32 @@ def main() -> int:
     log(f"phase 1: built {', '.join(counters)} in {time.perf_counter() - t0:.3f} s "
         f"(nvcc " + ", ".join(f"{n} {_build.build_seconds[n]:.3f} s"
                               for n in counters) + ")")
+    spills = 0
     for name in counters:
-        for line in _build.build_log.get(name, "").splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: " + line.strip())
+        report = ptxas_report(_build.build_log.get(name, ""))
+        assert report, f"no ptxas report for {name}"
+        for fn, regs, smem, stores, loads in report:
+            log(f"  ptxas {name}: {fn}: {regs} registers, {smem} bytes smem, "
+                f"spill stores {stores} B, spill loads {loads} B")
+            spills += stores + loads
+    assert spills == 0, "a kernel spills registers"
+    smi_clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0]
+    issue_rate = (torch.cuda.get_device_properties(0).multi_processor_count
+                  * 4 * 32 * float(smi_clock) * 1e6)
+    sass = sass_per_sample(_build._nvcc(), _build.NVCC_FLAGS, _build._CSRC, SCRATCH)
+    log("phase 1: SASS instructions per valid sample ("
+        "ops/csrc/sample_probe.cu, cuobjdump -sass): " + ", ".join(
+            f"{k} {n} ({c} CALLs)" for k, (n, c) in sass.items())
+        + f"; issue rate {issue_rate:.4g} thread-instructions/s ("
+        f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs x 4 "
+        f"schedulers x 32 lanes x {smi_clock} MHz max SM clock)")
+
+    def issue_ms(samples: float, key: str) -> float:
+        """The least time the card takes to issue ``samples`` valid samples
+        of probe ``key``, every lane busy."""
+        return samples * sass[key][0] / issue_rate * 1e3
 
     # ---- phase 2: the routes vs the golden rows ---------------------------
     golden = dict(np.load(os.path.join(ROOT, "tests", "golden",
@@ -724,9 +754,13 @@ def main() -> int:
         comp_flops += blocks * 1024 * BLEND_FLOPS
     bounds_ms["slicemarch"] = bound(sm_bytes / 8, sm_samples * flops / 8)
     bounds_ms["composite"] = bound(comp_bytes / 8, comp_flops / 8)
+    issue7 = {"tilemarch": issue_ms(tile_samples / 8, "tilemarch_nearest_post"),
+              "slicemarch": issue_ms(sm_samples / 8, "slicemarch_nearest_post")}
     for name, (b_ms, by) in bounds_ms.items():
         log(f"phase 7: {name} bound {b_ms:.5f} ms/frame ({by}); kernel at "
-            f"{b_ms / times[name][0]:.4f} of its bound")
+            f"{b_ms / times[name][0]:.4f} of its bound"
+            + (f"; SASS issue bound {issue7[name]:.5f} ms/frame, kernel at "
+               f"{issue7[name] / times[name][0]:.4f} of it" if name in issue7 else ""))
     log(f"phase 7: valid samples per frame: tile-march {tile_samples / 8:.0f}, "
         f"slice-march {sm_samples / 8:.0f}")
 
@@ -1027,6 +1061,8 @@ def main() -> int:
                         + r.lut.numel() * 4 + len(fr["tile_ids"]) * 1024 * 20)
         batch_bounds[prec] = bound(nbytes_ / 8, samples * SAMPLE_FLOPS[
             ("nearest", "post")] / 8)
+        issue13 = issue_ms(samples / 8, "tilemarch_nearest_post" if prec == "float32"
+                           else "tilemarch_bf16_nearest_post")
         batch_times[prec] = (min(f8), plain, min(f1), f8, f1)
         log(f"phase 13: batched tile-march {prec}, 8 frames of one march axis at "
             f"1024^2: F=8 {min(f8):.4f} ms/frame (runs "
@@ -1034,7 +1070,8 @@ def main() -> int:
             f"(runs {', '.join(f'{v:.4f}' for v in f2)}), F=1 {min(f1):.4f} ms/frame "
             f"(runs {', '.join(f'{v:.4f}' for v in f1)}), plain PyTorch "
             f"{plain:.4f} ms/frame; bound {batch_bounds[prec][0]:.5f} ms/frame "
-            f"({batch_bounds[prec][1]}; {samples / 8:.0f} valid samples/frame)")
+            f"({batch_bounds[prec][1]}; {samples / 8:.0f} valid samples/frame); "
+            f"SASS issue bound {issue13:.5f} ms/frame")
     for mode in (True, "rgb"):
         fsr.render_batch(cams, overlay=False, bytes_out=mode)  # warm-up
         runs = []
@@ -1368,6 +1405,8 @@ def main() -> int:
     bounds_ms["slicemarch_dense"] = bound(nbytes, samples * SAMPLE_FLOPS[
         ("nearest", "post")])
     times["slicemarch_dense"] = (min(per_frame), plain_frame)
+    log(f"phase 19: kernel 4 SASS issue bound "
+        f"{issue_ms(samples, 'slicemarch_nearest_post'):.5f} ms per frame")
     log(f"phase 19: kernel 4, 3-level 1024x1024 nearest/post/256 over 8 shards "
         f"({prep19['vol'].shape[0]} pieces, {args[0].shape[0]} slots per shard): "
         f"{min(per_frame):.4f} ms per frame of 8 launches (runs "
@@ -1455,6 +1494,43 @@ def main() -> int:
                 + ", ".join(f"{s} {v:.3f} ms" for s, v in zip(stages, split))
                 + f"; sum {split.sum():.3f} ms; whole call {total:.3f} ms")
 
+    # ---- phase 20: the eye inside the domain at 1024^2 ---------------------
+    # At fov 45 every ray of a tile marches one way along the frame's march
+    # axis.  At fov 120 on a diagonal view some rays are more than 90
+    # degrees off that axis, so tiles around the plane d_a = 0 hold rays of
+    # both directions in the pieces around the eye.
+    from amrvolumerenderer_torch.api import CameraParameters
+
+    inside = {
+        "fov 45": CameraParameters(eye=(0.4, 0.45, 0.5), look_at=(0.9, 0.5, 0.5),
+                                   up=(0.0, 1.0, 0.0)),
+        "fov 120": CameraParameters(eye=(0.4, 0.45, 0.5), look_at=(1.4, 1.35, 1.3),
+                                    up=(0.0, 1.0, 0.0), fov_y_degrees=120.0),
+    }
+    p20 = RenderParameters(width=1024, height=1024)
+    for label, camera in inside.items():
+        inputs = fsr.frame_inputs(camera)
+        a = (fsr._packed_vol, inputs["meta"], inputs["dims"], fsr.lut,
+             inputs["cam"], inputs["offsets"], inputs["bricks"], inputs["owners"],
+             inputs["item_bounds"], inputs["tile_ids"])
+        kc, kd = tm.tilemarch_render(*a, **tkw)
+        pc, pd = tm.tilemarch_reference(*a, **tkw)
+        torch.cuda.synchronize()
+        hold("tilemarch", f"phase 20: eye inside, {label}: tile-march kernel vs "
+             f"plain, {a[9].shape[0]} steps, {a[6].shape[0]} items",
+             [(kc, pc), (kd, pd)])
+        prep, inp, args, kw, _, _ = slicemarch_frame(p20, camera, 1024, 1024)
+        cov = inp["coverage"]
+        kc, kd = sm.slicemarch_render_worklist_raw(*args, **kw)
+        pc, pd = sm.slicemarch_reference(*args, **kw)
+        torch.cuda.synchronize()
+        hold("slicemarch", f"phase 20: eye inside, {label}: slice-march kernel vs "
+             f"plain, {len(prep['wb'])} items, {int(cov.sum())} covered blocks",
+             [(kc[cov], pc[cov]), (kd[cov], pd[cov])])
+        _, _, _, shards = dense_case(geometry3, p20, camera, 1024, 1024, 8)
+        hold_dense(f"phase 20: eye inside, {label}: kernel 4 vs plain over 8 "
+                   "shards", shards)
+
     sources = {
         "tilemarch": ("ops/csrc/tilemarch.cu", "amrvolumerenderer_tpu/ops/tilemarch.py:819"),
         "slicemarch": ("ops/csrc/slicemarch.cu", "amrvolumerenderer_tpu/ops/slicemarch.py:750"),
@@ -1488,6 +1564,68 @@ def main() -> int:
         "count": torch.cuda.device_count(),
     }}))
     return 0
+
+
+def ptxas_report(build_log: str):
+    """[(kernel, registers, smem bytes, spill store bytes, spill load
+    bytes)] of every entry function in an ``nvcc -Xptxas -v`` log."""
+    import re
+
+    rows, name, spill = [], None, (0, 0)
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            smem = re.search(r"(\d+) bytes smem", line)
+            rows.append((demangle(name), int(m.group(1)),
+                         int(smem.group(1)) if smem else 0, *spill))
+            name, spill = None, (0, 0)
+    return rows
+
+
+def demangle(name: str) -> str:
+    """A kernel's C++ name (``c++filt``), or ``name`` as it is."""
+    try:
+        out = subprocess.run(["c++filt", name], capture_output=True, text=True,
+                             timeout=10).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        return name
+    return out.replace("(anonymous namespace)::", "") or name
+
+
+def sass_per_sample(nvcc: str, flags, csrc: str, out_dir: str) -> dict:
+    """SASS instructions a valid sample issues, per march flavour: the
+    ``probe_<name>`` kernels of ``csrc/sample_probe.cu`` (one
+    ``march.cuh::ray_step``) minus their
+    ``probe_base_<name>`` twins, counting each kernel's instructions up to
+    its last EXIT (NOPs left out; a division's out-of-line slow path,
+    reached by CALL, is not counted).  Returns {name: (count, CALLs)}."""
+    import re
+
+    cubin = os.path.join(out_dir, "sample_probe.cubin")
+    flags = [f for f in flags if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    subprocess.run([nvcc, *flags, "-cubin", "-o", cubin,
+                    os.path.join(csrc, "sample_probe.cu")],
+                   check=True, capture_output=True, text=True)
+    sass = subprocess.run([os.path.join(os.path.dirname(nvcc), "cuobjdump"),
+                           "-sass", cubin], check=True, capture_output=True,
+                          text=True).stdout
+    counts = {}
+    for chunk in sass.split("Function : ")[1:]:
+        name = chunk.split()[0]
+        ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);", chunk)
+        last = max(i for i, op in enumerate(ops) if op.split()[-1] == "EXIT"
+                   or op.strip() == "EXIT")
+        body = [op for op in ops[:last + 1] if not op.strip().startswith("NOP")]
+        counts[name] = (len(body), sum("CALL" in op for op in body))
+    return {name[len("probe_"):]: (n - counts["probe_base_" + name[6:]][0], calls)
+            for name, (n, calls) in counts.items()
+            if name.startswith("probe_") and not name.startswith("probe_base_")}
 
 
 def band_bytes(torch, bricks, bounds, dims, max_slices, cell_bytes=4) -> int:

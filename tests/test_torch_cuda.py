@@ -11,7 +11,11 @@ runs on a machine that has only PyTorch:
 
 Each kernel is held against its plain PyTorch version on the same device
 (atol 2e-6; the two round alike, so they agree bit for bit) and the routes
-against the golden rows (the manifest's atol of 2e-6).
+against the golden rows (the manifest's atol of 2e-6).  The march kernels
+are also held on the eye inside the domain (one view whose tiles all march
+one way, and a 120-degree view with tiles whose rays march both ways), a
+2048-entry LUT, bfloat16 batches of 1, 2 and 8 frames, and the dense
+mode's padding slots and background tiles.
 """
 
 import os
@@ -382,3 +386,118 @@ def test_sharded_route_matches_cpu_route(cuda, scene, pipeline, transport):
     cpu, _ = render_scene("", params, geometry, verbose=False, device="cpu")
     assert (cpu.pixels[:, 3] > 0).mean() > 0.05
     assert_close(torch.from_numpy(gpu.pixels), torch.from_numpy(cpu.pixels))
+
+
+# The eye inside the domain (tests/test_torch_slicemarch.py, test_torch_
+# tilemarch.py): every ray of a tile marches one way along the frame's
+# march axis.  With a 120-degree field of view and a diagonal view some
+# rays are more than 90 degrees off that axis, so the tiles around the
+# plane d_a = 0 hold rays of both directions in the pieces around the eye.
+INSIDE = CameraParameters(eye=(0.4, 0.45, 0.5), look_at=(0.9, 0.5, 0.5),
+                          up=(0, 1, 0))
+WIDE_INSIDE = CameraParameters(eye=(0.4, 0.45, 0.5), look_at=(1.4, 1.35, 1.3),
+                               up=(0, 1, 0), fov_y_degrees=120.0)
+CAMERAS = {"inside": INSIDE, "wide-inside": WIDE_INSIDE}
+
+
+def tile_case(dev, camera, lut_size=256, size=(256, 192)):
+    """One frame's tile-march arguments on the 3-level scene."""
+    fsr = FastSceneRenderer(three_level_geometry(), RenderParameters(
+        width=size[0], height=size[1], lut_size=lut_size), device=dev)
+    inputs = fsr.frame_inputs(camera)
+    args = (fsr._packed_vol, inputs["meta"], inputs["dims"], fsr.lut,
+            inputs["cam"], inputs["offsets"], inputs["bricks"],
+            inputs["owners"], inputs["item_bounds"], inputs["tile_ids"])
+    kw = dict(width=fsr.pad_w, height=fsr.pad_h, max_slices=fsr.cube,
+              logical_width=fsr.render_width, logical_height=fsr.render_height)
+    return args, kw
+
+
+def run_route(route, dev, camera, lut_size=256):
+    """(kernel outputs, plain outputs) of one march route: tile march,
+    work-list slice march (covered blocks) or the dense slice march with a
+    zero padding slot in the middle."""
+    if route == "tilemarch":
+        args, kw = tile_case(dev, camera, lut_size)
+        assert args[3].shape[1] * 128 == lut_size
+        got = tm.tilemarch_render(*args, **kw)
+        return got, tm.tilemarch_reference(*args, **kw)
+    prep, inp, args, kw = slicemarch_case(dev, ("nearest", "post", lut_size),
+                                          camera)
+    assert args[3].shape[2] * 128 == lut_size
+    if route == "slicemarch":
+        kc, kd = sm.slicemarch_render_worklist_raw(*args, **kw)
+        pc, pd = sm.slicemarch_reference(*args, **kw)
+        cov = inp["coverage"]
+        return (kc[cov], kd[cov]), (pc[cov], pd[cov])
+    half = inp["vol"].shape[0] // 2
+    tables = [torch.cat([inp[k][:half], torch.zeros_like(inp[k][:1]), inp[k][half:]])
+              for k in ("vol", "meta", "dims", "luts")]
+    got = sm.slicemarch_render(*tables, inp["cam"], **kw)
+    want = sm.untile(*sm.slicemarch_dense_reference(*tables, inp["cam"], **kw),
+                     kw["width"], kw["height"])
+    return got, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["tilemarch", "slicemarch", "dense"])
+@pytest.mark.parametrize("camera", list(CAMERAS))
+def test_eye_inside_matches_plain(cuda, camera, route):
+    """Tiles whose rays all march one way along the march axis, and (at
+    fov 120) tiles whose rays march both ways."""
+    got, want = run_route(route, cuda, CAMERAS[camera])
+    torch.cuda.synchronize()
+    alpha = want[0][..., 3].amax(dim=0) if route == "dense" else want[0][:, 3]
+    assert (alpha > 0).float().mean() > 0.05  # premise: a real frame
+    assert_close(got[0], want[0])
+    assert_close(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["tilemarch", "slicemarch", "dense"])
+def test_large_lut_matches_plain(cuda, route):
+    """A 2048-entry LUT (32 KiB a table)."""
+    got, want = run_route(route, cuda, WIDE_INSIDE, lut_size=2048)
+    torch.cuda.synchronize()
+    assert_close(got[0], want[0])
+    assert_close(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frames", [1, 2, 8])
+def test_batched_bfloat16_matches_plain(cuda, frames):
+    fsr, _, args, kw = batch_case(cuda, "bfloat16", count=frames)
+    assert args[0].dtype == torch.bfloat16
+    kc, kd = tm.tilemarch_render_batch(*args, **kw)
+    pc, pd = tm.tilemarch_batch_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert kc.shape[0] == frames
+    assert_close(kc, pc)
+    assert_close(kd, pd)
+
+
+@pytest.mark.cuda
+def test_dense_background_blocks(cuda, monkeypatch):
+    """The dense mode writes a padding slot and every pixel whose ray
+    misses its piece as background itself, and the GPU path neither builds
+    the dense work list nor untiles."""
+    def forbidden(*args, **kw):
+        raise AssertionError("the GPU path must not call this")
+
+    monkeypatch.setattr(sm, "dense_worklist", forbidden)
+    monkeypatch.setattr(sm, "untile", forbidden)
+    prep, inp, args, kw = slicemarch_case(cuda, ("nearest", "post", 256), INSIDE)
+    tables = [torch.cat([torch.zeros_like(inp[k][:1]), inp[k]])
+              for k in ("vol", "meta", "dims", "luts")]
+    kc, kd = sm.slicemarch_render(*tables, inp["cam"], **kw)
+    monkeypatch.undo()
+    pc, pd = sm.untile(*sm.slicemarch_dense_reference(*tables, inp["cam"], **kw),
+                       kw["width"], kw["height"])
+    torch.cuda.synchronize()
+    assert kc.shape == (len(tables[0]), kw["width"] * kw["height"], 4)
+    assert (kc[0] == 0).all() and torch.isinf(kd[0]).all()
+    blocks = pd.reshape(len(pd), kw["height"] // 32, 32, kw["width"] // 32, 32)
+    miss = torch.isinf(blocks).all(dim=4).all(dim=2)
+    assert int(miss[1:].sum()) > 0  # premise: all-miss tiles exist
+    assert_close(kc, pc)
+    assert_close(kd, pd)

@@ -114,6 +114,28 @@ def test_raw_matches_jax_kernel_on_covered_blocks(geometries, scene, knobs,
 
 
 @pytest.mark.parametrize("knobs", [("nearest", "post", 256),
+                                   ("trilinear", "post", 256)],
+                         ids=lambda k: "-".join(map(str, k)))
+def test_raw_wide_fov_eye_inside_matches_jax_kernel(geometries, knobs):
+    """An eye inside the domain with a 120-degree field of view on a
+    diagonal view: tiles around the plane where the rays' march-axis
+    component changes sign hold rays that march both ways."""
+    wide = CameraParameters(eye=(0.4, 0.45, 0.5), look_at=(1.4, 1.35, 1.3),
+                            up=(0, 1, 0), fov_y_degrees=120.0)
+    prep, kw = jax_prep(geometries["3lvl"], knobs, wide, 64)
+    rc, rd = jsm.slicemarch_render_worklist_raw(
+        *(jnp.asarray(prep[k]) for k in KEYS), jnp.asarray(prep["wbounds"]),
+        interpret=True, **kw)
+    args, bounds, _ = torch_args(prep)
+    gc, gd = sm.slicemarch_render_worklist_raw(*args, bounds, **kw)
+    cov = prep["coverage"]
+    rc, rd = np.asarray(rc)[cov], np.asarray(rd)[cov]
+    assert (rc[:, 3] > 0).mean() > 0.02  # premise: a real frame
+    assert_matches(gc.numpy()[cov], rc)
+    assert_matches(gd.numpy()[cov], rd)
+
+
+@pytest.mark.parametrize("knobs", [("nearest", "post", 256),
                                    ("trilinear", "pre", 128)])
 def test_masked_matches_jax_kernel(geometries, knobs):
     """The coverage-masked, untiled entry (the layered path) everywhere."""

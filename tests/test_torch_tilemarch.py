@@ -144,6 +144,20 @@ def test_reference_eye_inside_domain(geometries):
     assert_frames_close(gc.numpy(), gd.numpy(), rc, rd)
 
 
+@pytest.mark.parametrize("knobs", [KNOBS[0], KNOBS[2]],
+                         ids=lambda k: "-".join(map(str, k)))
+def test_reference_wide_fov_eye_inside(geometries, knobs):
+    """An eye inside the domain with a 120-degree field of view on a
+    diagonal view: tiles around the plane where the rays' march-axis
+    component changes sign hold rays that march both ways."""
+    cam = CameraParameters(eye=(0.4, 0.45, 0.5), look_at=(1.4, 1.35, 1.3),
+                           up=(0, 1, 0), fov_y_degrees=120.0)
+    fsr, inputs, kw = _case(geometries["3lvl"], knobs, cam)
+    (gc, gd), (rc, rd) = _run_both(fsr, inputs, kw, dense=False)
+    assert (np.asarray(rc)[:, 3] > 0).mean() > 0.05  # premise: a real frame
+    assert_frames_close(gc.numpy(), gd.numpy(), rc, rd)
+
+
 def test_scatter_tiles_drops_sentinel():
     """Pad steps carry tile_ids == num_tiles; the scatter drops them
     (indexing with the sentinel would raise) and uncovered tiles are
