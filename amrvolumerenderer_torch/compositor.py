@@ -5,8 +5,8 @@ The port's part of the JAX package's ``compositor.py``: the global layer
 order of composeLayered (DirectSendBase.cpp:378-388), the reference-
 faithful host fold that the tests hold the device composites against, and
 ``_composite_sorted_runs``, the run-grouped fold the multi-device
-pipelines run on each shard, through the ``ops/composite.py`` kernel on
-the layers' device.
+pipelines run on each shard, through the pixel mode of the
+``ops/composite.py`` kernel on the layers' device.
 """
 
 from __future__ import annotations
@@ -18,7 +18,6 @@ import torch
 
 from .image import blend_depth_sort
 from .ops import composite as comp
-from .ops.worklist import LANES, SUBLANES, TILE_P
 
 
 def sort_layers(
@@ -60,31 +59,16 @@ def _composite_sorted_runs(
 ) -> torch.Tensor:
     """Run-grouped fold over pre-sorted layers (compositor.py:81-119 of
     the JAX package): consecutive same-owner layers fold into a run, each
-    finished run into the total.  That is the tile composite's fold, so the
-    [P, 5] pixels go through ``ops.composite.composite_tiles`` as blocks of
-    1024 (zero padded) with every block covered: one kernel launch on a
-    CUDA tensor, its plain version on a CPU one.  Both round as XLA:CPU
-    contracts the JAX loop: one FMA per colour channel per blend."""
-    num_layers, num_pixels = sorted_layers.shape[:2]
+    finished run into the total.  One ``ops.composite.composite_pixels``
+    call with the identity order: a kernel launch on a CUDA tensor, its
+    plain version on a CPU one.  Both round as XLA:CPU contracts the JAX
+    loop: one FMA per colour channel per blend.  No layer gives
+    background (colour 0, depth +inf)."""
     dev = sorted_layers.device
-    if num_layers == 0:
-        empty = torch.zeros((num_pixels, 5), dtype=torch.float32, device=dev)
-        empty[:, 4] = float("inf")
-        return empty
-    tiles = -(-num_pixels // TILE_P)
-    blocks = torch.nn.functional.pad(
-        sorted_layers, (0, 0, 0, tiles * TILE_P - num_pixels))
-    blocks = blocks.reshape(num_layers, tiles, TILE_P, 5)
-    colors = blocks[..., :4].transpose(2, 3).reshape(
-        num_layers, tiles, 4, SUBLANES, LANES).contiguous()
-    depths = blocks[..., 4].reshape(num_layers, tiles, SUBLANES, LANES).contiguous()
-    out_c, out_d = comp.composite_tiles(
-        colors, depths, torch.arange(num_layers, dtype=torch.int32, device=dev),
-        sorted_owners.to(torch.int32).contiguous(),
-        torch.ones((num_layers, tiles), dtype=torch.bool, device=dev))
-    out = torch.cat([out_c.reshape(tiles, 4, TILE_P).transpose(1, 2),
-                     out_d.reshape(tiles, TILE_P, 1)], dim=-1)
-    return out.reshape(tiles * TILE_P, 5)[:num_pixels]
+    return comp.composite_pixels(
+        sorted_layers.contiguous(),
+        torch.arange(sorted_layers.shape[0], dtype=torch.int32, device=dev),
+        sorted_owners.to(torch.int32).contiguous())
 
 
 def composite_layers_device(
@@ -94,10 +78,10 @@ def composite_layers_device(
     local_indices: np.ndarray,  # [L] (host)
 ) -> torch.Tensor:
     """Layered composite on the layers' device: host-side sort, device
-    fold.  Returns [P, 5]."""
+    fold through the order index (no gathered copy).  Returns [P, 5]."""
     order = sort_layers(depth_hints, owners, local_indices)
     dev = layers.device
     sorted_owners = torch.from_numpy(
         np.asarray(owners)[order].astype(np.int32)).to(dev)
-    return _composite_sorted_runs(
-        layers[torch.from_numpy(order).to(dev).long()], sorted_owners)
+    return comp.composite_pixels(layers.contiguous(),
+                                 torch.from_numpy(order).to(dev), sorted_owners)

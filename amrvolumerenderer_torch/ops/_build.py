@@ -36,13 +36,15 @@ NVCC_FLAGS = [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# C signature of each kernel's launch function
+_L = ctypes.c_longlong
+# C signature of each library's launch functions
 _SIGNATURES = {
-    "tilemarch": ("avr_tilemarch_launch",
-                  [_P] * 13 + [_I] * 8 + [_F, _F, _I, _I, _I, _P]),
-    "slicemarch": ("avr_slicemarch_launch",
-                   [_P] * 11 + [_I] * 7 + [_F, _F, _I, _I, _I, _P]),
-    "composite": ("avr_composite_launch", [_P] * 7 + [_I, _I, _P]),
+    "tilemarch": {"avr_tilemarch_launch":
+                  [_P] * 13 + [_I] * 8 + [_F, _F, _I, _I, _I, _P]},
+    "slicemarch": {"avr_slicemarch_launch":
+                   [_P] * 11 + [_I] * 7 + [_F, _F, _I, _I, _I, _P]},
+    "composite": {"avr_composite_launch": [_P] * 7 + [_I, _I, _P],
+                  "avr_composite_pixels_launch": [_P] * 4 + [_I, _I, _L, _P]},
 }
 KERNELS = tuple(_SIGNATURES)
 
@@ -131,9 +133,9 @@ def load(name: str) -> ctypes.CDLL:
     if lib is None:
         build_all([name])
         lib = ctypes.CDLL(library_path(name))
-        fn_name, argtypes = _SIGNATURES[name]
-        fn = getattr(lib, fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for fn_name, argtypes in _SIGNATURES[name].items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _loaded[name] = lib
     return lib

@@ -1,20 +1,31 @@
-"""Tile-space compositor: fold every piece layer of a tile in one pass.
+"""Run-grouped compositor: fold every piece layer of a pixel in one pass.
 
 The port of the JAX package's ``ops/composite.py`` kernels
-(``composite_tiles`` and ``composite_tiles_hbm``).  For each pixel it
-walks the layers in blend order (front first), reads a layer's block only
-where ``coverage`` marks it scheduled (elsewhere the layer is background:
-colour 0, depth +inf, with no read, so an undefined block never reaches a
-pixel) and applies composeLayered's same-owner run fold: runs of
-consecutive same-owner layers blend first, then the runs
-(DirectSendBase.cpp:378-446).  Ties in the depth-sort blend keep the top.
+(``composite_tiles`` and ``composite_tiles_hbm``) and of the fold of its
+sharded pipelines (``compositor._composite_sorted_runs``).  For each pixel
+it walks the layers in blend order (front first) and applies
+composeLayered's same-owner run fold: runs of consecutive same-owner
+layers blend first, then the runs (DirectSendBase.cpp:378-446).  Ties in
+the depth-sort blend keep the top.
 
-``composite_tiles`` launches ``csrc/composite.cu`` for CUDA tensors and
-runs ``composite_reference``, the same fold in plain PyTorch, for CPU
-tensors.  The TPU needed a second, DMA-streamed kernel past 96 layers
-(its VMEM limit); a GPU thread keeps only its running sums in registers,
-so one kernel serves any layer count and ``composite_tiles_hbm`` is the
-same call.
+Two entries of one CUDA source, ``csrc/composite.cu``:
+
+* ``composite_tiles`` (tile mode): layers in tile order, read only where
+  ``coverage`` marks a (layer, tile) block scheduled (elsewhere the layer
+  is background: colour 0, depth +inf, with no read, so an undefined block
+  never reaches a pixel).  The kernel folds only the covered layers, which
+  is exact under the precondition stated in the source.
+  ``composite_reference`` is its plain twin, the full fold over all layers.
+  The TPU needed a second, DMA-streamed kernel past 96 layers (its VMEM
+  limit); the GPU kernel serves any layer count, so ``composite_tiles_hbm``
+  is the same call.
+* ``composite_pixels`` (pixel mode): pixel-major ``[L, P, 5]`` layers as
+  the sharded pipelines hold them, any ``P``, visited through an ``order``
+  index, every layer covered.  ``composite_pixels_reference`` is its plain
+  twin.
+
+Each wrapper launches its kernel for CUDA tensors and runs the plain
+version for CPU tensors.
 """
 
 from __future__ import annotations
@@ -98,6 +109,9 @@ def composite_tiles(
     require(order, "order", torch.int32, (num_layers,), dev)
     require(owners_sorted, "owners_sorted", torch.int32, (num_layers,), dev)
     require(coverage, "coverage", torch.bool, (num_layers, num_tiles), dev)
+    for name, t in (("colors", colors), ("depths", depths)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (16-byte copies)")
     out_c = torch.empty((num_tiles, 4, SUBLANES, LANES), dtype=torch.float32,
                         device=dev)
     out_d = torch.empty((num_tiles, SUBLANES, LANES), dtype=torch.float32,
@@ -132,3 +146,79 @@ def composite_tiles_hbm(
     """The JAX package's streamed variant for more than 96 layers; on the
     GPU the same kernel as ``composite_tiles``."""
     return composite_tiles(colors, depths, order, owners_sorted, coverage)
+
+
+def composite_pixels_reference(
+    layers: Tensor,  # [L, P, 5] f32 pixel-major layers (r, g, b, a, depth)
+    order: Tensor,  # [L] int blend order (front first), an index into layers
+    owners_sorted: Tensor,  # [L] owner of layers[order[i]]
+) -> Tensor:
+    """The pixel-mode fold in plain PyTorch, vectorised over pixels; the
+    Python loop runs over the layers in order.  Returns ``[P, 5]``; no
+    layer gives background (colour 0, depth +inf)."""
+    num_pixels = layers.shape[1]
+    zero = torch.zeros(num_pixels, dtype=torch.float32, device=layers.device)
+    run_c, run_d = [zero] * 4, zero + float("inf")
+    tot_c, tot_d = run_c, run_d
+    have_tot = False
+    owners_l = owners_sorted.tolist()
+    for i, b in enumerate(order.tolist()):
+        lc = [layers[b, :, ch] for ch in range(4)]
+        ld = layers[b, :, 4]
+        if i > 0 and owners_l[i] == owners_l[i - 1]:
+            run_c, run_d = blend(run_c, run_d, lc, ld)
+        else:
+            # close the previous owner's run into the running total
+            if i > 0:
+                if have_tot:
+                    tot_c, tot_d = blend(tot_c, tot_d, run_c, run_d)
+                else:
+                    tot_c, tot_d = run_c, run_d
+                have_tot = True
+            run_c, run_d = lc, ld
+    if have_tot:
+        run_c, run_d = blend(tot_c, tot_d, run_c, run_d)
+    return torch.stack(run_c + [run_d], dim=-1)
+
+
+def composite_pixels(layers: Tensor, order: Tensor, owners_sorted: Tensor) -> Tensor:
+    """Fold pixel-major layers; returns ``[P, 5]``.  Arguments as
+    ``composite_pixels_reference``; on the card ``order`` and
+    ``owners_sorted`` are int32.
+
+    A CUDA ``layers`` launches the pixel mode of the CUDA kernel on the
+    current stream (a failed build or launch raises); a CPU one runs the
+    plain version.  ``composite_pixels.launches`` counts kernel launches."""
+    if layers.device.type == "cpu":
+        return composite_pixels_reference(layers, order, owners_sorted)
+    if layers.device.type != "cuda":
+        raise ValueError(f"composite_pixels has no kernel for {layers.device}")
+    dev = layers.device
+    num_layers, num_pixels = layers.shape[0], layers.shape[1]
+    # any stride between layers, so a sliced frame stack is read in place
+    if (layers.dtype != torch.float32 or layers.dim() != 3
+            or layers.shape[2] != 5 or layers.stride()[1:] != (5, 1)):
+        raise ValueError("layers must be a float32 [L, P, 5] tensor whose "
+                         f"layers are dense, got {layers.dtype} "
+                         f"{tuple(layers.shape)} strides {layers.stride()}")
+    require(order, "order", torch.int32, (num_layers,), dev)
+    require(owners_sorted, "owners_sorted", torch.int32, (num_layers,), dev)
+    out = torch.empty((num_pixels, 5), dtype=torch.float32, device=dev)
+    if num_pixels == 0:
+        return out
+    from . import _build
+
+    lib = _build.load("composite")
+    rc = lib.avr_composite_pixels_launch(
+        layers.data_ptr(), order.data_ptr(), owners_sorted.data_ptr(),
+        out.data_ptr(), num_layers, num_pixels,
+        layers.stride(0),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"composite_pixels kernel launch failed: CUDA error {rc}")
+    composite_pixels.launches += 1
+    return out
+
+
+composite_pixels.launches = 0

@@ -19,8 +19,9 @@ process, the counterpart of JAX's single-controller ``shard_map``.
   producing device's current stream and before the consuming one's; on
   one card every copy is local and stays on that card's stream.
 * Each shard folds the layers of its pixel shard in the global (depth,
-  owner, local index) order with ``compositor._composite_sorted_runs``,
-  one tile-composite launch per fold.
+  owner, local index) order with the pixel mode of the composite kernel
+  (``ops.composite.composite_pixels``), one launch per fold, reading the
+  layers through the sort's index.
 
 Functions that take a shard's tensors take its device from the mesh;
 none defaults to the CPU.  Results are lists of per-shard pixel shards
@@ -39,6 +40,7 @@ import torch
 from ..compositor import _composite_sorted_runs, sort_layers
 from ..device import DEFAULT_DEVICE, Device, resolve_device
 from ..image import byte_to_color_device, color_to_byte_device
+from ..ops import composite as comp
 from ..ops import slicemarch as sm
 from ..ops import tilemarch as tm
 
@@ -178,7 +180,8 @@ def _fold_layers(mesh: Mesh, received: Shards, gathered: Shards) -> Shards:
             owners = torch.arange(num, dtype=torch.int32,
                                   device=dev).repeat_interleave(lmax)
             order = torch.argsort(gathered[r].reshape(-1), stable=True)
-            out.append(_composite_sorted_runs(all_layers[order], owners[order]))
+            out.append(comp.composite_pixels(all_layers, order.to(torch.int32),
+                                             owners[order]))
     return out
 
 
@@ -580,7 +583,8 @@ def _local_precomposite(mesh: Mesh, layers: Shards, hints: Shards) -> Shards:
         with _on(dev):
             order = torch.argsort(hints[r], stable=True)
             keys = torch.arange(layers[r].shape[0], dtype=torch.int32, device=dev)
-            partials.append(_composite_sorted_runs(layers[r][order], keys))
+            partials.append(comp.composite_pixels(layers[r], order.to(torch.int32),
+                                                  keys))
     return partials
 
 

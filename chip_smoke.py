@@ -6,7 +6,8 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's three CUDA kernel libraries (tile-march, slice-march,
-tile composite) from the checkout's sources, all at once, holds each against
+composite with its tile and pixel modes) from the checkout's sources, all
+at once, holds each against
 the golden rows and against its plain PyTorch version on the card, drives
 both one-shot main paths through the entry points a user calls: a
 512-brick 256^3 plotfile at 1024x1024 through
@@ -38,16 +39,17 @@ rows ``slicemarch-8dev-*`` through ``api.render(devices=8)``;
 ``render_scene(devices=8)`` on the 3-level scene over both pipelines and
 transports against the one-device frame; the 512-brick plotfile through
 ``render(plotfile, devices=8)`` and the CLI's ``--devices 8`` (the
-tile-march pipeline), with every kernel-4, tile-march and composite launch
-of those sharded frames replayed against its plain version on the same
-arguments; one 2048^2 AA=4 frame with its peak memory; and
-kernel 4's times and bound with the sharded frame's wall split for 2 and 8
-shards.
+tile-march pipeline), with every kernel-4, tile-march and pixel-mode
+composite (fold) launch of those sharded frames replayed against its plain
+version on the same arguments; one 2048^2 AA=4 frame with its peak memory;
+kernel 4's times and bound, each fold launch of a sharded frame timed
+alone against its byte bound, and the sharded frame's wall split for 2 and
+8 shards.
 
 Phase 1 also logs each kernel instantiation's registers, shared memory and
 spills (and fails on a spill) and counts the SASS instructions of one
-valid sample (``ops/csrc/sample_probe.cu``), from which the timing phases
-give an issue bound beside the FLOP bound.  Phase 20 holds the
+valid sample and of one composite fold step (``ops/csrc/sample_probe.cu``),
+from which the timing phases give an issue bound beside the FLOP bound.  Phase 20 holds the
 tile-march, slice-march and dense kernels against their plain versions
 with the eye inside the domain at 1024^2 (fov 45 and a fov-120 view whose
 tiles hold rays of both march directions).  Every phase asserts;
@@ -337,9 +339,11 @@ def main() -> int:
     assert "jax" not in sys.modules, "the port imported jax"
     assert "amrvolumerenderer_tpu" not in sys.modules, \
         "the port imported the JAX package"
+    libraries = ("tilemarch", "slicemarch", "composite")
     counters = {"tilemarch": tm.tilemarch_render,
                 "slicemarch": sm.slicemarch_render_worklist_raw,
-                "composite": comp.composite_tiles}
+                "composite": comp.composite_tiles,  # tile mode
+                "composite_pixels": comp.composite_pixels}  # the sharded folds
     batch_fn = tm.tilemarch_render_batch  # its launches count both batch entries
     dense_fn = sm.slicemarch_render  # kernel 4, in the slicemarch library
 
@@ -378,14 +382,14 @@ def main() -> int:
 
     # ---- phase 1: build the three kernels, one nvcc each, in parallel -----
     t0 = time.perf_counter()
-    _build.build_all(tuple(counters))
-    for name in counters:
+    _build.build_all(libraries)
+    for name in libraries:
         _build.load(name)
-    log(f"phase 1: built {', '.join(counters)} in {time.perf_counter() - t0:.3f} s "
+    log(f"phase 1: built {', '.join(libraries)} in {time.perf_counter() - t0:.3f} s "
         f"(nvcc " + ", ".join(f"{n} {_build.build_seconds[n]:.3f} s"
-                              for n in counters) + ")")
+                              for n in libraries) + ")")
     spills = 0
-    for name in counters:
+    for name in libraries:
         report = ptxas_report(_build.build_log.get(name, ""))
         assert report, f"no ptxas report for {name}"
         for fn, regs, smem, stores, loads in report:
@@ -399,7 +403,7 @@ def main() -> int:
     issue_rate = (torch.cuda.get_device_properties(0).multi_processor_count
                   * 4 * 32 * float(smi_clock) * 1e6)
     sass = sass_per_sample(_build._nvcc(), _build.NVCC_FLAGS, _build._CSRC, SCRATCH)
-    log("phase 1: SASS instructions per valid sample ("
+    log("phase 1: SASS instructions per valid sample or fold step ("
         "ops/csrc/sample_probe.cu, cuobjdump -sass): " + ", ".join(
             f"{k} {n} ({c} CALLs)" for k, (n, c) in sass.items())
         + f"; issue rate {issue_rate:.4g} thread-instructions/s ("
@@ -408,7 +412,7 @@ def main() -> int:
 
     def issue_ms(samples: float, key: str) -> float:
         """The least time the card takes to issue ``samples`` valid samples
-        of probe ``key``, every lane busy."""
+        (or fold steps) of probe ``key``, every lane busy."""
         return samples * sass[key][0] / issue_rate * 1e3
 
     # ---- phase 2: the routes vs the golden rows ---------------------------
@@ -417,8 +421,10 @@ def main() -> int:
     levels, geoms = r2_scene_data(16, 8)
     r2 = api.AmrData(level_data=levels, level_geometry=geoms)
     for method, row, want in (
-        ("tilemarch", "tilemarch-1dev", {"tilemarch": 1, "slicemarch": 0, "composite": 0}),
-        ("slicemarch", "slicemarch-1dev", {"tilemarch": 0, "slicemarch": 1, "composite": 1}),
+        ("tilemarch", "tilemarch-1dev",
+         {"tilemarch": 1, "slicemarch": 0, "composite": 0, "composite_pixels": 0}),
+        ("slicemarch", "slicemarch-1dev",
+         {"tilemarch": 0, "slicemarch": 1, "composite": 1, "composite_pixels": 0}),
     ):
         reset_counts()
         image, _ = api.render(r2, api.RenderOptions(
@@ -448,9 +454,10 @@ def main() -> int:
 
     worst = dict.fromkeys(counters, 0.0)
 
-    def hold(name, label, pairs) -> None:
-        """Assert kernel == plain (same non-finite pattern, atol) for each
-        (kernel output, plain output) pair and record the worst diff."""
+    def hold(name, label, pairs, atol=ATOL) -> None:
+        """Assert kernel == plain (same non-finite pattern, within atol)
+        for each (kernel output, plain output) pair and record the worst
+        diff."""
         result = []
         for k, p in pairs:
             same, d = max_diff(k.cpu().numpy(), p.cpu().numpy())
@@ -458,7 +465,7 @@ def main() -> int:
             result.append((same, d))
         log(f"{label}: max |diff| " + ", ".join(f"{d:.3g}" for _, d in result)
             + f", non-finite pattern same {all(s for s, _ in result)}")
-        assert all(s and d <= ATOL for s, d in result), label
+        assert all(s and d <= atol for s, d in result), label
 
     def kernel_vs_plain(phase: str, fsr, sentinel: bool = False) -> None:
         """Tile-march kernel and plain version on one frame's inputs
@@ -522,7 +529,8 @@ def main() -> int:
     launches = {"tilemarch": counts()["tilemarch"]}
     log(f"phase 4: render(plotfile) 512 bricks at 1024x1024: rc {rc}, "
         f"{main_s:.3f} s wall (scene build included), launches {counts()}")
-    assert rc == 0 and counts() == {"tilemarch": 1, "slicemarch": 0, "composite": 0}
+    assert rc == 0 and counts() == {"tilemarch": 1, "slicemarch": 0, "composite": 0,
+                                    "composite_pixels": 0}
     t0 = time.perf_counter()
     cli = subprocess.run(
         [sys.executable, "-m", "amrvolumerenderer_torch.driver", "--width",
@@ -588,8 +596,8 @@ def main() -> int:
         got = counts()
         log(f"phase 5: render_scene 3-level 1024x1024 {tag}: {wall:.3f} s "
             f"wall, launches {got}")
-        assert got["slicemarch"] >= 1 and got["composite"] >= 1, got
-        assert got["tilemarch"] == 0, got
+        assert got == {"tilemarch": 0, "slicemarch": 1, "composite": 1,
+                       "composite_pixels": 0}, got
         for name in slice_launches:
             slice_launches[name] += got[name]
         px = image.pixels
@@ -616,7 +624,7 @@ def main() -> int:
         qc, qd = comp.composite_reference(kc, kd, order_t, owners_t, cov)
         torch.cuda.synchronize()
         hold("composite", f"phase 5: composite kernel vs plain {tag}",
-             [(cc, qc), (cd, qd)])
+             [(cc, qc), (cd, qd)], atol=0.0)
         # the two routes render the same frame within the JAX tests' bound
         tile_image, _ = render_scene("", params, geometry3, verbose=False,
                                      method="tilemarch", device=dev)
@@ -638,7 +646,8 @@ def main() -> int:
     log(f"phase 5: 2048x2048 AA=4: {wall:.3f} s wall, launches {counts()}, "
         f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, "
         f"alpha > 0 on {covered:.4f}")
-    assert counts()["slicemarch"] == 1 and counts()["composite"] == 1
+    assert counts() == {"tilemarch": 0, "slicemarch": 1, "composite": 1,
+                        "composite_pixels": 0}, counts()
     assert px.shape == (2048 * 2048, 5) and np.isfinite(px[:, :4]).all()
     assert ALPHA_FRACTION[0] <= covered <= ALPHA_FRACTION[1], covered
 
@@ -675,7 +684,9 @@ def main() -> int:
     assert bool(torch.isfinite(cc).all()), "an uncovered block leaked"
     hold("composite", f"phase 6: composite kernel vs plain, {layers} layers x "
          f"{tiles} tiles, {blocks} covered blocks: kernel {ms:.4f} ms, plain "
-         f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({by})", [(cc, qc), (cd, qd)])
+         f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({by}), SASS issue bound "
+         f"{issue_ms(blocks * 1024 / 4, 'fold_tile'):.5f} ms",
+         [(cc, qc), (cd, qd)], atol=0.0)
     del colors, depths, alpha, cc, cd, qc, qd
 
     # ---- phase 7: timing, 8 orbit cameras on the 3-level scene at 1024^2 --
@@ -754,8 +765,10 @@ def main() -> int:
         comp_flops += blocks * 1024 * BLEND_FLOPS
     bounds_ms["slicemarch"] = bound(sm_bytes / 8, sm_samples * flops / 8)
     bounds_ms["composite"] = bound(comp_bytes / 8, comp_flops / 8)
+    # a fold step folds 4 pixels of a covered block in the tile mode
     issue7 = {"tilemarch": issue_ms(tile_samples / 8, "tilemarch_nearest_post"),
-              "slicemarch": issue_ms(sm_samples / 8, "slicemarch_nearest_post")}
+              "slicemarch": issue_ms(sm_samples / 8, "slicemarch_nearest_post"),
+              "composite": issue_ms(comp_flops / BLEND_FLOPS / 8 / 4, "fold_tile")}
     for name, (b_ms, by) in bounds_ms.items():
         log(f"phase 7: {name} bound {b_ms:.5f} ms/frame ({by}); kernel at "
             f"{b_ms / times[name][0]:.4f} of its bound"
@@ -963,7 +976,8 @@ def main() -> int:
         f"{launches['tilemarch_batch']} batched of "
         f"{[a[4].shape[0] for a, _ in api_batches]} frames, {counts()}")
     assert rc == 0 and launches["tilemarch_batch"] == len(api_batches) >= 1
-    assert counts() == {"tilemarch": 0, "slicemarch": 0, "composite": 0}
+    assert counts() == {"tilemarch": 0, "slicemarch": 0, "composite": 0,
+                        "composite_pixels": 0}
     for i in range(4):
         assert os.path.exists(os.path.join(SCRATCH, f"api_orbit_{i:04d}.png")), i
     # the batched kernel against its plain version at the shapes this run
@@ -1170,29 +1184,39 @@ def main() -> int:
         torch.cuda.synchronize()
         hold("slicemarch_dense", label, pairs)
 
-    def hold_calls(name, kernel, plain, label, calls):
+    def hold_calls(name, kernel, plain, label, calls, atol=ATOL):
         """Each recorded launch of ``kernel`` against ``plain`` on the same
         arguments."""
         pairs = []
         for args, kw in calls:
             pairs += list(zip(kernel(*args, **kw), plain(*args, **kw)))
         torch.cuda.synchronize()
-        hold(name, label, pairs)
+        hold(name, label, pairs, atol)
+
+    @contextlib.contextmanager
+    def recorded_folds():
+        """Record every fold (pixel-mode composite) call: directsend's own
+        and those through ``compositor._composite_sorted_runs``."""
+        with recorded(ds, "comp", "composite_pixels") as direct, \
+                recorded(compositor, "comp", "composite_pixels") as via_runs:
+            calls = []
+            yield calls
+        calls += direct + via_runs
 
     def sharded_run(render):
         """One counted run of a sharded frame with every kernel-4,
-        tile-march and composite launch recorded: (result, wall s, counts,
+        tile-march and fold launch recorded: (result, wall s, counts,
         kernel-4 launches, {name: recorded calls})."""
         reset_counts()
         t0 = time.perf_counter()
         with recorded(ds, "sm", "slicemarch_render") as dense_rec, \
                 recorded(ds, "tm", "tilemarch_render") as tile_rec, \
-                recorded(compositor, "comp", "composite_tiles") as comp_rec:
+                recorded_folds() as fold_rec:
             out = render()
         torch.cuda.synchronize()
         return (out, time.perf_counter() - t0, counts(), dense_fn.launches,
                 {"slicemarch_dense": dense_rec, "tilemarch": tile_rec,
-                 "composite": comp_rec})
+                 "composite_pixels": fold_rec})
 
     def replay_sharded(label, rec):
         """Every recorded launch of a sharded run against its plain version."""
@@ -1203,14 +1227,18 @@ def main() -> int:
             hold_calls("tilemarch", tm.tilemarch_render, tm.tilemarch_reference,
                        f"{label}: {len(rec['tilemarch'])} tile-march launches "
                        "replayed", rec["tilemarch"])
-        hold_calls("composite", comp.composite_tiles, comp.composite_reference,
-                   f"{label}: {len(rec['composite'])} composite launches "
-                   f"replayed ({[a[0].shape[:2] for a, _ in rec['composite']]} "
-                   "layers x tiles)", rec["composite"])
+        folds = rec["composite_pixels"]
+        hold_calls("composite_pixels",
+                   lambda *a: [comp.composite_pixels(*a)],
+                   lambda *a: [comp.composite_pixels_reference(*a)],
+                   f"{label}: {len(folds)} fold launches replayed "
+                   f"({[tuple(a[0].shape[:2]) for a, _ in folds]} layers x "
+                   "pixels)", folds, atol=0.0)
 
-    # composite launches of one sharded frame over 8 shards: the local fold
-    # of each shard's depth run, then the fold of the exchanged partials
-    # (depth) or of the exchanged layers (layered)
+    # fold (pixel-mode composite) launches of one sharded frame over 8
+    # shards: the local fold of each shard's depth run, then the fold of the
+    # exchanged partials (depth) or of the exchanged layers (layered); no
+    # tile-mode launch
     fold_launches = {"depth": 16, "layered": 8}
 
     # phase 14: kernel 4 vs plain on the card, one launch per shard
@@ -1248,8 +1276,8 @@ def main() -> int:
             f"{dense_n}, {got}")
         assert same and diff <= ATOL, row
         assert dense_n == 8 and got == {
-            "tilemarch": 0, "slicemarch": 0,
-            "composite": fold_launches[opts["multichip_pipeline"]]}, got
+            "tilemarch": 0, "slicemarch": 0, "composite": 0,
+            "composite_pixels": fold_launches[opts["multichip_pipeline"]]}, got
         replay_sharded(f"phase 15: {row}", rec)
 
     @contextlib.contextmanager
@@ -1301,14 +1329,15 @@ def main() -> int:
             "", params, geometry3, verbose=False, device=dev))
         if (pipeline, transport) == ("depth", "float32"):
             launches["slicemarch_dense"] = dense_n
+            launches["composite_pixels"] = got["composite_pixels"]
         d_rgba = float(np.abs(image.pixels[:, :4] - one_device.pixels[:, :4]).max())
         log(f"phase 16: render_scene(devices=8) 3-level 1024x1024 {pipeline}/"
             f"{transport}: {wall:.3f} s wall, launches kernel 4 {dense_n} "
             f"({[a[0].shape[0] for a, _ in rec['slicemarch_dense']]} slots each), "
             f"{got}; vs one device: colour max |diff| {d_rgba:.3g}")
         assert dense_n == 8 == len(rec["slicemarch_dense"])
-        assert got == {"tilemarch": 0, "slicemarch": 0,
-                       "composite": fold_launches[pipeline]}, got
+        assert got == {"tilemarch": 0, "slicemarch": 0, "composite": 0,
+                       "composite_pixels": fold_launches[pipeline]}, got
         if transport == "float32":
             near_one_device(f"phase 16: {pipeline}/{transport}", lambda: render_scene(
                 "", params, geometry3, verbose=False, device=dev)[0].pixels,
@@ -1328,7 +1357,8 @@ def main() -> int:
         f"{wall:.3f} s wall, launches {got}, kernel 4 {dense_n}; tile-march "
         f"launches on {[a[0].shape[0] for a, _ in rec['tilemarch']]} slots and "
         f"{[a[6].shape[0] for a, _ in rec['tilemarch']]} items")
-    assert rc == 0 and got == {"tilemarch": 8, "slicemarch": 0, "composite": 8}, got
+    assert rc == 0 and got == {"tilemarch": 8, "slicemarch": 0, "composite": 0,
+                               "composite_pixels": 8}, got
     assert dense_n == 0 and len(rec["tilemarch"]) == 8
     replay_sharded("phase 17: render(plotfile, devices=8)", rec)
     del rec
@@ -1369,7 +1399,8 @@ def main() -> int:
         f"launches {dense_fn.launches}, {counts()}, peak device memory {peak:.3f} "
         f"GiB, alpha > 0 on {covered:.4f}")
     assert dense_fn.launches == 8 and counts() == {
-        "tilemarch": 0, "slicemarch": 0, "composite": fold_launches["depth"]}
+        "tilemarch": 0, "slicemarch": 0, "composite": 0,
+        "composite_pixels": fold_launches["depth"]}
     assert ALPHA_FRACTION[0] <= covered <= ALPHA_FRACTION[1], covered
     one_aa, _ = render_scene("", RenderParameters(width=2048, height=2048,
                                                   antialiasing=4),
@@ -1417,6 +1448,45 @@ def main() -> int:
         f"{nbytes} bytes); kernel at "
         f"{bounds_ms['slicemarch_dense'][0] / min(per_frame):.4f} of its bound")
     del tables19, shards19
+
+    # each fold launch of a sharded frame timed alone (the pixel-mode
+    # composite), against its byte bound: each of its L layers read once
+    # and the frame written once, (L + 1) * P * 20 bytes
+    fold_rows = {}
+    for num in (2, 8):
+        for pipeline in ("depth", "layered"):
+            with recorded_folds() as folds:
+                rf.render_composited_sharded(
+                    geometry3, RenderParameters(width=1024, height=1024), cams[0],
+                    srange3, rsd3, 1024, 1024, None, num, pipeline=pipeline,
+                    device=dev)
+            torch.cuda.synchronize()
+            rows = []
+            for args, _ in folds:
+                n_l, n_p = args[0].shape[:2]
+                ms = min(event_ms(lambda a=args: comp.composite_pixels(*a))
+                         for _ in range(3))
+                plain = event_ms(lambda a=args: comp.composite_pixels_reference(*a))
+                rows.append((n_l, n_p, ms, plain, (n_l + 1) * n_p * 20,
+                             n_l * n_p * BLEND_FLOPS))
+            fold_rows[(num, pipeline)] = rows
+            log(f"phase 19: {smi}: fold launches of one D={num} {pipeline} frame, "
+                "each timed alone (layers x pixels: kernel ms, plain ms, byte "
+                "bound ms, share of the bound, SASS issue bound ms): " + "; ".join(
+                    f"{n_l}x{n_p}: {ms:.4f}, {plain:.4f}, "
+                    f"{bound(nb, nf)[0]:.5f}, {bound(nb, nf)[0] / ms:.3f}, "
+                    f"{issue_ms(n_l * n_p, 'fold_pixel'):.5f}"
+                    for n_l, n_p, ms, plain, nb, nf in rows))
+    rows8 = fold_rows[(8, "depth")]
+    times["composite_pixels"] = (sum(r[2] for r in rows8), sum(r[3] for r in rows8))
+    bounds_ms["composite_pixels"] = bound(sum(r[4] for r in rows8),
+                                          sum(r[5] for r in rows8))
+    log(f"phase 19: fold launches of one D=8 depth frame: {len(rows8)} launches, "
+        f"{times['composite_pixels'][0]:.4f} ms in all, bound "
+        f"{bounds_ms['composite_pixels'][0]:.5f} ms "
+        f"({bounds_ms['composite_pixels'][1]}), kernel at "
+        f"{bounds_ms['composite_pixels'][0] / times['composite_pixels'][0]:.4f} "
+        "of its bound")
 
     def sharded_split(camera, num, pipeline):
         """Host wall split of one sharded frame (depth or layered pipeline,
@@ -1535,6 +1605,8 @@ def main() -> int:
         "tilemarch": ("ops/csrc/tilemarch.cu", "amrvolumerenderer_tpu/ops/tilemarch.py:819"),
         "slicemarch": ("ops/csrc/slicemarch.cu", "amrvolumerenderer_tpu/ops/slicemarch.py:750"),
         "composite": ("ops/csrc/composite.cu", "amrvolumerenderer_tpu/ops/composite.py:114"),
+        "composite_pixels": ("ops/csrc/composite.cu",
+                             "amrvolumerenderer_tpu/compositor.py:81"),
         "tilemarch_batch": ("ops/csrc/tilemarch.cu",
                             "amrvolumerenderer_tpu/ops/tilemarch.py:711"),
         "tilemarch_batch_bf16": ("ops/csrc/tilemarch.cu",

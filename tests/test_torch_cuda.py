@@ -1,8 +1,8 @@
 """The port's CUDA kernels on the card: tile-march (one frame and batched,
-float32 and bfloat16 volumes), slice-march (work list and dense), the tile
-composite, and the multi-device route over 8 shards of one card against
-the same route on the CPU (marked ``cuda``; every test skips itself when
-``torch.cuda.is_available()`` is false).
+float32 and bfloat16 volumes), slice-march (work list and dense), the
+composite (tile and pixel modes), and the multi-device route over 8
+shards of one card against the same route on the CPU (marked ``cuda``;
+every test skips itself when ``torch.cuda.is_available()`` is false).
 
 This file imports neither jax nor the tests' conftest (which does), so it
 runs on a machine that has only PyTorch:
@@ -223,6 +223,101 @@ def test_composite_kernel_matches_plain(cuda, num_layers):
     assert_close(kd, pd)
 
 
+def composite_case(num_layers, seed, tiles=6):
+    """Tile-mode inputs with the cases the kernel's compaction must keep:
+    tile 0 has no covered layer, tile 1 misses the first sorted layer, and
+    tile 2 holds an all-uncovered owner run between two runs of one owner
+    with tied depths.  Uncovered blocks hold NaN."""
+    rng = np.random.default_rng(seed)
+    alpha = rng.uniform(0, 1, (num_layers, tiles, 1, 8, 128))
+    colors = np.concatenate([rng.uniform(0, 1, (num_layers, tiles, 3, 8, 128))
+                             * alpha, alpha], axis=2).astype(np.float32)
+    depths = rng.choice(np.array([0.5, 1.0, 2.0, np.inf], np.float32),
+                        (num_layers, tiles, 8, 128))
+    coverage = rng.uniform(0, 1, (num_layers, tiles)) < 0.6
+    order = rng.permutation(num_layers).astype(np.int32)
+    owners = np.sort(rng.integers(0, max(num_layers // 3, 2), num_layers))
+    coverage[:, 0] = False
+    coverage[order[0], 1] = False
+    if num_layers >= 3:
+        owners[:3] = [owners[0], num_layers + 5, owners[0]]  # A, B, A
+        coverage[order[:3], 2] = [True, False, True]
+        depths[order[[0, 2]], 2] = 1.0
+    colors[~coverage] = np.nan
+    depths[~coverage] = np.nan
+    return colors, depths, order, owners.astype(np.int32), coverage
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_layers", [1, 16, 97, 200])
+def test_composite_modes_match_plain_exactly(cuda, num_layers):
+    """Both entries of composite.cu against their plain versions at max
+    |diff| 0: the tile mode on ``composite_case``, the pixel mode on a
+    ragged pixel count read through a strided view of a larger stack."""
+    args = [torch.from_numpy(a).to(cuda)
+            for a in composite_case(num_layers, num_layers)]
+    rng = np.random.default_rng(num_layers + 1)
+    pixels = 1000 + num_layers
+    alpha = rng.uniform(0, 0.9, (num_layers, pixels + 7, 1))
+    stack = torch.from_numpy(np.concatenate(
+        [rng.uniform(0, 1, (num_layers, pixels + 7, 3)) * alpha, alpha,
+         rng.choice(np.array([0.5, 1.0, 2.0, np.inf]), (num_layers, pixels + 7, 1))],
+        axis=-1).astype(np.float32)).to(cuda)
+    layers = stack[:, 3:3 + pixels]
+    order = torch.from_numpy(rng.permutation(num_layers).astype(np.int32)).to(cuda)
+    owners = torch.from_numpy(np.sort(rng.integers(0, 4, num_layers))
+                              .astype(np.int32)).to(cuda)
+    before = (comp.composite_tiles.launches, comp.composite_pixels.launches)
+    kc, kd = comp.composite_tiles(*args)
+    kp = comp.composite_pixels(layers, order, owners)
+    pc, pd = comp.composite_reference(*args)
+    pp = comp.composite_pixels_reference(layers, order, owners)
+    torch.cuda.synchronize()
+    assert (comp.composite_tiles.launches, comp.composite_pixels.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.isfinite(kc).all() and not torch.isnan(kd).any()
+    assert (kc[0] == 0).all() and torch.isinf(kd[0]).all()  # no covered layer
+    assert torch.equal(kc, pc) and torch.equal(kd, pd)
+    assert kp.shape == (pixels, 5) and torch.equal(kp, pp)
+
+
+@pytest.mark.cuda
+def test_composite_nan_depth_and_negative_zero(cuda):
+    """A covered block outside the compaction's precondition (composite.cu's
+    comment): the kernel folds the covered layers alone, grouped by run id.
+    Owners 0, 1, 1.  Layer 1 has colour -0.0, alpha 0.5 and a NaN depth;
+    tile 0 covers only layer 1, tile 1 covers layer 0 (colour and alpha
+    0.25, depth 1) and layer 1.  The plain version folds every layer, so
+    it turns -0.0 into +0.0 and keeps the NaN depth of tile 1 (ROADMAP.md
+    section 3, Differences)."""
+    colors = np.zeros((3, 2, 4, 8, 128), np.float32)
+    depths = np.ones((3, 2, 8, 128), np.float32)
+    colors[1, :, :3] = -0.0
+    colors[1, :, 3] = 0.5
+    depths[1] = np.nan
+    colors[0, 1] = 0.25
+    coverage = np.array([[False, True], [True, True], [False, False]])
+    colors[~coverage] = np.nan
+    depths[~coverage] = np.nan
+    args = [torch.from_numpy(a).to(cuda) for a in (
+        colors, depths, np.arange(3, dtype=np.int32),
+        np.array([0, 1, 1], np.int32), coverage)]
+    kc, kd = comp.composite_tiles(*args)
+    pc, pd = comp.composite_reference(*args)
+    torch.cuda.synchronize()
+    # tile 0: layer 1 as it is
+    assert (kc[0, :3] == 0).all() and torch.signbit(kc[0, :3]).all()
+    assert (kc[0, 3] == 0.5).all() and torch.isnan(kd[0]).all()
+    assert not torch.signbit(pc[0, :3]).any() and torch.isnan(pd[0]).all()
+    assert torch.equal(kc[0], pc[0])
+    # tile 1: blend(layer 0, layer 1); the NaN compares false, so layer 1 is
+    # in front: 0.25 * (1 - 0.5) + (-0.0), alpha 0.25 * 0.5 + 0.5, and
+    # fminf(1, NaN) = 1 where the plain torch.minimum gives NaN
+    assert (kc[1, :3] == 0.125).all() and (kc[1, 3] == 0.625).all()
+    assert (kd[1] == 1.0).all() and torch.isnan(pd[1]).all()
+    assert torch.equal(kc[1], pc[1])
+
+
 @pytest.mark.cuda
 def test_sentinel_steps_and_wrapper_checks(cuda):
     fsr = FastSceneRenderer(three_level_geometry(), RenderParameters(
@@ -369,8 +464,9 @@ def test_dense_kernel_matches_plain(cuda, knobs):
 def test_sharded_route_matches_cpu_route(cuda, scene, pipeline, transport):
     """``render_scene(devices=8)``: 8 shards on the card equal 8 shards on
     the CPU; one kernel launch per shard (the dense slice march, or the
-    tile march above 96 pieces) and one composite launch per shard and
-    fold (the local fold of the depth pipeline, then the exchanged one)."""
+    tile march above 96 pieces) and one pixel-mode composite launch per
+    shard and fold (the local fold of the depth pipeline, then the
+    exchanged one), no tile-mode launch."""
     geometry = (three_level_geometry() if scene == "3lvl" else
                 api.load_amr_geometry(r2_data(40, 8), 0, -1, 0, False, True,
                                       verbose=False))
@@ -378,11 +474,13 @@ def test_sharded_route_matches_cpu_route(cuda, scene, pipeline, transport):
                               multichip_pipeline=pipeline,
                               multichip_transport=transport)
     counter = sm.slicemarch_render if scene == "3lvl" else tm.tilemarch_render
-    before, folds = counter.launches, comp.composite_tiles.launches
+    before, folds = counter.launches, comp.composite_pixels.launches
+    tiles = comp.composite_tiles.launches
     gpu, _ = render_scene("", params, geometry, verbose=False, device=cuda)
     assert counter.launches == before + 8
     local_folds = 8 if (scene, pipeline) == ("3lvl", "depth") else 0
-    assert comp.composite_tiles.launches == folds + 8 + local_folds
+    assert comp.composite_pixels.launches == folds + 8 + local_folds
+    assert comp.composite_tiles.launches == tiles
     cpu, _ = render_scene("", params, geometry, verbose=False, device="cpu")
     assert (cpu.pixels[:, 3] > 0).mean() > 0.05
     assert_close(torch.from_numpy(gpu.pixels), torch.from_numpy(cpu.pixels))

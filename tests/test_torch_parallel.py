@@ -169,9 +169,10 @@ def test_composite_sorted_runs_matches_jax():
 
 @pytest.mark.parametrize("count,pixels", [(0, 40), (1, 40), (9, 2500)])
 def test_composite_sorted_runs_tile_blocks_match_jax(count, pixels):
-    """The fold goes through the tile composite in blocks of 1024 pixels:
-    a partial last block, several blocks, one layer, and no layer at all
-    (colour 0, depth +inf; JAX's loop needs a first layer)."""
+    """The fold is one pixel-mode composite call over any pixel count:
+    fewer than 1024 pixels, a count that is not a multiple of 1024, one
+    layer, and no layer at all (colour 0, depth +inf; JAX's loop needs a
+    first layer)."""
     rng = np.random.default_rng(count)
     layers = seeded_layers(rng, count, pixels)
     owners = np.sort(rng.integers(0, 3, count)).astype(np.int32)
@@ -185,6 +186,74 @@ def test_composite_sorted_runs_tile_blocks_match_jax(count, pixels):
                                             torch.from_numpy(owners))
     assert got.shape == (pixels, 5)
     assert_matches(got.numpy(), want)
+
+
+def recorded_folds(monkeypatch):
+    """Record every ``composite_pixels`` call (the folds' one entry)."""
+    from amrvolumerenderer_torch.ops import composite as comp
+
+    calls, fold = [], comp.composite_pixels
+
+    def record(layers, order, owners_sorted):
+        calls.append((layers, order, owners_sorted))
+        return fold(layers, order, owners_sorted)
+
+    monkeypatch.setattr(comp, "composite_pixels", record)
+    return calls
+
+
+def test_local_precomposite_reads_the_stack_in_place(monkeypatch):
+    """Each shard's local fold is one fold call on the shard's own layer
+    stack, here a rect slice whose layers are not adjacent in memory, with
+    the stable argsort of its hints as the order (ties and +inf padding):
+    no gathered copy, and the JAX fold of the gathered stack's pixels."""
+    calls = recorded_folds(monkeypatch)
+    num, slots = 2, 5
+    mesh = ds.make_mesh(num, "cpu")
+    rng = np.random.default_rng(23)
+    frames = torch.from_numpy(seeded_layers(rng, num * slots, 12 * 10))
+    stacks = [ds._slice_rect(frames[r * slots:(r + 1) * slots], (0, 1, 12, 9), 12, 10)
+              for r in range(num)]
+    hints = [torch.tensor([0.5, np.inf, 0.25, 0.5, 0.25], dtype=torch.float32),
+             torch.tensor([1.0, 0.75, 1.0, np.inf, np.inf], dtype=torch.float32)]
+    assert not stacks[0].is_contiguous()
+    got = ds._local_precomposite(mesh, stacks, hints)
+    assert len(calls) == num
+    for r in range(num):
+        layers, order, keys = calls[r]
+        assert layers is stacks[r] and order.dtype == torch.int32
+        want_order = np.argsort(hints[r].numpy(), kind="stable")
+        np.testing.assert_array_equal(order.numpy(), want_order)
+        want = jax_comp._composite_sorted_runs(
+            jnp.asarray(stacks[r].numpy()[want_order]), jnp.arange(slots, dtype=jnp.int32))
+        assert_matches(got[r].numpy(), want)
+
+
+@pytest.mark.parametrize("num", [2, 8])
+def test_fold_layers_indexes_the_exchanged_stack(monkeypatch, num):
+    """The layered pipeline's fold reads the exchanged [D * Lmax, P / D, 5]
+    stack through the global order (stable argsort of the gathered hints;
+    owner = sending shard), one fold call per shard, and equals the JAX
+    fold of the gathered stack."""
+    calls = recorded_folds(monkeypatch)
+    mesh = ds.make_mesh(num, "cpu")
+    rng = np.random.default_rng(29 + num)
+    layers, hints = device_layers(rng, num, 3, 16 * num)
+    layers_s, hints_s = ds.shard_leading(mesh, layers, hints)
+    received = ds._exchange(mesh, layers_s)
+    gathered_hints = ds.all_gather(mesh, hints_s)
+    got = ds._fold_layers(mesh, received, gathered_hints)
+    assert len(calls) == num
+    owners = np.repeat(np.arange(num, dtype=np.int32), 3)
+    for r in range(num):
+        stack, order, owners_sorted = calls[r]
+        assert stack.data_ptr() == received[r].data_ptr()
+        want_order = np.argsort(gathered_hints[r].numpy().reshape(-1), kind="stable")
+        np.testing.assert_array_equal(order.numpy(), want_order)
+        np.testing.assert_array_equal(owners_sorted.numpy(), owners[want_order])
+        want = jax_comp._composite_sorted_runs(
+            jnp.asarray(stack.numpy()[want_order]), jnp.asarray(owners[want_order]))
+        assert_matches(got[r].numpy(), want)
 
 
 def test_byte_decode_matches_jitted_jax():
