@@ -82,8 +82,8 @@ def render(
     renderer (frame index appended to ``output``, as the CLI's
     ``--orbit-frames``).  ``devices=N`` renders one frame over N shards
 (placed round-robin over the visible cards; the CPU with
-``device="cpu"``); orbits over several devices are not ported yet and
-raise."""
+``device="cpu"``); with ``orbit_frames`` too, the orbit renders over N
+shards through the persistent multi-device renderer."""
     import math
 
     import numpy as np

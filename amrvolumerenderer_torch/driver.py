@@ -50,9 +50,10 @@ USAGE = """Usage: volume_renderer [options] plotfile
   --output FILE    Output filename (supports .ppm or .png; default: volume-renderer.ppm)
   --device D       Torch device to render on: cuda (default) or cpu (the plain
                    PyTorch path); cuda fails when no GPU is available
-  --devices N      Render one frame over N shards (default 1), placed
-                   round-robin over the visible cards (or on the CPU with
-                   --device cpu); not with --orbit-frames yet
+  --devices N      Render over N shards (default 1), placed round-robin
+                   over the visible cards (or on the CPU with --device cpu);
+                   with --orbit-frames the orbit renders over N shards with
+                   the bricks resident (the persistent multi-device renderer)
   --render-method M  Kernel route: auto (= slicemarch), slicemarch (march +
                    tile composite kernels; scenes of more than 96 pieces go
                    to tile-march) or tilemarch; raymarch is not ported

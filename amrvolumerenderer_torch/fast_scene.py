@@ -716,6 +716,11 @@ class FastSceneRenderer(nn.Module):
         does, VolumeRenderer.cpp:1311-1314); ``output_filename`` saves a
         PPM/PNG."""
         pixels = self.render_frame(camera).cpu().numpy()
+        return self._finish_frame(pixels, camera, output_filename, overlay)
+
+    def _finish_frame(self, pixels: np.ndarray, camera: CameraParameters,
+                      output_filename: Optional[str], overlay: bool) -> np.ndarray:
+        """The shared ``render`` tail: wireframe overlay and save."""
         if overlay or output_filename:
             from .image import ImageBuffer, ImageKind
 
@@ -773,10 +778,68 @@ class FastSceneRenderer(nn.Module):
         chans = (3 if bytes_out == "rgb" else 4) if bytes_out else 5
         frame_bytes = num_out * (chans if bytes_out else 5 * 4)
         num_tiles = (self.pad_w // wl.TILE_W) * (self.pad_h // wl.TILE_H)
-        cap = max(1, min(16, max_chunk_bytes // frame_bytes))
-        cap = 1 << (cap.bit_length() - 1)  # pow2: few distinct shapes
+
+        def prep(i, camera):
+            inputs = self.frame_inputs(camera, as_numpy=True)
+            if inputs is None:  # every item culled: a cleared frame
+                return None, self._assemble(None, None, None, bytes_out).cpu().numpy()
+            return self._packed_axis, (i, inputs, self._packed_vol)
+
+        def begin_group(axis, group):
+            _meta, _dims, meta, dims = self._axis_meta_cache[axis]
+            w_pad = _pow2(max(len(inp["bricks"]) for _, inp, _ in group))
+            return group[0][2], meta, dims, w_pad
+
+        def pack(part, ctx):
+            return pack_batch_tables([inp for _, inp, _ in part], num_tiles, ctx[3])
+
+        def dispatch(tables, ctx):
+            vol, meta, dims, _w_pad = ctx
+            cams, offs, brs, ows, ibs, tids = (
+                torch.from_numpy(tables[k]).to(self.device) for k in BATCH_TABLES
+            )
+            out_c, out_d = tm.tilemarch_render_batch(
+                vol, meta, dims, self.lut, cams, offs, brs, ows, ibs, tids,
+                **self._kernel_kw(),
+            )
+            return torch.stack([
+                self._assemble(out_c[f], out_d[f], tids[f], bytes_out)
+                for f in range(len(tids))
+            ])
+
+        return self._run_chunked_batch(
+            cameras, num_out=num_out, chans=chans, bytes_out=bytes_out,
+            overlay=overlay, output_pattern=output_pattern, prep=prep,
+            begin_group=begin_group, max_frames=max_chunk_bytes // frame_bytes,
+            pack=pack, dispatch=dispatch,
+        )
+
+    def _run_chunked_batch(
+        self, cameras, *, num_out, chans, bytes_out, overlay, output_pattern,
+        prep, begin_group, max_frames, pack, dispatch, window: int = 16,
+    ) -> np.ndarray:
+        """The chunked-batch driver that ``render_batch`` of this renderer
+        and of the multi-device one share: group consecutive frames with
+        equal group keys, render power-of-two sub-chunks of at most 16 and
+        at most ``max_frames`` frames (at least one), read each chunk back
+        through a one-deep pipeline (a side-stream copy into pinned memory
+        while the next chunk renders), and return the frames in input order.
+        It keeps ``last_batch_stats`` and the overlay / save tail.
+
+        Callbacks: ``prep(i, camera) -> (group_key, item)``, or ``(None,
+        pixels)`` for a frame resolved on the host (every item culled), with
+        ``item[0]`` the frame's index; ``begin_group(group_key, group) ->
+        ctx`` (the group's device tables); ``pack(part, ctx) -> packed``
+        host packing (charged to ``host_prep_ms``); ``dispatch(packed,
+        ctx)`` the device work, returning the chunk's ``[F, num_out,
+        chans]`` frames on the device (charged to ``dispatch_ms``, with the
+        start of the copy).
+        A group is flushed at a key change and at ``window`` frames, so the
+        host preps the next window while the card renders this one."""
         out = np.empty((len(cameras), num_out, chans),
                        np.uint8 if bytes_out else np.float32)
+        cap = max(1, min(16, int(max_frames)))
+        cap = 1 << (cap.bit_length() - 1)  # pow2: few distinct shapes
         stats = {
             "frames": len(cameras), "dispatch_count": 0,
             "host_prep_ms": 0.0, "dispatch_ms": 0.0,
@@ -795,9 +858,10 @@ class FastSceneRenderer(nn.Module):
                 stats["readback_mb"] += host.nbytes / 1e6
                 stats["readback_ms"] += (time.perf_counter() - t0) * 1e3
 
-        def flush(axis, vol, group):
-            _meta, _dims, meta, dims = self._axis_meta_cache[axis]
-            w_pad = _pow2(max(len(inp["bricks"]) for _, inp in group))
+        def flush(group, key):
+            if not group:
+                return
+            ctx = begin_group(key, group)
             c0 = 0
             while c0 < len(group):
                 # largest power-of-two sub-chunk that fits
@@ -805,50 +869,36 @@ class FastSceneRenderer(nn.Module):
                 part = group[c0: c0 + size]
                 c0 += size
                 t0 = time.perf_counter()
-                tables = pack_batch_tables([inp for _, inp in part], num_tiles,
-                                           w_pad)
+                packed = pack(part, ctx)
                 stats["host_prep_ms"] += (time.perf_counter() - t0) * 1e3
                 t0 = time.perf_counter()
-                cams, offs, brs, ows, ibs, tids = (
-                    torch.from_numpy(tables[k]).to(self.device)
-                    for k in BATCH_TABLES
-                )
-                out_c, out_d = tm.tilemarch_render_batch(
-                    vol, meta, dims, self.lut, cams, offs, brs, ows, ibs, tids,
-                    **self._kernel_kw(),
-                )
-                frames = torch.stack([
-                    self._assemble(out_c[f], out_d[f], tids[f], bytes_out)
-                    for f in range(size)
-                ])
+                frames = dispatch(packed, ctx)
                 handle = self._start_readback(frames, stats["dispatch_count"] % 2)
                 stats["dispatch_ms"] += (time.perf_counter() - t0) * 1e3
                 stats["dispatch_count"] += 1
                 drain()
-                pending.append(([i for i, _ in part], handle))
+                pending.append(([item[0] for item in part], handle))
 
-        group: List = []  # consecutive same-axis frames: [(index, inputs)]
-        axis = vol = None
+        group: List = []
+        group_key = None
         for i, camera in enumerate(cameras):
             t0 = time.perf_counter()
-            inputs = self.frame_inputs(camera, as_numpy=True)
-            if inputs is None:  # every item culled: a cleared frame
-                out[i] = self._assemble(None, None, None, bytes_out).cpu().numpy()
+            key, item = prep(i, camera)
             stats["host_prep_ms"] += (time.perf_counter() - t0) * 1e3
-            if inputs is None:
+            if key is None:  # resolved on the host
+                out[i] = item
                 continue
-            if group and self._packed_axis != axis:
-                flush(axis, vol, group)
+            if group and key != group_key:
+                flush(group, group_key)
                 group = []
-            axis, vol = self._packed_axis, self._packed_vol
-            group.append((i, inputs))
+            group_key = key
+            group.append(item)
             # flush full windows eagerly, so the host preps the next
-            # window's work lists while the card renders this one
-            if len(group) >= 16:
-                flush(axis, vol, group)
+            # window's frames while the card renders this one
+            if len(group) >= window:
+                flush(group, group_key)
                 group = []
-        if group:
-            flush(axis, vol, group)
+        flush(group, group_key)
         drain()
 
         stats["total_ms"] = (time.perf_counter() - batch_t0) * 1e3

@@ -44,7 +44,9 @@ _SIGNATURES = {
     "slicemarch": {"avr_slicemarch_launch":
                    [_P] * 11 + [_I] * 7 + [_F, _F, _I, _I, _I, _P]},
     "composite": {"avr_composite_launch": [_P] * 7 + [_I, _I, _P],
-                  "avr_composite_pixels_launch": [_P] * 4 + [_I, _I, _L, _P]},
+                  "avr_composite_pixels_launch": [_P] * 4 + [_I, _I, _L, _P],
+                  "avr_composite_runs_launch":
+                  [_P] * 4 + [_I, _I, _I, _L, _I, _I, _P]},
 }
 KERNELS = tuple(_SIGNATURES)
 

@@ -23,6 +23,13 @@ Two entries of one CUDA source, ``csrc/composite.cu``:
   the sharded pipelines hold them, any ``P``, visited through an ``order``
   index, every layer covered.  ``composite_pixels_reference`` is its plain
   twin.
+* ``composite_runs`` (runs mode): the run pre-blend of the persistent
+  multi-device renderer (the JAX package's XLA loop
+  ``parallel/directsend.py::_preblend_runs_scan``).  It folds pixel-major
+  layers in a step order into ``[rmax, P, 5]`` run buffers: a step whose
+  run slot equals the previous step's extends the open run, any other
+  closes it into its slot and starts a new one.
+  ``composite_runs_reference`` is its plain twin.
 
 Each wrapper launches its kernel for CUDA tensors and runs the plain
 version for CPU tensors.
@@ -30,7 +37,7 @@ version for CPU tensors.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -150,12 +157,13 @@ def composite_tiles_hbm(
 
 def composite_pixels_reference(
     layers: Tensor,  # [L, P, 5] f32 pixel-major layers (r, g, b, a, depth)
-    order: Tensor,  # [L] int blend order (front first), an index into layers
-    owners_sorted: Tensor,  # [L] owner of layers[order[i]]
+    order: Tensor,  # [K] int blend order (front first), an index into layers
+    owners_sorted: Tensor,  # [K] owner of layers[order[i]]
 ) -> Tensor:
     """The pixel-mode fold in plain PyTorch, vectorised over pixels; the
-    Python loop runs over the layers in order.  Returns ``[P, 5]``; no
-    layer gives background (colour 0, depth +inf)."""
+    Python loop runs over the layers in order (``order`` may name a subset
+    of the layers).  Returns ``[P, 5]``; no layer gives background (colour
+    0, depth +inf)."""
     num_pixels = layers.shape[1]
     zero = torch.zeros(num_pixels, dtype=torch.float32, device=layers.device)
     run_c, run_d = [zero] * 4, zero + float("inf")
@@ -194,15 +202,16 @@ def composite_pixels(layers: Tensor, order: Tensor, owners_sorted: Tensor) -> Te
     if layers.device.type != "cuda":
         raise ValueError(f"composite_pixels has no kernel for {layers.device}")
     dev = layers.device
-    num_layers, num_pixels = layers.shape[0], layers.shape[1]
+    num_pixels = layers.shape[1]
     # any stride between layers, so a sliced frame stack is read in place
     if (layers.dtype != torch.float32 or layers.dim() != 3
             or layers.shape[2] != 5 or layers.stride()[1:] != (5, 1)):
         raise ValueError("layers must be a float32 [L, P, 5] tensor whose "
                          f"layers are dense, got {layers.dtype} "
                          f"{tuple(layers.shape)} strides {layers.stride()}")
-    require(order, "order", torch.int32, (num_layers,), dev)
-    require(owners_sorted, "owners_sorted", torch.int32, (num_layers,), dev)
+    num_steps = order.shape[0] if order.dim() == 1 else -1
+    require(order, "order", torch.int32, (num_steps,), dev)
+    require(owners_sorted, "owners_sorted", torch.int32, (num_steps,), dev)
     out = torch.empty((num_pixels, 5), dtype=torch.float32, device=dev)
     if num_pixels == 0:
         return out
@@ -211,7 +220,7 @@ def composite_pixels(layers: Tensor, order: Tensor, owners_sorted: Tensor) -> Te
     lib = _build.load("composite")
     rc = lib.avr_composite_pixels_launch(
         layers.data_ptr(), order.data_ptr(), owners_sorted.data_ptr(),
-        out.data_ptr(), num_layers, num_pixels,
+        out.data_ptr(), num_steps, num_pixels,
         layers.stride(0),
         torch.cuda.current_stream(dev).cuda_stream,
     )
@@ -222,3 +231,110 @@ def composite_pixels(layers: Tensor, order: Tensor, owners_sorted: Tensor) -> Te
 
 
 composite_pixels.launches = 0
+
+# the runs mode marks its touched slots in shared memory, a byte a slot
+MAX_RUN_SLOTS = 16384
+
+
+def _identity_runs(rmax: int, num_pixels: int, device) -> Tensor:
+    out = torch.zeros((rmax, num_pixels, 5), dtype=torch.float32, device=device)
+    out[..., 4] = float("inf")
+    return out
+
+
+def composite_runs_reference(
+    layers: Tensor,  # [L, P, 5] f32 pixel-major layers (r, g, b, a, depth)
+    local_order: Tensor,  # [L] int: the layer each step folds
+    run_slot: Tensor,  # [L] int in [0, rmax): the run buffer each step writes
+    rmax: int,
+    out: Optional[Tensor] = None,
+    carry: bool = False,
+) -> Tensor:
+    """The runs-mode fold in plain PyTorch, written as the JAX loop is:
+    step i takes layer ``local_order[i]``; when ``run_slot[i]`` equals the
+    previous step's slot it blends onto the open run (the run on top),
+    otherwise the open run is stored in its slot and the layer starts the
+    next one.  The last run is stored at the end.
+
+    ``out`` None starts from identity buffers (colour 0, depth +inf), which
+    untouched slots keep; a given ``out`` is written in place.  ``carry``
+    makes step 0 extend the run already stored in ``out[run_slot[0]]`` (a
+    chunk that continues the previous chunk's run).  Returns ``out``."""
+    num_pixels = layers.shape[1]
+    if out is None:
+        out = _identity_runs(rmax, num_pixels, layers.device)
+    run_c = run_d = None
+    prev = 0
+    for i, (j, slot) in enumerate(zip(local_order.tolist(), run_slot.tolist())):
+        lc = [layers[j, :, ch] for ch in range(4)]
+        ld = layers[j, :, 4]
+        if (i > 0 and slot == prev) or (i == 0 and carry):
+            if i == 0:
+                run_c = [out[slot, :, ch] for ch in range(4)]
+                run_d = out[slot, :, 4]
+            run_c, run_d = blend(run_c, run_d, lc, ld)
+        else:
+            if i > 0:
+                out[prev] = torch.stack(run_c + [run_d], dim=-1)
+            run_c, run_d = lc, ld
+        prev = slot
+    if run_c is not None:
+        out[prev] = torch.stack(run_c + [run_d], dim=-1)
+    return out
+
+
+def composite_runs(
+    layers: Tensor,
+    local_order: Tensor,
+    run_slot: Tensor,
+    rmax: int,
+    out: Optional[Tensor] = None,
+    carry: bool = False,
+) -> Tensor:
+    """Fold pixel-major layers into ``[rmax, P, 5]`` run buffers; arguments
+    and result as ``composite_runs_reference``.  On the card
+    ``local_order`` and ``run_slot`` are int32 and ``out`` a contiguous
+    float32 ``[rmax, P, 5]``.
+
+    A CUDA ``layers`` launches the runs mode of the CUDA kernel on the
+    current stream, one launch (a failed build or launch raises); a CPU one
+    runs the plain version.  ``composite_runs.launches`` counts kernel
+    launches."""
+    if layers.device.type == "cpu":
+        return composite_runs_reference(layers, local_order, run_slot, rmax,
+                                        out, carry)
+    if layers.device.type != "cuda":
+        raise ValueError(f"composite_runs has no kernel for {layers.device}")
+    dev = layers.device
+    num_layers, num_pixels = layers.shape[0], layers.shape[1]
+    if (layers.dtype != torch.float32 or layers.dim() != 3
+            or layers.shape[2] != 5 or layers.stride()[1:] != (5, 1)):
+        raise ValueError("layers must be a float32 [L, P, 5] tensor whose "
+                         f"layers are dense, got {layers.dtype} "
+                         f"{tuple(layers.shape)} strides {layers.stride()}")
+    if not 0 < rmax <= MAX_RUN_SLOTS:
+        raise ValueError(f"rmax {rmax} outside (0, {MAX_RUN_SLOTS}]")
+    require(local_order, "local_order", torch.int32, (num_layers,), dev)
+    require(run_slot, "run_slot", torch.int32, (num_layers,), dev)
+    fill = out is None
+    if fill:
+        out = torch.empty((rmax, num_pixels, 5), dtype=torch.float32, device=dev)
+    else:
+        require(out, "out", torch.float32, (rmax, num_pixels, 5), dev)
+    if num_pixels == 0:
+        return out
+    from . import _build
+
+    lib = _build.load("composite")
+    rc = lib.avr_composite_runs_launch(
+        layers.data_ptr(), local_order.data_ptr(), run_slot.data_ptr(),
+        out.data_ptr(), num_layers, num_pixels, rmax, layers.stride(0),
+        int(carry), int(fill), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"composite_runs kernel launch failed: CUDA error {rc}")
+    composite_runs.launches += 1
+    return out
+
+
+composite_runs.launches = 0

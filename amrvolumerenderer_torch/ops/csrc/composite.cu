@@ -1,10 +1,12 @@
-// The run-grouped depth-sort fold of composeLayered, in two entries.
+// The run-grouped depth-sort fold of composeLayered, in three entries.
 //
 // Replaces the TPU kernels amrvolumerenderer_tpu/ops/composite.py::_kernel
 // (composite_tiles, up to 96 layers in VMEM) and ::_kernel_hbm
 // (composite_tiles_hbm, layers streamed by DMA past that) with the tile
-// mode, and the JAX package's XLA fold compositor.py::_composite_sorted_runs
-// (the sharded folds) with the pixel mode.  Both fold the layers in sorted
+// mode, the JAX package's XLA fold compositor.py::_composite_sorted_runs
+// (the sharded folds) with the pixel mode, and its XLA loop
+// parallel/directsend.py::_preblend_runs_scan (the persistent renderer's
+// run pre-blend) with the runs mode.  Both fold the layers in sorted
 // order: same-owner runs blend first, then the runs into the total, with
 // the depth-sort blend (ties keep the top; march.cuh::blend, whose FMA
 // sites are the JAX fold's).
@@ -34,6 +36,17 @@
 //     same-owner flags are staged in shared memory per chunk of 256
 //     layers.  The layer order is an index, so a caller never gathers the
 //     stack.
+//   * Runs mode (the pixel mode's layout, loop and ring): instead of
+//     closing a run into a running total it stores the run in its slot of
+//     [rmax, P, 5], through a per-warp staging row so that the store is
+//     coalesced like the loads.  Each step's slot and whether it extends
+//     the open run are staged with the order.  A run starts from its first
+//     layer, never from a zero accumulator, so -0.0 and NaN depths come out
+//     as the JAX loop gives them.  With `fill` the block marks the slots
+//     its steps touch (a byte a slot, dynamic shared memory) and writes the
+//     identity (colour 0, depth +inf) into the others; with `carry` step 0
+//     extends the run already stored in its slot, so a stack folded in
+//     chunks gives the same chain of blends as one launch.
 //
 // The tile mode's compaction, and when it is exact.  The fold is not
 // associative in depth ties: owners A1, B, A2, A3 in sorted order fold as
@@ -290,6 +303,103 @@ __global__ void __launch_bounds__(kFoldThreads) composite_pixels_kernel(
   for (int j = lane; j < valid; j += 32) out[p0 * 5 + j] = ring[j];
 }
 
+__global__ void __launch_bounds__(kFoldThreads) composite_runs_kernel(
+    const float* layers, const int* order, const int* slots, float* out,
+    int num_layers, int num_pixels, int rmax, int64_t layer_stride, int carry,
+    int fill) {
+  extern __shared__ unsigned char s_touched[];  // [rmax] with fill
+  __shared__ int s_layer[kFoldThreads];
+  __shared__ int s_slot[kFoldThreads];
+  __shared__ unsigned char s_same[kFoldThreads];  // extends the open run
+  __shared__ float s_ring[kFoldWarps][kFoldStages * kWarpFloats];
+  __shared__ float s_row[kFoldWarps][kWarpFloats];  // coalesced run stores
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t p0 =
+      static_cast<int64_t>(blockIdx.x) * kFoldThreads + warp * 32;
+  const int64_t left = num_pixels - p0;
+  const int valid =
+      static_cast<int>(left < 0 ? 0 : (left < 32 ? left : 32)) * 5;
+  const int64_t slot_floats = static_cast<int64_t>(num_pixels) * 5;
+  float* ring = s_ring[warp];
+  float* row = s_row[warp];
+  auto issue = [&](int k) {  // the warp copies layer k's pixels, coalesced
+    float* dst = ring + (k % kFoldStages) * kWarpFloats;
+    const float* src = layers + s_layer[k] * layer_stride + p0 * 5;
+    for (int j = lane; j < valid; j += 32) cp_async4(dst + j, src + j);
+  };
+  auto store = [&](int slot, const Layer& v) {  // the warp's pixels of a run
+    float* mine = row + lane * 5;
+    mine[0] = v.r;
+    mine[1] = v.g;
+    mine[2] = v.b;
+    mine[3] = v.a;
+    mine[4] = v.d;
+    __syncwarp();
+    float* dst = out + slot * slot_floats + p0 * 5;
+    for (int j = lane; j < valid; j += 32) dst[j] = row[j];
+    __syncwarp();
+  };
+  if (fill) {
+    for (int s = threadIdx.x; s < rmax; s += kFoldThreads) s_touched[s] = 0;
+    __syncthreads();
+    for (int i = threadIdx.x; i < num_layers; i += kFoldThreads)
+      s_touched[slots[i]] = 1;
+    __syncthreads();
+  }
+  Layer run = empty_layer();
+  int prev_slot = 0;
+  for (int c0 = 0; c0 < num_layers; c0 += kFoldThreads) {
+    const int count = min(kFoldThreads, num_layers - c0);
+    if (threadIdx.x < count) {
+      const int pos = c0 + threadIdx.x;
+      const int slot = slots[pos];
+      s_layer[threadIdx.x] = order[pos];
+      s_slot[threadIdx.x] = slot;
+      s_same[threadIdx.x] = pos > 0 ? slot == slots[pos - 1] : carry != 0;
+    }
+    __syncthreads();
+    for (int k = 0; k < kFoldStages - 1; ++k) {
+      if (k < count) issue(k);
+      cp_async_commit();
+    }
+    for (int k = 0; k < count; ++k) {
+      __syncwarp();  // every lane has read the slot this step refills
+      if (k + kFoldStages - 1 < count) issue(k + kFoldStages - 1);
+      cp_async_commit();
+      cp_async_wait<kFoldStages - 1>();  // this lane's copies of layer k
+      __syncwarp();                      // and every other lane's
+      const float* v = ring + (k % kFoldStages) * kWarpFloats + lane * 5;
+      const Layer cur{v[0], v[1], v[2], v[3], v[4]};
+      const int slot = s_slot[k];
+      if (s_same[k]) {
+        if (c0 + k == 0) {  // carry: the run stored by an earlier launch
+          const float* src = out + slot * slot_floats + p0 * 5;
+          for (int j = lane; j < valid; j += 32) row[j] = src[j];
+          __syncwarp();
+          const float* mine = row + lane * 5;
+          run = Layer{mine[0], mine[1], mine[2], mine[3], mine[4]};
+          __syncwarp();
+        }
+        run = blend(run, cur);
+      } else {
+        if (c0 + k > 0) store(prev_slot, run);  // close the open run
+        run = cur;
+      }
+      prev_slot = slot;
+    }
+    __syncthreads();  // the next chunk reuses s_layer, s_slot and s_same
+  }
+  if (num_layers > 0) store(prev_slot, run);
+  if (fill) {
+    for (int s = 0; s < rmax; ++s) {
+      if (s_touched[s]) continue;
+      float* dst = out + s * slot_floats + p0 * 5;
+      for (int j = lane; j < valid; j += 32)
+        dst[j] = j % 5 == 4 ? INFINITY : 0.0f;
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" int avr_composite_launch(const void* colors, const void* depths,
@@ -320,5 +430,20 @@ extern "C" int avr_composite_pixels_launch(const void* layers,
       static_cast<const float*>(layers), static_cast<const int*>(order),
       static_cast<const int*>(owners), static_cast<float*>(out), num_layers,
       num_pixels, static_cast<int64_t>(layer_stride));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int avr_composite_runs_launch(const void* layers, const void* order,
+                                         const void* slots, void* out,
+                                         int num_layers, int num_pixels,
+                                         int rmax, long long layer_stride,
+                                         int carry, int fill, void* stream) {
+  if (num_pixels <= 0) return 0;
+  const int blocks = (num_pixels + kFoldThreads - 1) / kFoldThreads;
+  composite_runs_kernel<<<blocks, kFoldThreads, fill ? rmax : 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(layers), static_cast<const int*>(order),
+      static_cast<const int*>(slots), static_cast<float*>(out), num_layers,
+      num_pixels, rmax, static_cast<int64_t>(layer_stride), carry, fill);
   return static_cast<int>(cudaGetLastError());
 }

@@ -22,6 +22,10 @@ process, the counterpart of JAX's single-controller ``shard_map``.
   owner, local index) order with the pixel mode of the composite kernel
   (``ops.composite.composite_pixels``), one launch per fold, reading the
   layers through the sort's index.
+* The run pre-blend (``preblend_plan``, ``_compose_shards_preblend``)
+  folds each shard's same-shard runs of the global order first (the
+  composite kernel's runs mode, ``ops.composite.composite_runs``) and
+  exchanges runs, not layers.
 
 Functions that take a shard's tensors take its device from the mesh;
 none defaults to the CPU.  Results are lists of per-shard pixel shards
@@ -208,6 +212,161 @@ def composite_layers_sharded(
     if layers_s[0].shape[1] % mesh.size:
         raise ValueError("pixel count is not divisible by the mesh size")
     return _compose_shards(mesh, layers_s, hints_s, transport)
+
+
+# ---------------------------------------------------------------------------
+# Local run pre-blend before the layered exchange.
+#
+# The reference's composeLayered pre-blends each same-owner run locally and
+# exchanges one flat frame per run: traffic O(runs x pixels), not
+# O(layers x pixels) (DirectSendBase.cpp:400-446, pre-blend at 418-425).
+# The host cuts the global (hint, owner, local) order into maximal
+# same-shard runs (``preblend_plan``); each shard folds its runs with the
+# same left-associative blends the post-exchange fold would have made
+# (``ops.composite.composite_runs``), ships [rmax] run layers instead of
+# [Lmax] raw layers, and the receiving fold blends the runs in global run
+# order.  The fold tree is unchanged, so the frame equals
+# ``_compose_shards``'s bit for bit.
+# ---------------------------------------------------------------------------
+
+
+def preblend_plan(slot_hints: np.ndarray, rmax_bucket: int = 4,
+                  rmax: Optional[int] = None):
+    """Host-side run decomposition of the global layer order.
+
+    ``slot_hints`` is the [D, Lmax] per-shard depth-hint table (+inf on
+    invalid slots).  Returns ``(local_order, run_slot, perm, rmax)``:
+
+    * ``local_order[d, j]``: which local layer shard d folds at step j (its
+      layers in the global order);
+    * ``run_slot[d, j]``: the shard-local run buffer that step writes;
+    * ``perm[g]``: flattened ``(shard * rmax + slot)`` of the g-th run in
+      the global depth order (padding slots follow, blending as identity);
+    * ``rmax``: run-buffer depth, rounded up to a multiple of
+      ``rmax_bucket``.
+
+    A given ``rmax`` forces that buffer depth (a batch chunk's frames share
+    one); it must cover the frame's run count."""
+    slot_hints = np.asarray(slot_hints)
+    num_devices, lmax = slot_hints.shape
+    owner = np.repeat(np.arange(num_devices), lmax)
+    local = np.tile(np.arange(lmax), num_devices)
+    flat = slot_hints.reshape(-1)
+    order = np.lexsort((local, owner, flat))
+    seq_owner = order // lmax
+    # invalid (+inf) slots sort to the tail and blend as identities: they
+    # join their shard's last valid run rather than each forming a run.
+    # "Valid" is "sorts before the +inf tail": -inf is a legitimate front
+    # hint at the head, and NaN lexsorts last and compares false
+    num_valid = int((flat[order] < np.inf).sum())
+    vo = seq_owner[:num_valid]
+    run_break = np.ones(num_valid, bool)
+    run_break[1:] = vo[1:] != vo[:-1]
+    run_gid = np.cumsum(run_break) - 1  # valid-run id per sorted position
+    run_owner = vo[run_break]  # [R] owner of each valid run, global order
+    num_runs = len(run_owner)
+    # shard-local slot of each run = its occurrence index within its owner
+    by_owner = np.argsort(run_owner, kind="stable")
+    sorted_owner = run_owner[by_owner]
+    occ = np.arange(num_runs) - np.searchsorted(sorted_owner, sorted_owner)
+    slot_of_run = np.empty(num_runs, np.int64)
+    slot_of_run[by_owner] = occ
+    counts = np.bincount(run_owner, minlength=num_devices)
+    need = max(int(counts.max()) if num_runs else 1, 1)
+    if rmax is None:
+        rmax = -(-need // rmax_bucket) * rmax_bucket
+    elif rmax < need:
+        raise ValueError(f"forced rmax={rmax} < required run depth {need}")
+    # per-shard step tables: each shard owns exactly lmax sorted positions
+    # (its valid ones first), so a stable owner sort groups them in order
+    slot_flat = np.full(len(order), -1, np.int64)
+    slot_flat[:num_valid] = slot_of_run[run_gid]
+    grouped = np.argsort(seq_owner, kind="stable").reshape(num_devices, lmax)
+    local_order = local[order][grouped].astype(np.int32)
+    slot_mat = slot_flat[grouped]
+    n_valid_d = (slot_mat >= 0).sum(axis=1)
+    last_valid = np.where(
+        n_valid_d > 0,
+        slot_mat[np.arange(num_devices), np.maximum(n_valid_d - 1, 0)],
+        0,
+    )
+    run_slot = np.where(slot_mat >= 0, slot_mat,
+                        last_valid[:, None]).astype(np.int32)
+    # global run order -> flattened (shard, slot); padding slots trail
+    perm = np.empty(num_devices * rmax, np.int64)
+    perm[:num_runs] = run_owner * rmax + slot_of_run
+    used = np.zeros(num_devices * rmax, bool)
+    used[perm[:num_runs]] = True
+    perm[num_runs:] = np.flatnonzero(~used)
+    return local_order, run_slot, perm.astype(np.int32), int(rmax)
+
+
+def _preblend_runs(layers: Tensor, local_order, run_slot, rmax: int) -> Tensor:
+    """One shard's [rmax, P, 5] pre-blended run buffers of its [Lmax, P, 5]
+    layers (cleared where invalid), folded in ``local_order`` into
+    ``run_slot`` (one ``composite_runs`` launch on a CUDA tensor)."""
+    dev = layers.device
+    return comp.composite_runs(
+        layers, _as_tensor(local_order).to(dev, torch.int32),
+        _as_tensor(run_slot).to(dev, torch.int32), rmax)
+
+
+def _fold_runs(mesh: Mesh, received: Shards, perm) -> Shards:
+    """Each shard's fold of the exchanged runs of its pixel shard
+    (``received[r]`` is [D, rmax, P / D, 5]) in the global run order
+    ``perm``: every run its own group (owners ``arange(D * rmax)``), so the
+    fold is the left-associative chain of the non-pre-blended path."""
+    out = []
+    perm = _as_tensor(perm)
+    for r, dev in enumerate(mesh.devices):
+        with _on(dev):
+            num, rmax = received[r].shape[:2]
+            all_runs = received[r].reshape(num * rmax, -1, received[r].shape[-1])
+            out.append(comp.composite_pixels(
+                all_runs, perm.to(dev, torch.int32),
+                torch.arange(num * rmax, dtype=torch.int32, device=dev)))
+    return out
+
+
+def _exchange_and_fold_runs(mesh: Mesh, runs: Shards, perm,
+                            transport: str = "float32") -> Shards:
+    """Exchange every shard's [rmax, P, 5] run layers and fold them in the
+    global run order; ``transport="ubyte"`` quantises each run."""
+    return _fold_runs(mesh, _exchange(mesh, runs, transport), perm)
+
+
+def _compose_shards_preblend(mesh: Mesh, layers: Shards, local_order,
+                             run_slot, perm, rmax: int,
+                             transport: str = "float32") -> Shards:
+    """``_compose_shards`` with the run pre-blend: each shard folds its
+    layers into runs, O(runs) layers cross the mesh, and each pixel shard
+    folds the runs in global order; the same frame bit for bit (float32).
+    ``local_order`` / ``run_slot`` are ``preblend_plan``'s [D, Lmax]."""
+    runs = [_preblend_runs(layers[r], local_order[r], run_slot[r], rmax)
+            for r in range(mesh.size)]
+    return _exchange_and_fold_runs(mesh, runs, perm, transport)
+
+
+def composite_layers_sharded_preblend(
+    mesh: Mesh,
+    layers,  # [D * Lmax, P, 5] global, split on axis 0
+    hints,  # [D * Lmax] host depth hints (+inf on invalid)
+    transport: str = "float32",
+) -> Shards:
+    """``composite_layers_sharded`` with the reference's local run
+    pre-blend (DirectSendBase.cpp:418-425): exchange traffic O(runs x
+    pixels).  ``"float32"`` equals the non-pre-blended exchange bit for bit
+    (the same fold tree); ``"ubyte"`` quantises each pre-blended run on the
+    wire (the reference's point: pre-blend first, byte send after) where
+    the non-pre-blended path quantises each layer.  Returns the [P / D, 5]
+    pixel shards."""
+    (layers_s,) = shard_leading(mesh, layers)
+    if layers_s[0].shape[1] % mesh.size:
+        raise ValueError("pixel count is not divisible by the mesh size")
+    hints = _as_tensor(hints).cpu().numpy().reshape(mesh.size, -1)
+    local_order, run_slot, perm, rmax = preblend_plan(hints)
+    return _compose_shards_preblend(mesh, layers_s, local_order, run_slot,
+                                    perm, rmax, transport)
 
 
 def compose_flat_sharded(
@@ -499,17 +658,23 @@ def paste_rect(rect_frame: np.ndarray, rect, width: int, height: int) -> np.ndar
     return out.reshape(width * height, -1)
 
 
+def _cleared_layers(colors: Tensor, depths: Tensor, valid: Tensor) -> Tensor:
+    """Rendered pieces ``[L, P, 4]`` / ``[L, P]`` as ``[L, P, 5]`` layers,
+    invalid slots cleared to the identity layer (colour 0, depth +inf)."""
+    layers = torch.cat([colors, depths[..., None]], dim=-1)
+    cleared = torch.zeros_like(layers)
+    cleared[..., 4] = float("inf")
+    return torch.where(valid[:, None, None], layers, cleared)
+
+
 def _shard_layers(colors: Tensor, depths: Tensor, valid: Tensor, hints: Tensor,
                   rect, tiles, width: int, height: int):
     """One shard's rendered pieces as exchange-ready layers: [Lmax, P', 5]
     with padding slots cleared to the identity layer (colour 0, depth
     +inf) and restricted to the compacted pixels, and the hints with +inf
     on padding."""
-    layers = torch.cat([colors, depths[..., None]], dim=-1)
-    cleared = torch.zeros_like(layers)
-    cleared[..., 4] = float("inf")
-    layers = torch.where(valid[:, None, None], layers, cleared)
-    layers = _slice_tiles(_slice_rect(layers, rect, width, height),
+    layers = _slice_tiles(_slice_rect(_cleared_layers(colors, depths, valid),
+                                      rect, width, height),
                           tiles[0] if tiles else None)
     return layers, torch.where(valid, hints, float("inf"))
 

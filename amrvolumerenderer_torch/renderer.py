@@ -538,8 +538,9 @@ def render_orbit(
 ) -> None:
     """Render a ``frames``-frame orbit animation through the persistent
     batched renderer: the scene is prepared once
-    (``fast_scene.FastSceneRenderer``) and consecutive frames render in
-    batched kernel launches (``render_batch``).  The base camera
+    (``fast_scene.FastSceneRenderer``, or over ``parameters.devices``
+    shards ``parallel.persistent.MultiChipSceneRenderer``) and consecutive
+    frames render in batched chunks (``render_batch``).  The base camera
     (explicit, or the seeded auto-orbit of VolumeRenderer.cpp:974-1023) is
     frame 0 exactly; later frames rotate it about the up axis
     (``camera.orbit_camera_sequence``).  Beyond reference as a product
@@ -567,12 +568,6 @@ def render_orbit(
             f"orbit output pattern {output_pattern!r} must format a frame "
             "index (e.g. 'frame_{:04d}.png')"
         ) from error
-    if (parameters.devices or 1) > 1:
-        raise ValueError(
-            "multi-device orbits run on the persistent renderer "
-            "(MultiChipSceneRenderer), which is not ported to PyTorch yet "
-            "(ROADMAP.md module item 9); use devices=1"
-        )
     dev = resolve_device(device)
     if verbose:
         name = (
@@ -586,7 +581,16 @@ def render_orbit(
             bounds, parameters.camera_seed, parameters.camera_up
         )
     cameras = orbit_camera_sequence(camera, frames, total_degrees)
-    renderer = FastSceneRenderer(geometry, parameters, color_map, device=dev)
+    devices = parameters.devices or 1
+    if devices > 1:
+        from .parallel.persistent import MultiChipSceneRenderer
+
+        renderer = MultiChipSceneRenderer(
+            geometry, parameters, num_devices=devices, color_map=color_map,
+            transport=parameters.multichip_transport, device=dev,
+        )
+    else:
+        renderer = FastSceneRenderer(geometry, parameters, color_map, device=dev)
     start = time.perf_counter()
     renderer.render_batch(cameras, output_pattern=output_pattern)
     if verbose:

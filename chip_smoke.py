@@ -6,7 +6,7 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's three CUDA kernel libraries (tile-march, slice-march,
-composite with its tile and pixel modes) from the checkout's sources, all
+composite with its tile, pixel and runs modes) from the checkout's sources, all
 at once, holds each against
 the golden rows and against its plain PyTorch version on the card, drives
 both one-shot main paths through the entry points a user calls: a
@@ -45,6 +45,22 @@ version on the same arguments; one 2048^2 AA=4 frame with its peak memory;
 kernel 4's times and bound, each fold launch of a sharded frame timed
 alone against its byte bound, and the sharded frame's wall split for 2 and
 8 shards.
+
+Then the persistent multi-device renderer (phases 21-23,
+``parallel/persistent.py``): the golden rows ``persistent-8dev-*`` over 8
+shards of the card; ``MultiChipSceneRenderer`` at 1024^2 over 8 shards on
+the 3-level scene (stack mode) and the 512-brick plotfile (64 pieces a
+shard: scan mode), in both transports, with every kernel-4, runs-mode and
+pixel-mode launch of a frame held against its plain version at max |diff|
+0, the pre-blend forced on against off, scan against stack mode and
+``render_batch`` against ``render`` over an 8-camera orbit, bit for bit;
+``render(plotfile, devices=8, orbit_frames=4)`` (the slice's counted run)
+and the CLI's ``--devices 8 --orbit-frames 8`` against the in-process
+frames; then the runs mode's time per launch against its byte bound and
+against one pixel-mode launch per run, the persistent frame's wall split
+beside the one-shot call, and the pre-blend step against the plain step
+on the 3-level scene and a 64-brick Morton column, from which it fits the
+cost model's ratio ``preblend_link_ratio``.
 
 Phase 1 also logs each kernel instantiation's registers, shared memory and
 spills (and fails on a spill) and counts the SASS instructions of one
@@ -346,12 +362,14 @@ def main() -> int:
                 "composite_pixels": comp.composite_pixels}  # the sharded folds
     batch_fn = tm.tilemarch_render_batch  # its launches count both batch entries
     dense_fn = sm.slicemarch_render  # kernel 4, in the slicemarch library
+    runs_fn = comp.composite_runs  # the run pre-blend, in the composite library
 
     def reset_counts():
         for fn in counters.values():
             fn.launches = 0
         batch_fn.launches = 0
         dense_fn.launches = 0
+        runs_fn.launches = 0
 
     @contextlib.contextmanager
     def recorded(holder, attr, fn_name):
@@ -1601,6 +1619,420 @@ def main() -> int:
         hold_dense(f"phase 20: eye inside, {label}: kernel 4 vs plain over 8 "
                    "shards", shards)
 
+    # ---- phases 21-23: the persistent multi-device renderer -----------------
+    from amrvolumerenderer_torch.parallel import persistent as pp
+    from amrvolumerenderer_torch.parallel.persistent import MultiChipSceneRenderer
+
+    def dense_plain(*args, **kw):
+        return sm.untile(*sm.slicemarch_dense_reference(*args, **kw), kw["width"],
+                         kw["height"])
+
+    @contextlib.contextmanager
+    def patched(holder, attr, **fns):
+        """Replace functions of module ``holder.<attr>`` inside the block."""
+        module = getattr(holder, attr)
+
+        class Proxy:
+            def __getattr__(self, name):
+                return getattr(module, name)
+
+        proxy = Proxy()
+        for name, fn in fns.items():
+            setattr(proxy, name, fn)
+        setattr(holder, attr, proxy)
+        try:
+            yield
+        finally:
+            setattr(holder, attr, module)
+
+    def same_inputs(a, b) -> bool:
+        if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+            return (isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor)
+                    and a.shape == b.shape and a.dtype == b.dtype
+                    and bool(torch.equal(a, b)))
+        if isinstance(a, (tuple, list)):
+            return (isinstance(b, (tuple, list)) and len(a) == len(b)
+                    and all(same_inputs(x, y) for x, y in zip(a, b)))
+        if isinstance(a, dict):
+            return (isinstance(b, dict) and a.keys() == b.keys()
+                    and all(same_inputs(a[k], b[k]) for k in a))
+        return a == b
+
+    @contextlib.contextmanager
+    def checked_launches(label, memo=None):
+        """Hold every kernel-4, runs-mode and pixel-mode launch of the
+        persistent renderer inside the block against its plain version on
+        the same inputs, right after the launch (a run buffer the launch
+        writes in place is copied first), at max |diff| 0.  The plain
+        versions count no launch.  With ``memo`` (a list kept across
+        blocks) a kernel-4 launch whose inputs equal those of a launch held
+        before reuses that launch's plain output.  Yields {name: launches
+        held}."""
+        held = {"slicemarch_dense": 0, "composite_runs": 0, "composite_pixels": 0}
+        diffs = {name: [] for name in held}
+        reused = [0]
+
+        def memo_plain(*args, **kw):
+            for m_args, m_kw, m_out in memo:
+                if same_inputs(m_kw, kw) and same_inputs(m_args, args):
+                    reused[0] += 1
+                    return m_out
+            out = dense_plain(*args, **kw)
+            memo.append((args, kw, out))
+            return out
+
+        def diff(got, ref):
+            """max_diff on the card: (same non-finite pattern, max |diff|)."""
+            fin = torch.isfinite(ref)
+            same = bool(torch.equal(torch.isfinite(got), fin))
+            return same, float(torch.where(fin, (got - ref).abs(),
+                                           torch.zeros_like(ref)).max())
+
+        def wrap(name, fn, plain, in_place=False):
+            def call(*args, **kw):
+                before = kw.get("out")
+                before = before.clone() if in_place and before is not None else None
+                got = fn(*args, **kw)
+                ref = plain(*args, **(dict(kw, out=before) if in_place else kw))
+                for k, p in (zip(got, ref) if isinstance(got, tuple) else [(got, ref)]):
+                    diffs[name].append(diff(k, p))
+                held[name] += 1
+                return got
+            return call
+
+        runs = wrap("composite_runs", runs_fn, comp.composite_runs_reference, True)
+        with patched(pp, "sm", slicemarch_render=wrap(
+                "slicemarch_dense", dense_fn,
+                dense_plain if memo is None else memo_plain)), \
+                patched(pp, "comp", composite_runs=runs), \
+                patched(ds, "comp", composite_runs=runs, composite_pixels=wrap(
+                    "composite_pixels", comp.composite_pixels,
+                    comp.composite_pixels_reference)):
+            yield held
+        torch.cuda.synchronize()
+        for name, found in diffs.items():
+            if found:
+                worst[name] = max(worst.get(name, 0.0), max(d for _, d in found))
+        log(f"{label}: launches held against the plain version: " + ", ".join(
+            f"{name} {held[name]} (max |diff| "
+            f"{max((d for _, d in diffs[name]), default=0.0):.3g}, non-finite "
+            f"pattern same {all(s for s, _ in diffs[name])})" for name in held)
+            + (f"; {reused[0]} kernel-4 launches on inputs equal to an earlier "
+               "launch's, held against its plain output" if reused[0] else ""))
+        assert all(s and d == 0.0 for v in diffs.values() for s, d in v), label
+
+    def persistent_counts():
+        got = counts()
+        return {"slicemarch_dense": dense_fn.launches,
+                "composite_runs": runs_fn.launches,
+                "composite_pixels": got.pop("composite_pixels"), "other": got}
+
+    # phase 21: the golden rows persistent-8dev-* on the card
+    for row, force in (("persistent-8dev-preblend", True),
+                       ("persistent-8dev-plain", False)):
+        r = MultiChipSceneRenderer(r2_geometry, RenderParameters(width=48, height=48),
+                                   num_devices=8, device=dev)
+        r._use_preblend = lambda rmax, _f=force: _f
+        reset_counts()
+        with checked_launches(f"phase 21: {row}"):
+            frame = r.render(auto_orbit_camera(r.bounds), overlay=False)
+        got = persistent_counts()
+        same, diff = max_diff(frame, golden[row])
+        log(f"phase 21: MultiChipSceneRenderer(devices=8) vs {row}: non-finite "
+            f"pattern same {same}, max |diff| {diff:.3g}; launches {got}")
+        assert same and diff == 0.0, row
+        assert got == {"slicemarch_dense": 8, "composite_runs": 8 if force else 0,
+                       "composite_pixels": 8, "other": {
+                           "tilemarch": 0, "slicemarch": 0, "composite": 0}}, got
+
+    # phase 22: full width over 8 shards of the card, both transports: the
+    # 3-level scene (2 pieces a shard: stack mode) and the 512-brick
+    # plotfile (64 pieces a shard: scan mode)
+    p22 = RenderParameters(width=1024, height=1024)
+    for label, geom in (("3-level", geometry3), ("512-brick plotfile", geometry)):
+        # both transports give kernel 4 the same inputs: the plain march of
+        # the first is reused for the second (same_inputs checks each)
+        memo = []
+        cam = auto_orbit_camera(compute_global_bounds(geom), p22.camera_seed,
+                                p22.camera_up)
+        orbit = orbit_camera_sequence(cam, 8, 360.0)
+        for transport in ("float32", "ubyte"):
+            tag = f"phase 22: {label} 1024x1024, {transport}"
+            r = MultiChipSceneRenderer(geom, p22, num_devices=8, transport=transport,
+                                       device=dev)
+            scan = r._scan_pieces()
+            lmax = len(r._slot_to_idx) // 8
+            chunks = -(-lmax // r.scan_piece_threshold) if scan else 1
+            reset_counts()
+            t0 = time.perf_counter()
+            with checked_launches(tag, memo):
+                frame = r.render(cam, overlay=False)
+            wall = time.perf_counter() - t0
+            got = persistent_counts()
+            covered = float((frame[:, 3] > 0).mean())
+            log(f"{tag}: {lmax} pieces a shard, scan mode {scan}, render() "
+                f"{wall:.3f} s with every launch held; launches {got}; alpha > 0 "
+                f"on {covered:.4f}")
+            pre = scan or transport == "ubyte"
+            assert got == {"slicemarch_dense": 8 * chunks,
+                           "composite_runs": 8 * chunks if pre else 0,
+                           "composite_pixels": 8, "other": {
+                               "tilemarch": 0, "slicemarch": 0, "composite": 0}}, got
+            assert np.isfinite(frame[:, :4]).all()
+            assert ALPHA_FRACTION[0] <= covered <= ALPHA_FRACTION[1], covered
+            # the same frame from the other mode and, in float32, with the
+            # pre-blend forced on and off
+            variants = {}
+            r.scan_piece_threshold = 10 ** 9  # stack mode
+            if transport == "float32":
+                for force in (True, False):
+                    r._use_preblend = lambda rmax, _f=force: _f
+                    variants[f"stack, pre-blend forced {'on' if force else 'off'}"] = \
+                        r.render(cam, overlay=False)
+                del r._use_preblend
+            elif scan:
+                variants["stack"] = r.render(cam, overlay=False)
+            if not scan:
+                r.scan_piece_threshold = 1
+                variants["scan, one piece a chunk"] = r.render(cam, overlay=False)
+            r.scan_piece_threshold = 16
+            for name, v in variants.items():
+                assert np.array_equal(v, frame), (tag, name)
+            log(f"{tag}: equal bit for bit to the default frame: "
+                + ", ".join(variants))
+            del variants
+            t0 = time.perf_counter()
+            batch = r.render_batch(orbit, overlay=False)
+            wall = time.perf_counter() - t0
+            stats = r.last_batch_stats
+            for i, c in enumerate(orbit):
+                assert np.array_equal(batch[i], r.render(c, overlay=False)), (tag, i)
+            log(f"{tag}: render_batch(8-camera orbit) == render bit for bit; "
+                f"{wall:.3f} s, {stats['dispatch_count']} chunks")
+            del r, batch
+        del memo
+
+    # the orbit entry points over 8 shards: render(plotfile, devices=8,
+    # orbit_frames=4) is this slice's counted run
+    reset_counts()
+    t0 = time.perf_counter()
+    rc = amrvolumerenderer_torch.render(
+        plotfile, width=1024, height=1024, devices=8, orbit_frames=4,
+        output=os.path.join(SCRATCH, "api_orbit8.png"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = persistent_counts()
+    launches["composite_runs"] = got["composite_runs"]
+    log(f"phase 22: render(plotfile, devices=8, orbit_frames=4) at 1024^2: rc {rc}, "
+        f"{wall:.3f} s wall (scene build included), launches {got}")
+    assert rc == 0 and got["other"] == {"tilemarch": 0, "slicemarch": 0,
+                                        "composite": 0}
+    assert min(got["slicemarch_dense"], got["composite_runs"],
+               got["composite_pixels"]) > 0, got
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "amrvolumerenderer_torch.driver", "--width", "1024",
+         "--height", "1024", "--devices", "8", "--orbit-frames", "8", "--output",
+         os.path.join(SCRATCH, "cli_orbit8.png"), plotfile],
+        cwd=ROOT, capture_output=True, text=True, timeout=600,
+    )
+    log(f"phase 22: CLI --devices 8 --orbit-frames 8 rc {cli.returncode} in "
+        f"{time.perf_counter() - t0:.3f} s")
+    assert cli.returncode == 0, cli.stderr[-4000:]
+    base = auto_orbit_camera(compute_global_bounds(geometry), p22.camera_seed,
+                             p22.camera_up)
+    r = MultiChipSceneRenderer(geometry, p22, num_devices=8, device=dev)
+    for count, stem in ((4, "api_orbit8"), (8, "cli_orbit8")):
+        frames = r.render_batch(orbit_camera_sequence(base, count, 360.0))
+        for i in range(count):
+            png = read_png_rgb(os.path.join(SCRATCH, f"{stem}_{i:04d}.png"))
+            assert np.array_equal(png, png_bytes(frames[i])), (stem, i)
+    log("phase 22: every frame of render(orbit_frames=4) and of the CLI's orbit "
+        "equals the in-process render_batch frame")
+    del r, frames
+
+    # phase 23: timing.  (a) The runs mode per launch against its byte bound
+    # (each of its L layers read once, its rmax slots written once), and the
+    # route of one pixel-mode launch per run, on the 3-level scene
+    log(f"phase 23: {smi}")
+    r = MultiChipSceneRenderer(geometry3, p22, num_devices=8, device=dev)
+    r._use_preblend = lambda rmax: True
+    with recorded(ds, "comp", "composite_runs") as rec:
+        frame = r.render(cams[0], overlay=False)
+    torch.cuda.synchronize()
+    rows = []
+    for args, kw in rec:
+        layers, order, slots, rmax = args
+        n_l, n_p = layers.shape[:2]
+        runs_fn(*args, **kw)  # warm-up
+        ms = min(event_ms(lambda: runs_fn(*args, **kw)) for _ in range(3))
+        plain = event_ms(lambda: comp.composite_runs_reference(*args, **kw))
+        # one pixel-mode launch per run, its steps' layers one group
+        slots_h = slots.cpu().numpy()
+        groups = [(s, order[torch.from_numpy(np.flatnonzero(slots_h == s)).to(dev)])
+                  for s in range(rmax)]
+        groups = [(s, o, torch.zeros(len(o), dtype=torch.int32, device=dev))
+                  for s, o in groups if len(o)]
+
+        def per_run(layers=layers, groups=groups, rmax=rmax, n_p=n_p):
+            out = torch.zeros((rmax, n_p, 5), dtype=torch.float32, device=dev)
+            out[..., 4] = float("inf")
+            for s, o, w in groups:
+                out[s] = comp.composite_pixels(layers, o, w)
+            return out
+
+        assert torch.equal(per_run(), runs_fn(*args, **kw))
+        alt = min(event_ms(per_run) for _ in range(3))
+        rows.append((n_l, n_p, rmax, ms, plain, alt, (n_l + rmax) * n_p * 20,
+                     n_l * n_p * BLEND_FLOPS))
+    times["composite_runs"] = (sum(x[3] for x in rows), sum(x[4] for x in rows))
+    bounds_ms["composite_runs"] = bound(sum(x[6] for x in rows),
+                                        sum(x[7] for x in rows))
+    log(f"phase 23: {smi}: runs mode, 3-level 1024x1024 over 8 shards (pre-blend "
+        "forced on), each launch timed alone (layers x pixels, rmax: kernel ms, "
+        "plain ms, one pixel-mode launch per run ms, byte bound ms, share of the "
+        "bound): " + "; ".join(
+            f"{n_l}x{n_p}, {rmax}: {ms:.4f}, {plain:.4f}, {alt:.4f}, "
+            f"{bound(nb, nf)[0]:.5f}, {bound(nb, nf)[0] / ms:.3f}"
+            for n_l, n_p, rmax, ms, plain, alt, nb, nf in rows))
+    log(f"phase 23: runs mode per D=8 frame: {len(rows)} launches, "
+        f"{times['composite_runs'][0]:.4f} ms (one pixel-mode launch per run "
+        f"{sum(x[5] for x in rows):.4f} ms), bound "
+        f"{bounds_ms['composite_runs'][0]:.5f} ms ({bounds_ms['composite_runs'][1]}), "
+        f"kernel at {bounds_ms['composite_runs'][0] / times['composite_runs'][0]:.4f} "
+        "of its bound")
+    del rec
+
+    # (b) the persistent frame's host wall split, beside the one-shot call
+    def persistent_split(r, camera, preblend):
+        """Host wall of one frame, synchronised after each stage: prep (host
+        state, run plan, per-frame uploads), render (kernel 4 + layer
+        clear), pre-blend, exchange, fold, readback (gather, crop, copy)."""
+        sync = torch.cuda.synchronize
+        t = [time.perf_counter()]
+        axis, cam, slot_hints, slot_valid = r._frame_state(camera)
+        plan = (ds.preblend_plan(r._effective_hints(slot_hints, slot_valid))
+                if preblend else None)
+        hints = np.where(slot_valid, slot_hints, np.float32(np.inf))
+        shards = r._shard_inputs(axis, cam, slot_valid, hints)
+        sync(); t.append(time.perf_counter())
+        layers, lh = r._render_layers(shards)
+        sync(); t.append(time.perf_counter())
+        if plan is not None:
+            lo, rs, perm, rmax = plan
+            layers = [ds._preblend_runs(layers[i], lo[i], rs[i], rmax)
+                      for i in range(r.num_devices)]
+        sync(); t.append(time.perf_counter())
+        received = ds._exchange(r.mesh, layers, r.transport)
+        gathered = None if plan is not None else ds.all_gather(r.mesh, lh)
+        sync(); t.append(time.perf_counter())
+        out = (ds._fold_runs(r.mesh, received, perm) if plan is not None
+               else ds._fold_layers(r.mesh, received, gathered))
+        sync(); t.append(time.perf_counter())
+        frame = r._assemble_shards(out).cpu().numpy()
+        t.append(time.perf_counter())
+        return np.diff(t) * 1e3, frame
+
+    stages = ("prep", "render", "pre-blend", "exchange", "fold", "readback")
+    for preblend in (False, True):
+        r = MultiChipSceneRenderer(geometry3, p22, num_devices=8, device=dev)
+        r._use_preblend = lambda rmax, _f=preblend: _f
+        _, frame = persistent_split(r, cams[0], preblend)  # warm-up
+        assert np.array_equal(frame, r.render(cams[0], overlay=False))
+        split = np.mean([persistent_split(r, c, preblend)[0] for c in cams], axis=0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for c in cams:
+            r.render(c, overlay=False)
+        total = (time.perf_counter() - t0) * 1e3 / len(cams)
+        r.render_batch(cams, overlay=False, bytes_out=True)  # warm-up
+        t0 = time.perf_counter()
+        r.render_batch(cams, overlay=False, bytes_out=True)
+        batch = (time.perf_counter() - t0) * 1e3 / len(cams)
+        st = r.last_batch_stats
+        log(f"phase 23: {smi}: persistent render D=8 "
+            f"{'pre-blend' if preblend else 'plain'}, 3-level 1024x1024, host wall "
+            "per frame (8 orbit cameras): " + ", ".join(
+                f"{s} {v:.3f} ms" for s, v in zip(stages, split))
+            + f"; sum {split.sum():.3f} ms; render() {total:.3f} ms; "
+            f"render_batch(bytes_out=True) {batch:.3f} ms/frame (host prep "
+            f"{st['host_prep_ms'] / 8:.3f}, dispatch {st['dispatch_ms'] / 8:.3f}, "
+            f"readback {st['readback_ms'] / 8:.3f} ms/frame, "
+            f"{st['dispatch_count']} chunks)")
+        del r
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for c in cams:
+        rf.render_composited_sharded(geometry3, p22, c, srange3, rsd3, 1024, 1024,
+                                     None, 8, pipeline="layered", device=dev)
+    layered = (time.perf_counter() - t0) * 1e3 / len(cams)
+    t0 = time.perf_counter()
+    for c in cams:
+        rf.render_composited_sharded(geometry3, p22, c, srange3, rsd3, 1024, 1024,
+                                     None, 8, pipeline="depth", device=dev)
+    depth = (time.perf_counter() - t0) * 1e3 / len(cams)
+    log(f"phase 23: {smi}: beside it, the one-shot render_composited_sharded D=8 "
+        f"in the same call: layered {layered:.3f} ms, depth {depth:.3f} ms per frame")
+
+    # (c) the pre-blend step against the plain step, device time (render,
+    # pre-blend, exchange and fold; inputs uploaded first), on the 3-level
+    # scene and the 64-brick Morton column, in alternating turns.  Their
+    # differences give the cost model's ratio R (_use_preblend):
+    # t_plain - t_pre = (lmax - rmax) c_x - (lmax + rmax) c_f, R = c_x / c_f
+    b, nb = 8, 64
+    cx = (np.arange(nb * b) + 0.5) / (nb * b)
+    cy = (np.arange(b) + 0.5) / b
+    fcol = np.exp(-((cx[:, None, None] - 0.5) ** 2 + (cy[None, :, None] - 0.5) ** 2
+                    + (cy[None, None, :] - 0.5) ** 2) / 0.05)
+    column = api.load_amr_geometry(api.AmrData(
+        level_data=[[LevelBox(fcol[i * b:(i + 1) * b], np.array([i * b, 0, 0]))
+                     for i in range(nb)]],
+        level_geometry=[LevelGeometry(np.zeros(3), np.array(
+            [1.0 / (nb * b), 1.0 / b, 1.0 / b]))]), 0, -1, 0, False, True,
+        verbose=False)
+    fits = []
+    for label, geom in (("3-level", geometry3), ("Morton column", column)):
+        r = MultiChipSceneRenderer(geom, p22, num_devices=8, device=dev)
+        cam = auto_orbit_camera(r.bounds)
+        axis, cpack, slot_hints, slot_valid = r._frame_state(cam)
+        lo, rs, perm, rmax = ds.preblend_plan(r._effective_hints(slot_hints, slot_valid))
+        hints = np.where(slot_valid, slot_hints, np.float32(np.inf))
+        shards = r._shard_inputs(axis, cpack, slot_valid, hints)
+        lo_t, rs_t, perm_t = (torch.from_numpy(a).to(dev) for a in (lo, rs, perm))
+        lmax = len(r._slot_to_idx) // 8
+
+        def step_pre():
+            layers, _ = r._render_layers(shards)
+            return ds._compose_shards_preblend(r.mesh, layers, lo_t, rs_t, perm_t, rmax)
+
+        def step_plain():
+            return ds._compose_shards(r.mesh, *r._render_layers(shards))
+
+        a, c_ = step_pre(), step_plain()
+        assert all(torch.equal(x, y) for x, y in zip(a, c_)), label
+        t_pre, t_plain = [], []
+        for first, second in ((step_plain, step_pre), (step_pre, step_plain)) * 3:
+            for fn in (first, second):
+                (t_pre if fn is step_pre else t_plain).append(event_ms(fn))
+        depth = int((rs.max(axis=1) + 1).max())  # the deepest shard's runs
+        fits.append((lmax, rmax, min(t_plain), min(t_pre)))
+        default_ratio = r.preblend_link_ratio
+        log(f"phase 23: {smi}: D=8 step, {label} 1024x1024 ({lmax} layers a shard, "
+            f"run depth {depth}, rmax {rmax}): plain {min(t_plain):.4f} ms (runs "
+            f"{', '.join(f'{v:.4f}' for v in t_plain)}), pre-blend {min(t_pre):.4f} "
+            f"ms (runs {', '.join(f'{v:.4f}' for v in t_pre)}); the cost model "
+            + (f"pre-blends iff R > {(lmax + rmax) / (lmax - rmax):.3f}"
+               if lmax > rmax else "never pre-blends (rmax >= lmax)"))
+        del r, shards
+    (l1, r1, p1, q1), (l2, r2_, p2, q2) = fits
+    det = (l1 - r1) * -(l2 + r2_) - (l2 - r2_) * -(l1 + r1)
+    c_x = ((p1 - q1) * -(l2 + r2_) - (p2 - q2) * -(l1 + r1)) / det if det else float("nan")
+    c_f = ((l1 - r1) * (p2 - q2) - (l2 - r2_) * (p1 - q1)) / det if det else float("nan")
+    log(f"phase 23: {smi}: fitted per-layer costs c_x {c_x:.6f} ms (exchange and "
+        f"final fold), c_f {c_f:.6f} ms (local fold): R = c_x / c_f = "
+        f"{c_x / c_f if c_f else float('nan'):.4f}; the default "
+        f"preblend_link_ratio is {default_ratio}")
+
     sources = {
         "tilemarch": ("ops/csrc/tilemarch.cu", "amrvolumerenderer_tpu/ops/tilemarch.py:819"),
         "slicemarch": ("ops/csrc/slicemarch.cu", "amrvolumerenderer_tpu/ops/slicemarch.py:750"),
@@ -1613,6 +2045,8 @@ def main() -> int:
                                  "amrvolumerenderer_tpu/ops/tilemarch.py:711"),
         "slicemarch_dense": ("ops/csrc/slicemarch.cu",
                              "amrvolumerenderer_tpu/ops/slicemarch.py:555"),
+        "composite_runs": ("ops/csrc/composite.cu",
+                           "amrvolumerenderer_tpu/parallel/directsend.py:300"),
     }
     for prec, name in batch_name.items():
         times[name] = batch_times[prec][:2]

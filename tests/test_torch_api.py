@@ -112,8 +112,8 @@ def test_cli_matches_jax(tmp_path, plotfile, flags):
 @pytest.mark.parametrize("argv,message", [
     (["--device", "cuda"], "no CUDA device"),
     (["--device", "cpu", "--render-method", "raymarch"], "ROADMAP.md module item 4"),
-    (["--device", "cpu", "--devices", "2", "--orbit-frames", "2"],
-     "ROADMAP.md module item 9"),
+    (["--device", "cpu", "--devices", "3", "--orbit-frames", "2"],
+     "not divisible by the device count 3"),
     (["--device", "cpu", "--orbit-frames", "3", "--render-method", "raymarch"],
      "fast kernel family"),
     (["--device", "tpu"], "device must be"),

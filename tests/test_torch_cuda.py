@@ -1,8 +1,9 @@
 """The port's CUDA kernels on the card: tile-march (one frame and batched,
 float32 and bfloat16 volumes), slice-march (work list and dense), the
-composite (tile and pixel modes), and the multi-device route over 8
-shards of one card against the same route on the CPU (marked ``cuda``;
-every test skips itself when ``torch.cuda.is_available()`` is false).
+composite (tile, pixel and runs modes), the multi-device route over 8
+shards of one card and the persistent multi-device renderer against the
+same on the CPU (marked ``cuda``; every test skips itself when
+``torch.cuda.is_available()`` is false).
 
 This file imports neither jax nor the tests' conftest (which does), so it
 runs on a machine that has only PyTorch:
@@ -599,3 +600,151 @@ def test_dense_background_blocks(cuda, monkeypatch):
     assert int(miss[1:].sum()) > 0  # premise: all-miss tiles exist
     assert_close(kc, pc)
     assert_close(kd, pd)
+
+
+# ---- the runs mode and the persistent multi-device renderer -----------------
+
+
+def runs_case(num_layers, rmax, seed):
+    """Seeded pixel-major layers (depth ties, misses, cleared layers,
+    -0.0 colours) and a step order whose run slots fill [0, rmax) in
+    non-decreasing blocks, as ``preblend_plan`` gives them."""
+    rng = np.random.default_rng(seed)
+    pixels = 1000  # a ragged last warp and block
+    a = rng.uniform(0, 1, (num_layers, pixels)).astype(np.float32)
+    c = rng.uniform(0, 1, (num_layers, pixels, 3)).astype(np.float32) * a[..., None]
+    d = rng.integers(0, 4, (num_layers, pixels)).astype(np.float32)
+    d[rng.random((num_layers, pixels)) < 0.1] = np.inf
+    layers = np.concatenate([c, a[..., None], d[..., None]], axis=-1)
+    layers[rng.random((num_layers, pixels)) < 0.1] = [0, 0, 0, 0, np.inf]
+    layers[..., :4][rng.random((num_layers, pixels, 4)) < 0.05] = -0.0
+    order = rng.permutation(num_layers).astype(np.int32)
+    cuts = np.sort(rng.choice(np.arange(1, num_layers), min(rmax, num_layers) - 1,
+                              replace=False)) if num_layers > 1 else []
+    slots = np.zeros(num_layers, np.int32)
+    for cut in cuts:
+        slots[cut:] += 1
+    return (torch.from_numpy(layers), torch.from_numpy(order),
+            torch.from_numpy(slots))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_layers", [1, 16, 64])
+@pytest.mark.parametrize("rmax", [4, 8])
+def test_composite_runs_matches_plain(cuda, num_layers, rmax):
+    """One launch, and the same steps in chunks of 5 with ``carry``, at max
+    |diff| 0 with the plain version; untouched slots hold the identity."""
+    layers, order, slots = runs_case(num_layers, rmax, num_layers + rmax)
+    want = comp.composite_runs_reference(layers, order, slots, rmax)
+    before = comp.composite_runs.launches
+    got = comp.composite_runs(layers.to(cuda), order.to(cuda), slots.to(cuda), rmax)
+    torch.cuda.synchronize()
+    assert comp.composite_runs.launches == before + 1
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    assert torch.isinf(got[int(slots.max()) + 1:, :, 4]).all()
+    # the same runs by one pixel-mode launch per run over its steps
+    for s in range(int(slots.max()) + 1):
+        steps = order[slots == s].to(cuda)
+        run = comp.composite_pixels(layers.to(cuda), steps,
+                                    torch.zeros_like(steps))
+        np.testing.assert_array_equal(run.cpu().numpy(), want[s].numpy())
+    lay = layers[order.long()].to(cuda)
+    out = None
+    for c0 in range(0, num_layers, 5):
+        s = slots[c0:c0 + 5]
+        out = comp.composite_runs(
+            lay[c0:c0 + 5], torch.arange(len(s), dtype=torch.int32, device=cuda),
+            s.to(cuda), rmax, out=out,
+            carry=bool(c0 > 0 and slots[c0] == slots[c0 - 1]))
+    np.testing.assert_array_equal(out.cpu().numpy(), want.numpy())
+
+
+@pytest.mark.cuda
+def test_composite_runs_all_invalid_shard(cuda):
+    """A shard with no valid layer: cleared layers folded into slot 0 from
+    the first layer (not from a zero accumulator)."""
+    layers = torch.zeros((6, 300, 5))
+    layers[..., 4] = float("inf")
+    layers[2, :, 0] = -0.0
+    order = torch.arange(6, dtype=torch.int32)
+    slots = torch.zeros(6, dtype=torch.int32)
+    want = comp.composite_runs_reference(layers, order, slots, 4)
+    got = comp.composite_runs(layers.to(cuda), order.to(cuda), slots.to(cuda), 4)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    assert np.array_equal(np.signbit(got.cpu().numpy()), np.signbit(want.numpy()))
+
+
+def persistent_pair(cuda, geometry, width=64, height=48, **kw):
+    from amrvolumerenderer_torch.parallel.persistent import MultiChipSceneRenderer
+
+    params = RenderParameters(width=width, height=height)
+    return (MultiChipSceneRenderer(geometry, params, num_devices=8, device=cuda, **kw),
+            MultiChipSceneRenderer(geometry, params, num_devices=8, device="cpu", **kw))
+
+
+def deep_geometry(n=48, brick=8):
+    """216 pieces: 27 a shard over 8, above the scan threshold."""
+    c = (np.arange(n) + 0.5) / n
+    r = np.sqrt((c[:, None, None] - 0.5) ** 2 + (c[None, :, None] - 0.5) ** 2
+                + (c[None, None, :] - 0.5) ** 2)
+    f = np.exp(-((r - 0.35) / 0.1) ** 2)
+    boxes = [LevelBox(f[i:i + brick, j:j + brick, k:k + brick], np.array([i, j, k]))
+             for i in range(0, n, brick) for j in range(0, n, brick)
+             for k in range(0, n, brick)]
+    return api.load_amr_geometry(
+        api.AmrData(level_data=[boxes],
+                    level_geometry=[LevelGeometry(np.zeros(3), np.full(3, 1.0 / n))]),
+        0, -1, 0, False, True, verbose=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene", ["3lvl", "deep"])
+@pytest.mark.parametrize("transport", ["float32", "ubyte"])
+def test_persistent_matches_cpu(cuda, scene, transport):
+    """The persistent renderer on the card equals it on the CPU: stack
+    mode with the pre-blend forced on and off, scan mode, and
+    ``render_batch`` over an orbit; kernel 4, the runs mode and the pixel
+    mode launch on the card."""
+    geometry = three_level_geometry() if scene == "3lvl" else deep_geometry()
+    gpu, cpu = persistent_pair(cuda, geometry, transport=transport)
+    assert gpu._scan_pieces() == (scene == "deep")
+    cams = orbit_camera_sequence(auto_orbit_camera(gpu.bounds), 4, 360.0)
+    want = [cpu.render(c, overlay=False) for c in cams]
+    counters = (sm.slicemarch_render, comp.composite_pixels, comp.composite_runs)
+    before = [f.launches for f in counters]
+    got = gpu.render(cams[0], overlay=False)
+    # float32 stack mode pre-blends only where the cost model says so,
+    # which it refuses here (a run depth of 4 at 1 layer a shard)
+    preblend = scene == "deep" or transport == "ubyte"
+    assert [f.launches > b for f, b in zip(counters, before)] == [True, True, preblend]
+    assert (want[0][:, 3] > 0).mean() > 0.05
+    assert_close(torch.from_numpy(got), torch.from_numpy(want[0]))
+    for force in (True, False):
+        gpu.scan_piece_threshold = 10_000 if scene == "deep" else 16
+        gpu._use_preblend = lambda rmax, _f=force: _f or transport == "ubyte"
+        runs = comp.composite_runs.launches
+        np.testing.assert_array_equal(gpu.render(cams[0], overlay=False), got)
+        assert (comp.composite_runs.launches > runs) == (force or transport == "ubyte")
+    del gpu._use_preblend
+    gpu.scan_piece_threshold = 16 if scene == "deep" else 0
+    np.testing.assert_array_equal(gpu.render(cams[0], overlay=False), got)
+    gpu.scan_piece_threshold = 16
+    batch = gpu.render_batch(cams, overlay=False)
+    for frame, ref in zip(batch, want):
+        assert_close(torch.from_numpy(frame), torch.from_numpy(ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("row,force", [("persistent-8dev-preblend", True),
+                                       ("persistent-8dev-plain", False)])
+def test_persistent_golden_rows(cuda, row, force):
+    from amrvolumerenderer_torch.parallel.persistent import MultiChipSceneRenderer
+
+    geometry = api.load_amr_geometry(r2_data(), 0, -1, 0, False, True, verbose=False)
+    r = MultiChipSceneRenderer(geometry, RenderParameters(width=48, height=48),
+                               num_devices=8, device=cuda)
+    r._use_preblend = lambda rmax: force
+    before = comp.composite_runs.launches
+    got = r.render(auto_orbit_camera(r.bounds), overlay=False)
+    assert comp.composite_runs.launches == before + (8 if force else 0)
+    assert_close(torch.from_numpy(got), torch.from_numpy(np.load(GOLDEN)[row]))

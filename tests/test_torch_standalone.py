@@ -3,8 +3,9 @@
 ``amrvolumerenderer_torch`` imports (the animation path's ``transforms``
 and ``device_scene`` among them), and the CLI renders a plotfile through
 the default (slice-march) route, over two shards (``--devices 2``, the
-``parallel`` package) and an orbit through the batched tile-march path on
-the CPU."""
+``parallel`` package), an orbit through the batched tile-march path and an
+orbit over two shards (the persistent multi-device renderer) on the
+CPU."""
 
 import os
 import subprocess
@@ -36,6 +37,7 @@ import amrvolumerenderer_torch
 names = [m.name for m in pkgutil.walk_packages(
     amrvolumerenderer_torch.__path__, "amrvolumerenderer_torch.")]
 assert "amrvolumerenderer_torch.parallel.directsend" in names, names
+assert "amrvolumerenderer_torch.parallel.persistent" in names, names
 for name in names:
     importlib.import_module(name)
 print("imported", len(names), "modules")
@@ -91,6 +93,23 @@ def test_port_renders_orbit_with_jax_and_reference_blocked(tmp_path, plotfile):
     proc = subprocess.run(
         [sys.executable, "-c", BLOCKED_RUN, "--width", "32", "--height", "32",
          "--device", "cpu", "--orbit-frames", "2", "--output", str(out), plotfile],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "imported" in proc.stdout and "Saved orbit frames" in proc.stdout
+    frames = [(tmp_path / f"orbit_{i:04d}.ppm").read_bytes() for i in range(2)]
+    assert all(f.startswith(b"P6") for f in frames) and frames[0] != frames[1]
+
+
+def test_port_renders_multi_device_orbit_with_jax_and_reference_blocked(
+        tmp_path, plotfile):
+    out = tmp_path / "orbit.ppm"
+    path = os.environ.get("PYTHONPATH")
+    env = dict(os.environ, PYTHONPATH=REPO + (os.pathsep + path if path else ""))
+    proc = subprocess.run(
+        [sys.executable, "-c", BLOCKED_RUN, "--width", "32", "--height", "32",
+         "--device", "cpu", "--devices", "2", "--orbit-frames", "2", "--output",
+         str(out), plotfile],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
