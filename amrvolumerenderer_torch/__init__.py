@@ -11,11 +11,12 @@ kernel per shard and the direct-send exchange, ``parallel/``).  It imports neith
 package: the host modules (types, scene, amr, plotfile, camera, colormap,
 visibility, native) are its own copies.
 
-Public surface: ``render``, ``initialize_runtime``, ``finalize_runtime``,
-the in-situ API under ``amrvolumerenderer_torch.api`` and
-``FastSceneRenderer``.  Every entry takes a ``device`` (default
-``"cuda"``, which raises when no GPU is available; ``"cpu"`` runs the
-plain PyTorch versions of the kernels).
+Public surface: ``render``, ``compute_histogram``, ``initialize_runtime``,
+``finalize_runtime``, the in-situ API under ``amrvolumerenderer_torch.api``,
+``FastSceneRenderer`` and ``prepare_device_scene`` (in-situ ingestion of
+tensors, ``device_scene``).  Every entry that renders takes a ``device``
+(default ``"cuda"``, which raises when no GPU is available; ``"cpu"`` runs
+the plain PyTorch versions of the kernels).
 """
 
 from __future__ import annotations
@@ -74,6 +75,7 @@ def render(
     lut_size: int = 256,
     orbit_frames: int = 0,
     orbit_degrees: float = 360.0,
+    render_method: str = "auto",
     device: str = "cuda",
 ) -> int:
     """Render a plotfile: the JAX package's kwarg surface (the reference
@@ -83,7 +85,9 @@ def render(
     ``--orbit-frames``).  ``devices=N`` renders one frame over N shards
 (placed round-robin over the visible cards; the CPU with
 ``device="cpu"``); with ``orbit_frames`` too, the orbit renders over N
-shards through the persistent multi-device renderer."""
+shards through the persistent multi-device renderer.  ``render_method``
+(the CLI's ``--render-method``: auto, slicemarch, tilemarch or raymarch)
+selects the kernel route."""
     import math
 
     import numpy as np
@@ -109,6 +113,7 @@ shards through the persistent multi-device renderer."""
     p.sampling = sampling
     p.classification = classification
     p.lut_size = int(lut_size)
+    p.render_method = render_method
     if orbit_frames:
         if int(orbit_frames) <= 0:
             raise ValueError("orbit_frames must be positive")
@@ -162,12 +167,53 @@ shards through the persistent multi-device renderer."""
     return run_options(options)
 
 
+def compute_histogram(
+    plotfile: str,
+    variable: Optional[str] = None,
+    min_level: int = 0,
+    max_level: int = -1,
+    log_scale: bool = False,
+    bins: int = 256,
+) -> dict:
+    """Histogram of the normalized scalar values used during rendering;
+    the reference binding's return dict (module.cpp:304-356).  The
+    plotfile's bricks are binned on the host."""
+    from .driver import compute_scalar_histogram
+
+    hist = compute_scalar_histogram(
+        plotfile, variable or "", min_level, max_level, log_scale, bins
+    )
+    return {
+        "counts": hist.bin_counts.tolist(),
+        "normalized_range": list(hist.normalized_range),
+        "processed_range": (
+            list(hist.processed_range) if hist.has_processed_range else None
+        ),
+        "original_range": (
+            list(hist.original_range) if hist.has_original_range else None
+        ),
+        "samples": int(hist.sample_count),
+    }
+
+
 def __getattr__(name):
+    # lazy re-exports of the extended (beyond-reference) API surface
     if name == "FastSceneRenderer":
         from .fast_scene import FastSceneRenderer
 
         return FastSceneRenderer
+    if name == "prepare_device_scene":
+        from .device_scene import prepare_device_scene
+
+        return prepare_device_scene
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
-__all__ = ["render", "initialize_runtime", "finalize_runtime", "FastSceneRenderer"]
+__all__ = [
+    "render",
+    "compute_histogram",
+    "initialize_runtime",
+    "finalize_runtime",
+    "FastSceneRenderer",
+    "prepare_device_scene",
+]

@@ -1,9 +1,10 @@
 """In-situ rendering API: the ``amrVolumeRenderer::api`` equivalent.
 
-The port of the JAX package's ``api.py`` (VolumeRendererApi.cpp:257-395):
-render in-memory AMR data with the same validation, level clamping,
-convexify step and colormap physical -> processed -> normalized
-conversion, plus the ``device`` option (default ``"cuda"``).
+The port of the JAX package's ``api.py`` (VolumeRendererApi.cpp:257-412):
+render in-memory AMR data, or histogram its scalars, with the same
+validation, level clamping, convexify step and colormap physical ->
+processed -> normalized conversion, plus the ``device`` option (default
+``"cuda"``).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from .scene import (
     LevelGeometry,
     SceneBuildOptions,
     build_scene_geometry,
+    compute_scene_histogram,
     set_scene_normalization_range,
 )
 from .types import (
@@ -31,9 +33,11 @@ from .types import (
     ColorMap,
     ColorMapControlPoint,
     RenderParameters,
+    ScalarHistogram,
     SceneGeometry,
     vec3,
 )
+
 
 @dataclasses.dataclass
 class AmrData:
@@ -71,10 +75,21 @@ class RenderOptions:
     classification: str = "post"  # or "pre" (trilinear only)
     lut_size: int = 256  # transfer-function LUT entries (multiple of 128)
     devices: Optional[int] = None  # shards of one frame, round-robin over the cards
-    render_method: str = "auto"  # auto (= slicemarch), slicemarch, tilemarch
+    render_method: str = "auto"  # auto (= slicemarch), slicemarch, tilemarch, raymarch
     multichip_pipeline: str = "auto"
     multichip_transport: str = "float32"
     device: Device = DEFAULT_DEVICE
+
+
+@dataclasses.dataclass
+class HistogramOptions:
+    """VolumeRendererApi.hpp:46-52."""
+
+    min_level: int = 0
+    max_level: int = -1
+    log_scale_input: bool = False
+    bin_count: int = 256
+    component: int = 0
 
 
 def validate_scalar_range(scalar_range) -> None:
@@ -331,3 +346,23 @@ def render(
         options.output_filename, parameters, geometry, camera=camera,
         color_map=normalized_color_map, verbose=verbose, device=options.device,
     )
+
+
+def compute_histogram(
+    data: AmrData, options: HistogramOptions, verbose: bool = False
+) -> ScalarHistogram:
+    """In-situ histogram entry point (VolumeRendererApi.cpp:397-412).  The
+    bricks are NumPy arrays, so they are binned on the host
+    (``device_scene.device_histogram``)."""
+    if options.bin_count <= 0:
+        raise ValueError("binCount must be positive")
+    geometry = load_amr_geometry(
+        data,
+        options.min_level,
+        options.max_level,
+        options.component,
+        options.log_scale_input,
+        normalize_to_data_range=True,
+        verbose=verbose,
+    )
+    return compute_scene_histogram(geometry, options.bin_count)

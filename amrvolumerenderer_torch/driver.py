@@ -25,11 +25,12 @@ from .plotfile import (
     write_plotfile,  # noqa: F401 - re-exported for scripts that make plotfiles
 )
 from .renderer import render_orbit, render_scene, validate_render_parameters
-from .scene import SceneBuildOptions, build_scene_geometry
+from .scene import SceneBuildOptions, build_scene_geometry, compute_scene_histogram
 from .types import (
     CameraParameters,
     ColorMap,
     RenderParameters,
+    ScalarHistogram,
     SceneGeometry,
 )
 
@@ -56,7 +57,9 @@ USAGE = """Usage: volume_renderer [options] plotfile
                    the bricks resident (the persistent multi-device renderer)
   --render-method M  Kernel route: auto (= slicemarch), slicemarch (march +
                    tile composite kernels; scenes of more than 96 pieces go
-                   to tile-march) or tilemarch; raymarch is not ported
+                   to tile-march), tilemarch, or raymarch (the per-pixel
+                   oracle with exact reference semantics; nearest sampling,
+                   one device)
   --trace-dir DIR  Write a torch.profiler Chrome trace of the render into DIR
   --classification MODE  Transfer-function classification for trilinear
                    sampling: post (default) or pre
@@ -391,6 +394,30 @@ def run_options(options: RunOptions, verbose: bool = True) -> int:
                 device=options.device,
             )
     return 0
+
+
+def compute_scalar_histogram(
+    plotfile_path: str,
+    variable_name: str,
+    requested_min_level: int,
+    requested_max_level: int,
+    log_scale_input: bool,
+    bin_count: int,
+    verbose: bool = False,
+) -> ScalarHistogram:
+    """VolumeRenderer::computeScalarHistogram (cpp:880-897): the plotfile's
+    bricks are NumPy arrays, binned on the host."""
+    if bin_count <= 0:
+        raise ValueError("binCount must be positive")
+    geometry = load_plotfile_geometry(
+        plotfile_path,
+        variable_name,
+        requested_min_level,
+        requested_max_level,
+        log_scale_input,
+        verbose=verbose,
+    )
+    return compute_scene_histogram(geometry, bin_count)
 
 
 def main(argv: Optional[List[str]] = None) -> int:

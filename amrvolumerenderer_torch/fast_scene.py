@@ -85,6 +85,56 @@ def _split_to_cubes(data, min_corner, max_corner, cube, ghost=0, padded=None):
     return pieces
 
 
+def _piece_table(datas, bricks, ghost: int):
+    """The canonical piece table of pre-transformed bricks (the JAX
+    package's ``fast_scene._ghost_fill_bricks`` and the split loop of
+    ``FastSceneRenderer.__init__`` / ``update_data`` /
+    ``device_scene.prepare_device_scene``): with ``ghost`` (trilinear)
+    cross-brick ghost rings (``ghost.ghost_fill``), then each brick split
+    into <= (32 - 2 ghost)^3 cores and zero padded to 32^3.
+
+    ``datas`` are all NumPy arrays (the table is assembled on the host and
+    returned as one array) or all tensors on one device (padded and
+    stacked there; only the per-piece value ranges are read back).
+    Returns ``(canonical [L, 32, 32, 32], piece_meta [(min, max, dims,
+    parent)], piece_ranges [(vmin, vmax)])``."""
+    core = MAX_CUBE - 2 * ghost
+    padded_list = [None] * len(datas)
+    if ghost and len(datas) > 1:
+        from .ghost import ghost_fill
+
+        padded_list = ghost_fill(
+            datas, [(b.min_corner, b.max_corner) for b in bricks], ghost
+        )
+    host = all(isinstance(d, np.ndarray) for d in datas)
+    c = MAX_CUBE
+    blocks, piece_meta, ranges = [], [], []
+    for parent, brick in enumerate(bricks):
+        for block, mn, mx, dims in _split_to_cubes(
+            datas[parent], brick.min_corner, brick.max_corner, core,
+            ghost=ghost, padded=padded_list[parent],
+        ):
+            piece_meta.append((mn, mx, dims, parent))
+            if host:
+                ranges.append((float(np.min(block)), float(np.max(block))))
+                blocks.append(block)
+            else:
+                ranges.append(torch.stack([block.amin(), block.amax()]))
+                d0, d1, d2 = block.shape
+                blocks.append(torch.nn.functional.pad(
+                    block, (0, c - d2, 0, c - d1, 0, c - d0)))
+    if not blocks:
+        raise ValueError("scene contains no bricks")
+    if host:
+        canonical = np.zeros((len(blocks), c, c, c), np.float32)
+        for i, d in enumerate(blocks):
+            canonical[i, : d.shape[0], : d.shape[1], : d.shape[2]] = d
+    else:
+        canonical = torch.stack(blocks)
+        ranges = [tuple(r) for r in torch.stack(ranges).cpu().tolist()]
+    return canonical, piece_meta, ranges
+
+
 def _repack_for_axis(canonical: torch.Tensor, axis: int, cube: int) -> torch.Tensor:
     """[L, c, c, c] canonical table -> [L, c, 8, 128] slices for the march
     axis (slice-major, row stride c, zero padded to 1024 cells)."""
@@ -197,35 +247,31 @@ class FastSceneRenderer(nn.Module):
         # trilinear: 1-cell ghost rings make cube splits seam-free (the
         # core shrinks to MAX_CUBE - 2 so the stored block still fits)
         ghost = 1 if parameters.sampling == "trilinear" else 0
-        core = MAX_CUBE - 2 * ghost
         datas = [
             _pretransform(b.data, t, clip_start, apply_clip)
             for b in geometry.bricks
         ]
-        padded_list = [None] * len(datas)
-        if ghost and len(datas) > 1:
-            from .ghost import ghost_fill
+        canonical, piece_meta, piece_ranges = _piece_table(
+            datas, geometry.bricks, ghost)
+        self._init_from_canonical(
+            geometry, parameters, color_map, canonical, piece_meta,
+            piece_ranges, ghost=ghost, precision=precision, device=device,
+        )
 
-            padded_list = ghost_fill(
-                datas, [(b.min_corner, b.max_corner) for b in geometry.bricks],
-                ghost,
-            )
-        pieces, piece_meta, piece_ranges = [], [], []
-        for parent, brick in enumerate(geometry.bricks):
-            for d, mn, mx, dims in _split_to_cubes(
-                datas[parent], brick.min_corner, brick.max_corner, core,
-                ghost=ghost, padded=padded_list[parent],
-            ):
-                pieces.append(d)
-                piece_meta.append((mn, mx, dims, parent))
-                piece_ranges.append((float(np.min(d)), float(np.max(d))))
-        num = len(pieces)
-        if num == 0:
-            raise ValueError("scene contains no bricks")
-        canonical = np.zeros((num, MAX_CUBE, MAX_CUBE, MAX_CUBE), np.float32)
-        for i, d in enumerate(pieces):
-            canonical[i, : d.shape[0], : d.shape[1], : d.shape[2]] = d
-
+    def _init_from_canonical(
+        self, geometry: SceneGeometry, parameters: RenderParameters,
+        color_map: Optional[ColorMap], canonical, piece_meta, piece_ranges,
+        ghost: int, precision: str, device: Device,
+    ) -> None:
+        """Everything but the piece table: bounds, scalar range, LUT and
+        per-piece metadata from ``geometry`` (``_piece_table``'s outputs
+        describe ``canonical``)."""
+        validate_render_parameters(parameters)
+        scalar_range = (
+            geometry.scalar_range
+            if geometry.has_scalar_range
+            else compute_global_scalar_range(geometry)
+        )
         bounds = compute_global_bounds(geometry)
         alpha_scale = float(np.clip(1.0 - parameters.box_transparency, 0, 1))
         table = build_color_table(
@@ -456,36 +502,9 @@ class FastSceneRenderer(nn.Module):
                     torch.as_tensor(arr).to(self.device), t, clip_start,
                     apply_clip,
                 ))
-        padded_list = [None] * len(datas)
-        if self.ghost and len(datas) > 1:
-            from .ghost import ghost_fill
-
-            padded_list = ghost_fill(
-                datas, [(b.min_corner, b.max_corner) for b in bricks],
-                self.ghost,
-            )
-        piece_arrays, ranges = [], []
-        c = self.cube
-        for parent, brick in enumerate(bricks):
-            for block, _mn, _mx, _dims in _split_to_cubes(
-                datas[parent], brick.min_corner, brick.max_corner, self.core,
-                ghost=self.ghost, padded=padded_list[parent],
-            ):
-                d0, d1, d2 = block.shape
-                if all_host:
-                    ranges.append((float(block.min()), float(block.max())))
-                    buf = np.zeros((c, c, c), np.float32)
-                    buf[:d0, :d1, :d2] = block
-                    piece_arrays.append(buf)
-                else:
-                    ranges.append(torch.stack([block.amin(), block.amax()]))
-                    piece_arrays.append(torch.nn.functional.pad(
-                        block, (0, c - d2, 0, c - d1, 0, c - d0)))
-        if all_host:
-            canonical = torch.from_numpy(np.stack(piece_arrays)).to(self.device)
-        else:
-            canonical = torch.stack(piece_arrays)
-            ranges = [tuple(r) for r in torch.stack(ranges).cpu().tolist()]
+        canonical, _meta, ranges = _piece_table(datas, bricks, self.ghost)
+        if isinstance(canonical, np.ndarray):
+            canonical = torch.from_numpy(canonical).to(self.device)
         canonical = canonical.to(self.canonical.dtype)
         if canonical.shape != self.canonical.shape:
             raise ValueError(

@@ -220,3 +220,33 @@ def rsqrt(x: Tensor) -> Tensor:
     for _ in range(2):
         y = fma(y * -0.5, fma(x * y, y, -1.0), y)
     return y
+
+
+def tanf(x: float) -> float:
+    """The C library's float32 ``tanf`` of a float32 ``x``, which XLA:CPU
+    calls for a float32 ``tan`` (and its constant folder evaluates).  Not
+    every libm rounds it correctly (glibc 2.36 misses the float32 nearest
+    to the float64 ``tan`` on about 4% of arguments in [0, pi/2)), so the
+    port calls the same function; without a loadable libm it rounds the
+    float64 ``tan``."""
+    import ctypes
+    import ctypes.util
+    import math
+
+    global _TANF
+    if _TANF is None:
+        name = ctypes.util.find_library("m")
+        try:
+            fn = ctypes.CDLL(name).tanf if name else None
+        except (OSError, AttributeError):
+            fn = None
+        if fn is not None:
+            fn.restype = ctypes.c_float
+            fn.argtypes = [ctypes.c_float]
+            _TANF = fn
+        else:
+            _TANF = lambda v: float(np.float32(math.tan(v)))  # noqa: E731
+    return float(np.float32(_TANF(float(np.float32(x)))))
+
+
+_TANF = None

@@ -740,6 +740,73 @@ def render_and_composite_sharded_slicemarch(
     return _compose_shards(mesh, layers, hints, transport)
 
 
+def render_and_composite_sharded(
+    mesh: Mesh,
+    data,  # [D * Bmax, nx, ny, nz] padded brick values
+    min_corner,  # [D * Bmax, 3]
+    max_corner,  # [D * Bmax, 3]
+    cell_dims,  # [D * Bmax, 3] int32
+    color_table,  # [D * Bmax, size, 4] (size = lut_size)
+    sample_distance,  # [D * Bmax]
+    valid,  # [D * Bmax] bool: padding slots are False
+    depth_hints,  # [D * Bmax] float32 (+inf for padding)
+    camera_arrays,  # eye, forward, right, up
+    fov_y_degrees: float,
+    range_min: float,
+    inverse_range: float,
+    transform_scalars: Tuple[float, float, float],
+    *,
+    width: int,
+    height: int,
+    num_steps: int,
+    log_scale: bool,
+    normalize: bool,
+    clip_start: float,
+    apply_clip: bool,
+    transport: str = "float32",
+) -> Shards:
+    """The raymarch-based multi-device frame: each shard marches its block
+    of the brick table with the raymarch oracle (``ops.raymarch``; its
+    padding slots stay cleared, colour 0 and depth +inf), then the
+    exchange and the pixel-mode fold in global (hint, owner, local) order
+    (``_compose_shards``).  ``transport`` selects the exchange payload
+    ("float32" exact, "ubyte" the reference's byte colours); the JAX
+    function sends float32.  The JAX program closes over the camera, so
+    XLA folds it; the march rounds the ray as that program does
+    (``fold_camera``).  Returns the [width * height / D, 5] pixel
+    shards."""
+    from ..ops.raymarch import render_bucket_into
+
+    if (width * height) % mesh.size:
+        raise ValueError("width * height must be divisible by the mesh size")
+    positive_floor, normalization_min, inverse_normalization_span = (
+        float(np.float32(v)) for v in transform_scalars)
+    tables = shard_leading(mesh, data, min_corner, max_corner, cell_dims,
+                           color_table, sample_distance, valid, depth_hints)
+    layers, hints = [], []
+    for r, dev in enumerate(mesh.devices):
+        b_data, b_min, b_max, b_dims, b_lut, b_step, b_valid, b_hints = (
+            t[r] for t in tables)
+        with _on(dev):
+            out = torch.zeros((b_data.shape[0], width * height, 5),
+                              dtype=torch.float32, device=dev)
+            out[..., 4] = float("inf")
+            slots = torch.nonzero(b_valid.to(torch.bool), as_tuple=True)[0]
+            render_bucket_into(
+                out, slots, b_data[slots], b_min[slots], b_max[slots],
+                b_dims[slots], b_lut[slots], b_step[slots], *camera_arrays,
+                float(fov_y_degrees), float(np.float32(range_min)),
+                float(np.float32(inverse_range)), positive_floor,
+                normalization_min, inverse_normalization_span,
+                width=width, height=height, num_steps=num_steps,
+                log_scale=log_scale, normalize=normalize,
+                clip_start=clip_start, apply_clip=apply_clip, fold_camera=True)
+            layers.append(out)
+            hints.append(torch.where(b_valid.to(torch.bool),
+                                     b_hints.to(torch.float32), float("inf")))
+    return _compose_shards(mesh, layers, hints, transport)
+
+
 def _local_precomposite(mesh: Mesh, layers: Shards, hints: Shards) -> Shards:
     """Each shard's front-to-back fold of its own depth run: a stable
     argsort of its hints, every layer its own run."""

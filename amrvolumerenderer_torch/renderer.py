@@ -1,11 +1,13 @@
 """Render pipeline orchestration: the ``VolumeRenderer`` equivalent.
 
 Mirrors the JAX package's ``renderer.py`` (and VolumeRenderer.cpp's
-renderScene / renderSingleTrial flow, cpp:947-1339) for one device:
-bounds and scalar range, visibility order, the fused frame on the device
-(slice-march + tile composite, or tile-march), the bounds wireframe
-overlay and PPM/PNG output; ``render_orbit`` renders a camera orbit
-through the batched tile-march path.
+renderScene / renderSingleTrial flow, cpp:947-1339): bounds and scalar
+range, visibility order, the frame on the device (the fused slice-march +
+tile composite or tile-march frame, or the raymarch oracle's per-brick
+layers folded by ``compositor.composite_layers_device``), the AA
+downsample, the bounds wireframe overlay and PPM/PNG output;
+``render_orbit`` renders a camera orbit through the batched tile-march
+path.
 """
 
 from __future__ import annotations
@@ -13,17 +15,18 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from . import io as image_io
 from . import native
-from .camera import auto_orbit_camera, safe_normalize
+from .camera import auto_orbit_camera, camera_basis, safe_normalize
+from .colormap import SOFT_CLIP_TOLERANCE, build_color_table
 from .device import DEFAULT_DEVICE, Device, resolve_device
 from .image import ImageBuffer, ImageKind
-from .scene import _scalar_stats
+from .scene import _scalar_stats, build_brick_buckets
 from .types import (
     CameraParameters,
     ColorMap,
@@ -295,22 +298,129 @@ class RenderTiming:
     composite_seconds: float = 0.0
 
 
+def _build_camera_arrays(camera: CameraParameters, device: Device = DEFAULT_DEVICE):
+    """(eye, forward, right, up) of ``camera`` as float32 [3] tensors on
+    ``device``."""
+    forward, right, up = camera_basis(camera)
+    dev = resolve_device(device)
+    return tuple(
+        torch.tensor(np.asarray(v, np.float32), device=dev)
+        for v in (camera.eye, forward, right, up)
+    )
+
+
 def resolve_render_method(method: str, sampling: str = "nearest") -> str:
-    """The kernel route for ``method``, as the JAX package resolves it on a
-    TPU: ``"slicemarch"`` (and ``"auto"``) is the one-shot slice-march +
-    tile composite route, which hands scenes of more than 96 pieces to the
-    tile-march kernel; ``"tilemarch"`` is the tile-march route.  The
-    raymarch oracle (the JAX package's CPU default) is not ported yet."""
+    """The kernel route for ``method``: ``"slicemarch"`` (and ``"auto"``,
+    since the port's accelerator is the card; the JAX package resolves
+    ``auto`` to the raymarch oracle off the TPU) is the one-shot
+    slice-march + tile composite route, which hands scenes of more than 96
+    pieces to the tile-march kernel; ``"tilemarch"`` is the tile-march
+    route; ``"raymarch"`` is the oracle with exact reference semantics
+    (``ops.raymarch``), nearest sampling only."""
     if method in ("auto", "slicemarch"):
         return "slicemarch"
-    if method == "tilemarch":
-        return "tilemarch"
-    if method == "raymarch":
-        raise ValueError(
-            "render method 'raymarch' is not ported to PyTorch yet (ROADMAP.md "
-            "module item 4); use auto, slicemarch or tilemarch"
+    if method not in ("raymarch", "tilemarch"):
+        raise ValueError(f"unknown render method '{method}'")
+    if method == "raymarch" and sampling == "trilinear":
+        raise ValueError("sampling=\"trilinear\" requires the slicemarch "
+                         "or tilemarch method")
+    return method
+
+
+def _render_layers_raymarch(
+    geometry: SceneGeometry,
+    parameters: RenderParameters,
+    camera: CameraParameters,
+    bounds: VolumeBounds,
+    scalar_range: Tuple[float, float],
+    reference_sample_distance: float,
+    render_width: int,
+    render_height: int,
+    color_map: Optional[ColorMap],
+    device: torch.device,
+) -> Tuple[torch.Tensor, np.ndarray, np.ndarray, np.ndarray]:
+    """The raymarch oracle's layers: every brick marched into a
+    full-frame RGBA + depth layer of a ``[L, P, 5]`` stack on ``device``
+    (one ``ops.raymarch`` call per bucket of same-shape bricks), with the
+    layer order keys, owners and local indices on the host."""
+    from .ops.raymarch import max_steps_for_bucket, render_bucket_into
+    from .visibility import order_keys_or_hints
+
+    bricks = geometry.bricks
+    num_bricks = len(bricks)
+    layers = torch.zeros((num_bricks, render_width * render_height, 5),
+                         dtype=torch.float32, device=device)
+    layers[..., 4] = float("inf")
+
+    alpha_scale = float(np.clip(1.0 - parameters.box_transparency, 0.0, 1.0))
+    clip_start = float(np.clip(scalar_range[1], 0.0, 1.0))
+    apply_clip = 1.0 > clip_start + SOFT_CLIP_TOLERANCE
+    t = geometry.scalar_transform
+    eye, fwd, right, up = _build_camera_arrays(camera, device)
+
+    # fallback spacing when a brick has no positive spacing
+    # (VolumePainter.cpp:593-597)
+    span = bounds.max_corner - bounds.min_corner
+    fallback_spacing = max(1e-4, float(min(span)) * 0.01)
+    range_span = scalar_range[1] - scalar_range[0]
+    inverse_range = float(np.float32(1.0 / range_span if range_span != 0.0 else 1.0))
+    lut_cache: Dict[float, np.ndarray] = {}
+    for bucket in build_brick_buckets(bricks):
+        n = len(bucket.brick_indices)
+        sample_distances = np.zeros(n, dtype=np.float32)
+        luts = np.zeros((n, parameters.lut_size, 4), dtype=np.float32)
+        for slot, idx in enumerate(bucket.brick_indices):
+            ms = bricks[int(idx)].min_spacing()
+            if not (ms > 0.0 and math.isfinite(ms)):
+                ms = fallback_spacing
+            sample_distance = max(ms * 0.5, 1e-5)
+            sample_distances[slot] = sample_distance
+            ref = reference_sample_distance
+            if not (ref > 0.0 and math.isfinite(ref)):
+                ref = sample_distance
+            normalization_factor = sample_distance / ref
+            if not math.isfinite(normalization_factor):
+                normalization_factor = 1.0
+            normalization_factor = max(normalization_factor, 0.0)
+            key = round(normalization_factor, 12)
+            if key not in lut_cache:
+                lut_cache[key] = build_color_table(
+                    alpha_scale, normalization_factor, scalar_range, color_map,
+                    size=parameters.lut_size,
+                )
+            luts[slot] = lut_cache[key]
+        render_bucket_into(
+            layers, bucket.brick_indices.astype(np.int64), bucket.data,
+            bucket.min_corner, bucket.max_corner, bucket.cell_dims, luts,
+            sample_distances, eye, fwd, right, up, camera.fov_y_degrees,
+            float(np.float32(scalar_range[0])), inverse_range,
+            float(np.float32(t.positive_floor)),
+            float(np.float32(t.normalization_min)),
+            float(np.float32(t.inverse_normalization_span)),
+            width=render_width, height=render_height,
+            num_steps=max_steps_for_bucket(bucket.min_corner, bucket.max_corner,
+                                           sample_distances),
+            log_scale=bool(t.log_scale_input),
+            normalize=bool(t.normalize_to_unit_range),
+            clip_start=clip_start, apply_clip=bool(apply_clip),
         )
-    raise ValueError(f"unknown render method '{method}'")
+
+    # layer order keys: brick-level visibility-graph positions, or the
+    # nearest-corner depth hints (visibility.order_keys_or_hints)
+    depth_hints = order_keys_or_hints(
+        camera, render_width / max(render_height, 1),
+        np.array([b.min_corner for b in bricks]),
+        np.array([b.max_corner for b in bricks]),
+        use_graph=parameters.use_visibility_graph,
+    )
+    owners = np.array([b.owner for b in bricks], dtype=np.int32)
+    # local index = position within the owner's local brick list
+    local_indices = np.zeros(num_bricks, dtype=np.int32)
+    counters: Dict[int, int] = {}
+    for i, b in enumerate(bricks):
+        local_indices[i] = counters.get(b.owner, 0)
+        counters[b.owner] = local_indices[i] + 1
+    return layers, depth_hints, owners, local_indices
 
 
 def render_layers(
@@ -326,22 +436,31 @@ def render_layers(
     method: str = "auto",
     device: Device = DEFAULT_DEVICE,
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
-    """Every piece rendered into a full-frame RGBA+depth layer: (layers
-    [L, P, 5], depth_hints [L], owners [L], local_indices [L]), through the
-    slice-march kernel (``renderer_fast.render_layers_slicemarch``).  The
-    JAX package's other layered route is the raymarch oracle, which is not
-    ported yet."""
-    if resolve_render_method(method, parameters.sampling) != "slicemarch":
+    """Every piece rendered into a full-frame RGBA+depth layer on
+    ``device``: (layers [L, P, 5], depth_hints [L], owners [L],
+    local_indices [L]) on the host.  ``"raymarch"`` marches every brick
+    (the oracle; L = bricks), the slice-march route every split piece
+    (``renderer_fast.render_layers_slicemarch``).  ``"tilemarch"`` has no
+    layered route."""
+    resolved = resolve_render_method(method, parameters.sampling)
+    dev = resolve_device(device)
+    if resolved == "raymarch":
+        layers, hints, owners, local = _render_layers_raymarch(
+            geometry, parameters, camera, bounds, scalar_range,
+            reference_sample_distance, render_width, render_height, color_map,
+            dev)
+        return layers.cpu().numpy(), hints, owners, local
+    if resolved != "slicemarch":
         raise ValueError(
-            f"render method '{method}' has no layered route in the port: the "
-            "raymarch layers are ROADMAP.md module item 4; use slicemarch"
+            f"render method '{method}' has no layered route; use raymarch "
+            "or slicemarch"
         )
     from .renderer_fast import render_layers_slicemarch
 
     return render_layers_slicemarch(
         geometry, parameters, camera, bounds, scalar_range,
         reference_sample_distance, render_width, render_height, color_map,
-        device=device,
+        device=dev,
     )
 
 
@@ -358,21 +477,25 @@ def render_single_trial(
     method: str = "auto",
     device: Device = DEFAULT_DEVICE,
 ) -> Tuple[ImageBuffer, RenderTiming]:
-    """One full render: visibility order, the fused frame on ``device``
-    (render + composite + AA downsample; over ``parameters.devices``
-    shards when more than one), overlay, save (VolumeRenderer.cpp:
-    1103-1339).  ``scalar_range`` must be the one ``render_scene`` derives
-    from ``geometry``."""
+    """One full render: visibility order, the frame on ``device`` (the
+    fused render + composite + AA downsample, over ``parameters.devices``
+    shards when more than one; or for ``"raymarch"`` the oracle's layers
+    folded on the device, read back and downsampled on the host), overlay,
+    save (VolumeRenderer.cpp:1103-1339).  ``scalar_range`` must be the one
+    ``render_scene`` derives from ``geometry``."""
+    from .compositor import composite_layers_device
     from .renderer_fast import (
         render_composited_sharded,
         render_composited_slicemarch,
         render_composited_tilemarch,
+        visibility_owner_keys,
     )
 
     dev = resolve_device(device)
     num_devices = parameters.devices or 1
     if num_devices < 1:
         raise ValueError("devices must be a positive device count")
+    resolved = resolve_render_method(method, parameters.sampling)
     if num_devices > 1 and method not in ("auto", "slicemarch"):
         # the sharded pipelines are slice-march based; overriding an
         # explicitly requested kernel would hand back other pixels unasked
@@ -381,7 +504,6 @@ def render_single_trial(
             "rendering uses the slicemarch pipeline (use 'auto' or "
             "'slicemarch' with devices > 1)"
         )
-    resolved = resolve_render_method(method, parameters.sampling)
     timing = RenderTiming()
     sqrt_aa = max(int(round(math.sqrt(parameters.antialiasing))), 1)
     render_width = parameters.width * sqrt_aa
@@ -422,6 +544,12 @@ def render_single_trial(
             transport=parameters.multichip_transport,
             rank_order=rank_order, device=dev,
         )
+    elif resolved == "raymarch":
+        layers, depth_hints, owners, local_indices = _render_layers_raymarch(
+            geometry, parameters, camera, bounds, scalar_range,
+            reference_sample_distance, render_width, render_height, color_map,
+            dev,
+        )
     elif resolved == "tilemarch":
         composited = render_composited_tilemarch(
             geometry, parameters, camera, color_map, device=dev
@@ -433,6 +561,8 @@ def render_single_trial(
             color_map, downsample_block=sqrt_aa, rank_order=rank_order,
             device=dev,
         )
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
     timing.render_seconds = time.perf_counter() - t0
     if verbose:
         print(f"Render: per-box rendering took {timing.render_seconds:.4f} s")
@@ -440,13 +570,29 @@ def render_single_trial(
             "Render: visibility graph computation took "
             f"{timing.visibility_seconds:.4f} s"
         )
-        print(f"Render: compositing took {timing.composite_seconds:.4f} s")
-
-    output_image = ImageBuffer(
-        ImageKind.RGBA_F32_DEPTH_SORT, parameters.width, parameters.height,
-        composited,
-    )
+    if resolved == "raymarch":
+        # the layered fold on the device (composeLayered), then the frame
+        # crosses to the host for the AA downsample
+        t0 = time.perf_counter()
+        composited = composite_layers_device(
+            layers, depth_hints, visibility_owner_keys(owners, rank_order),
+            local_indices,
+        ).cpu().numpy()
+        del layers
+        timing.composite_seconds = time.perf_counter() - t0
+        full = ImageBuffer(ImageKind.RGBA_F32_DEPTH_SORT, render_width,
+                           render_height, composited)
+        output_image = (
+            downsample_image(full, parameters.width, parameters.height, sqrt_aa)
+            if sqrt_aa > 1 else full
+        )
+    else:
+        output_image = ImageBuffer(
+            ImageKind.RGBA_F32_DEPTH_SORT, parameters.width, parameters.height,
+            composited,
+        )
     if verbose:
+        print(f"Render: compositing took {timing.composite_seconds:.4f} s")
         print(
             f"Render: composed {render_width * render_height}"
             " pixels on rank 0"

@@ -6,21 +6,24 @@ model: because the host sees the whole scene, the reference's MPI_Allreduce
 choreography collapses into plain global reductions; the distribution over
 "ranks" becomes an owner assignment over mesh devices done at partition time.
 
-The port's copy of ``amrvolumerenderer_tpu/scene.py``, host part only: the
-device statistics and the scene histogram stay in the JAX package
-(ROADMAP.md module item 7), and so does the raymarch brick bucketing.
+The port's copy of ``amrvolumerenderer_tpu/scene.py``: the host pipeline,
+the scalar statistics (tensors reduce where they lie,
+``device_scene.device_scalar_stats``), the scene histogram and the brick
+buckets of the raymarch oracle.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from .types import (
     Brick,
+    ScalarHistogram,
     SceneGeometry,
     VolumeBounds,
     vec3,
@@ -82,15 +85,51 @@ def _scalar_stats_numpy(arrays: Sequence[np.ndarray]):
     return min_v, max_v, min_pos, count
 
 
-def _scalar_stats(arrays: Sequence[np.ndarray]):
-    """Scalar statistics of host arrays (SceneBuilder.cpp:53-94): the
-    threaded native single pass (``native.scalar_stats``), falling back to
-    the NumPy float64 oracle; ``AVR_SCALAR_STATS=numpy|native`` forces a
-    path.  Min and max are exact in both, so they agree."""
+def _scalar_stats_device(arrays: Sequence):
+    """Tensor twin of ``_scalar_stats_numpy`` (the GPU ParReduce of
+    SceneBuilder.cpp:53-94): ``device_scene.device_scalar_stats``, tensors
+    reduced where they lie and NumPy inputs on the CPU, with one 4-scalar
+    readback.  Rounds as the JAX package's jitted reduction (float32,
+    subnormals as zeros)."""
+    from .device_scene import device_scalar_stats
+
+    return device_scalar_stats([a for a in arrays if np.prod(np.shape(a))])
+
+
+# samples below this stay off the device: a dispatch and readback round
+# trip costs more than the host pass it replaces
+_DEVICE_STATS_MIN_SAMPLES = 1 << 22
+
+
+def _is_device_array(a) -> bool:
+    return isinstance(a, torch.Tensor)
+
+
+def _scalar_stats(arrays: Sequence):
+    """Scalar statistics with automatic routing (SceneBuilder.cpp:53-94
+    runs these on the GPU):
+
+    * tensor inputs of at least ``_DEVICE_STATS_MIN_SAMPLES`` samples
+      reduce where they lie (``_scalar_stats_device``);
+    * other inputs take the threaded native single pass
+      (``native.scalar_stats``, tensors copied to the host), falling back
+      to the NumPy float64 oracle;
+    * ``AVR_SCALAR_STATS=numpy|native|device`` forces a path.  Min and
+      max are exact in all three; the tensor route reduces in float32 with
+      subnormals as zeros, as the JAX package's device route does."""
     import os
 
     policy = os.environ.get("AVR_SCALAR_STATS", "auto")
     arrays = list(arrays)
+    if policy == "device" or (
+        policy == "auto"
+        and any(_is_device_array(a) for a in arrays)
+        and sum(int(np.prod(np.shape(a))) for a in arrays)
+        >= _DEVICE_STATS_MIN_SAMPLES
+    ):
+        return _scalar_stats_device(arrays)
+    arrays = [a.detach().cpu().numpy() if _is_device_array(a) else a
+              for a in arrays]
     if policy in ("auto", "native"):
         from . import native
 
@@ -236,3 +275,114 @@ def build_scene_geometry(
     if options.normalize_to_data_range:
         set_scene_normalization_range(scene, processed_min, processed_max)
     return scene
+
+
+def assign_owners(scene: SceneGeometry, num_ranks: int) -> None:
+    """Distribute bricks round-robin over logical ranks/devices: brick i
+    is owned by rank ``i % num_ranks`` (the replacement for AMReX's
+    DistributionMapping)."""
+    for i, b in enumerate(scene.bricks):
+        b.owner = i % num_ranks
+
+
+def compute_scene_histogram(scene: SceneGeometry, bin_count: int) -> ScalarHistogram:
+    """Histogram of transformed scalar values (SceneBuilder.cpp:445-577),
+    binned by ``device_scene.device_histogram``: NumPy bricks on the host,
+    tensor bricks where they lie."""
+    if bin_count <= 0:
+        raise ValueError("binCount must be positive")
+    hist = ScalarHistogram(bin_counts=np.zeros(bin_count, dtype=np.uint64))
+    if scene.has_scalar_range:
+        hist.normalized_range = scene.scalar_range
+    if scene.has_processed_scalar_range:
+        hist.processed_range = scene.processed_scalar_range
+        hist.has_processed_range = True
+    if scene.has_original_scalar_range:
+        hist.original_range = scene.original_scalar_range
+        hist.has_original_range = True
+
+    range_min, range_max = hist.normalized_range
+    range_width = range_max - range_min
+    if not (range_width > 0.0) or not math.isfinite(range_width):
+        return hist
+
+    from .device_scene import device_histogram
+
+    counts, total = device_histogram(
+        [brick.data for brick in scene.bricks],
+        scene.scalar_transform,
+        bin_count,
+        hist.normalized_range,
+    )
+    hist.bin_counts = counts
+    hist.sample_count = total
+    if not hist.has_processed_range or total == 0:
+        hist.bin_counts = np.zeros_like(counts)
+    return hist
+
+
+# ---------------------------------------------------------------------------
+# Brick table bucketing for the raymarch oracle
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class BrickBucket:
+    """Bricks of one padded shape, batched for one ``render_bucket_impl``
+    call."""
+
+    data: np.ndarray  # [B, nx, ny, nz] float32, zero-padded
+    min_corner: np.ndarray  # [B, 3] float32
+    max_corner: np.ndarray  # [B, 3] float32
+    cell_dims: np.ndarray  # [B, 3] int32 (actual, pre-padding)
+    owners: np.ndarray  # [B] int32
+    brick_indices: np.ndarray  # [B] int32 index into scene.bricks
+
+
+def _pad_shape(shape: Tuple[int, int, int], granularity: int = 1):
+    def up(n):
+        return ((n + granularity - 1) // granularity) * granularity
+
+    return tuple(up(n) for n in shape)
+
+
+def build_brick_buckets(
+    bricks: Sequence[Brick], granularity: int = 1
+) -> List[BrickBucket]:
+    """Group bricks by padded shape into dense batches.
+
+    ``granularity`` rounds each dimension up so bricks of slightly
+    different sizes share one bucket (fewer calls at the cost of
+    padding)."""
+    groups: Dict[Tuple[int, int, int], List[int]] = {}
+    for i, b in enumerate(bricks):
+        key = _pad_shape(b.cell_dimensions, granularity)
+        groups.setdefault(key, []).append(i)
+
+    buckets = []
+    for shape, indices in sorted(groups.items()):
+        n = len(indices)
+        data = np.zeros((n,) + shape, dtype=np.float32)
+        min_c = np.zeros((n, 3), dtype=np.float32)
+        max_c = np.zeros((n, 3), dtype=np.float32)
+        dims = np.zeros((n, 3), dtype=np.int32)
+        owners = np.zeros(n, dtype=np.int32)
+        for slot, idx in enumerate(indices):
+            b = bricks[idx]
+            nx, ny, nz = b.cell_dimensions
+            data[slot, :nx, :ny, :nz] = b.data
+            min_c[slot] = b.min_corner
+            max_c[slot] = b.max_corner
+            dims[slot] = (nx, ny, nz)
+            owners[slot] = b.owner
+        buckets.append(
+            BrickBucket(
+                data=data,
+                min_corner=min_c,
+                max_corner=max_c,
+                cell_dims=dims,
+                owners=owners,
+                brick_indices=np.asarray(indices, dtype=np.int32),
+            )
+        )
+    return buckets

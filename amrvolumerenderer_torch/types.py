@@ -202,6 +202,22 @@ class RenderParameters:
     # (the reference's color-ubyte compositing axis: 2.5x less ICI traffic
     # for 1/255 color quantization)
     multichip_transport: str = "float32"
-    # render kernel selection: "auto" (slicemarch on TPU, raymarch oracle
-    # elsewhere), "raymarch", "slicemarch", or "tilemarch"
+    # render kernel route: "auto" (= "slicemarch": the port's accelerator
+    # is the card), "raymarch" (the per-pixel oracle), "slicemarch" or
+    # "tilemarch"
     render_method: str = "auto"
+
+
+@dataclasses.dataclass
+class ScalarHistogram:
+    """Histogram result (``VolumeRenderer.hpp:74-82``)."""
+
+    bin_counts: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.zeros(0, dtype=np.uint64)
+    )
+    normalized_range: Tuple[float, float] = (0.0, 1.0)
+    processed_range: Tuple[float, float] = (0.0, 1.0)
+    has_processed_range: bool = False
+    original_range: Tuple[float, float] = (0.0, 1.0)
+    has_original_range: bool = False
+    sample_count: int = 0

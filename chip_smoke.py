@@ -62,6 +62,26 @@ beside the one-shot call, and the pre-blend step against the plain step
 on the 3-level scene and a 64-brick Morton column, from which it fits the
 cost model's ratio ``preblend_link_ratio``.
 
+Then in-situ ingestion, histograms and the raymarch oracle (phases 24-26):
+the 256^3 field of phase 4 as 512 CUDA tensors through
+``device_scene.prepare_device_amr`` and the 3-level scene through
+``prepare_device_scene`` (nearest and trilinear), each against the same
+call on the CPU (canonical table, statistics and scalar range bit for bit,
+the frame bit for bit at 96^2), every tile-march launch of the ingested
+frames replayed against its plain version; ``device_histogram`` of the 512
+tensors against the CPU tensor route and ``compute_histogram(plotfile)``
+against the same bricks binned on the card, exactly; the golden row
+``raymarch-1dev`` through ``api.render(render_method="raymarch")``; the
+3-level scene's raymarch frame at 1024^2 against the CPU's, bit for bit;
+the 512-brick plotfile at 1024^2 through ``render(plotfile,
+render_method="raymarch")`` (the slice's counted run) and the CLI, with
+the PNGs equal to each other and to the frame, the wall split into march,
+fold and readback, the peak memory, and the 512-layer pixel-mode fold
+replayed against its plain version and timed against its byte bound; and
+``render_and_composite_sharded`` over 8 shards of the card in both
+transports against the one-device layers folded in the same order, every
+fold launch replayed.
+
 Phase 1 also logs each kernel instantiation's registers, shared memory and
 spills (and fails on a spill) and counts the SASS instructions of one
 valid sample and of one composite fold step (``ops/csrc/sample_probe.cu``),
@@ -2033,6 +2053,335 @@ def main() -> int:
         f"{c_x / c_f if c_f else float('nan'):.4f}; the default "
         f"preblend_link_ratio is {default_ratio}")
 
+    # ---- phases 24-26: ingestion, histograms and the raymarch oracle --------
+    from amrvolumerenderer_torch import device_scene as dsc
+    from amrvolumerenderer_torch import renderer as rnd
+    from amrvolumerenderer_torch.camera import compute_box_depth_hint
+    from amrvolumerenderer_torch.colormap import build_color_table
+    from amrvolumerenderer_torch.image import ImageBuffer, ImageKind
+    from amrvolumerenderer_torch.ops import raymarch as rm
+    from amrvolumerenderer_torch.scene import assign_owners, build_brick_buckets
+
+    cpu = torch.device("cpu")
+    side, bs = field.shape[0], 32  # phase 4's field and brick edge
+    n_bricks, full, small = (side // bs) ** 3, 1024, 96
+    per_shard = n_bricks // 8
+
+    def synced_ms(fn):
+        """Host wall ms of ``fn`` ending in a device synchronise, and its
+        result."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, out
+
+    # phase 24: the 256^3 field of phase 4 as 512 tensors on the card,
+    # ingested by prepare_device_amr; the 3-level scene by
+    # prepare_device_scene; each against the same call on the CPU
+    geom_field = [LevelGeometry(np.zeros(3), np.full(3, 1.0 / side))]
+
+    def field_tensors(where):
+        return [[(torch.from_numpy(np.ascontiguousarray(
+            field[i:i + bs, j:j + bs, k:k + bs])).to(where), np.array([i, j, k]))
+            for i in range(0, side, bs) for j in range(0, side, bs)
+            for k in range(0, side, bs)]]
+
+    p24 = RenderParameters(width=full, height=full)
+    on_card, on_cpu = field_tensors(dev), field_tensors(cpu)
+    ingest_ms, r24 = synced_ms(lambda: dsc.prepare_device_amr(
+        on_card, geom_field, parameters=p24, device=dev))
+    r24_cpu = dsc.prepare_device_amr(on_cpu, geom_field, parameters=p24, device=cpu)
+    card_bricks = [t for t, _ in on_card[0]]
+    stats_ms, stats = synced_ms(lambda: dsc.device_scalar_stats(card_bricks))
+    same_table = torch.equal(r24.canonical.cpu(), r24_cpu.canonical)
+    log(f"phase 24: {smi}: prepare_device_amr of {n_bricks} CUDA tensors ({side}^3): "
+        f"{ingest_ms:.3f} ms (statistics alone {stats_ms:.3f} ms); canonical "
+        f"{tuple(r24.canonical.shape)} equal to the CPU call's {same_table}, "
+        f"stats {stats}, scalar range {r24.scalar_range}")
+    assert same_table and r24.canonical.device == dev
+    assert stats == dsc.device_scalar_stats([t for t, _ in on_cpu[0]])
+    for name in ("original_scalar_range", "processed_scalar_range", "scalar_range"):
+        assert getattr(r24.geometry, name) == getattr(r24_cpu.geometry, name), name
+    assert r24.scalar_range == r24_cpu.scalar_range
+    np.testing.assert_array_equal(r24.visible, r24_cpu.visible)
+    cam24 = auto_orbit_camera(r24.bounds)
+    reset_counts()  # counted run: a device-ingested scene's frame
+    with recorded(fast_scene, "tm", "tilemarch_render") as tile_rec:
+        frame_ms, frame24 = synced_ms(lambda: r24.render(cam24))
+    got = counts()
+    covered = float((frame24[:, 3] > 0).mean())
+    log(f"phase 24: FastSceneRenderer.render of the ingested scene {full}x{full}: "
+        f"{frame_ms:.3f} ms wall, launches {got}, alpha > 0 on {covered:.4f}")
+    assert got == {"tilemarch": 1, "slicemarch": 0, "composite": 0,
+                   "composite_pixels": 0}, got
+    assert ALPHA_FRACTION[0] <= covered <= ALPHA_FRACTION[1], covered
+    hold_calls("tilemarch", tm.tilemarch_render, tm.tilemarch_reference,
+               "phase 24: the ingested frame's tile-march launch replayed",
+               tile_rec)
+    del tile_rec
+    # the frame against the CPU renderer's, at 96^2 (the CPU tile march of
+    # 512 pieces at 1024^2 takes minutes)
+    p_small = RenderParameters(width=small, height=small)
+    s_card = dsc.prepare_device_amr(on_card, geom_field, parameters=p_small, device=dev)
+    s_cpu = dsc.prepare_device_amr(on_cpu, geom_field, parameters=p_small, device=cpu)
+    same, d = max_diff(s_card.render(cam24), s_cpu.render(cam24))
+    log(f"phase 24: {n_bricks}-tensor scene at {small}x{small}, card vs CPU: max |diff| {d:.3g}, "
+        f"non-finite pattern same {same}")
+    assert same and d == 0.0
+    # the 3-level scene through prepare_device_scene, nearest and trilinear
+    bricks3 = [(torch.from_numpy(np.ascontiguousarray(b.data, np.float32)),
+                b.min_corner, b.max_corner) for b in geometry3.bricks]
+    for sampling in ("nearest", "trilinear"):
+        params = RenderParameters(width=full, height=full, sampling=sampling)
+        ms3, r3 = synced_ms(lambda p=params: dsc.prepare_device_scene(
+            [(t.to(dev), lo, hi) for t, lo, hi in bricks3], p, device=dev))
+        r3_cpu = dsc.prepare_device_scene(bricks3, params, device=cpu)
+        assert torch.equal(r3.canonical.cpu(), r3_cpu.canonical), sampling
+        assert r3.scalar_range == r3_cpu.scalar_range
+        cam3 = auto_orbit_camera(r3.bounds)
+        with recorded(fast_scene, "tm", "tilemarch_render") as tile_rec:
+            frame3 = r3.render(cam3)
+        hold_calls("tilemarch", tm.tilemarch_render, tm.tilemarch_reference,
+                   f"phase 24: prepare_device_scene 3-level {sampling} "
+                   f"({r3.canonical.shape[0]} pieces, {ms3:.3f} ms to ingest, "
+                   "canonical equal to the CPU call's): tile-march launch replayed",
+                   tile_rec)
+        small3 = RenderParameters(width=small, height=small, sampling=sampling)
+        same, d = max_diff(
+            dsc.prepare_device_scene([(t.to(dev), lo, hi) for t, lo, hi in bricks3],
+                                     small3, device=dev).render(cam3),
+            dsc.prepare_device_scene(bricks3, small3, device=cpu).render(cam3))
+        log(f"phase 24: 3-level {sampling} at {small}x{small}, card vs CPU: max |diff| "
+            f"{d:.3g}, non-finite pattern same {same}")
+        assert same and d == 0.0 and np.isfinite(frame3[:, :4]).all()
+        del tile_rec, r3, r3_cpu
+    # histograms: the 512 tensors on the card against the CPU tensor route,
+    # and the plotfile's (binned on the host) against the card's binning of
+    # the same bricks
+    t24 = r24.geometry.scalar_transform
+    srange24 = r24.geometry.scalar_range
+    hist_ms, (counts24, total24) = synced_ms(lambda: dsc.device_histogram(
+        card_bricks, t24, 256, srange24))
+    cpu_counts, cpu_total = dsc.device_histogram(
+        [t for t, _ in on_cpu[0]], t24, 256, srange24)
+    log(f"phase 24: {smi}: device_histogram of the {n_bricks} CUDA tensors, 256 bins: "
+        f"{hist_ms:.3f} ms, {total24} samples, equal to the CPU tensor route "
+        f"{bool(np.array_equal(counts24, cpu_counts))}")
+    assert np.array_equal(counts24, cpu_counts) and total24 == cpu_total == side ** 3
+    host_ms, hist_dict = synced_ms(
+        lambda: amrvolumerenderer_torch.compute_histogram(plotfile, bins=256))
+    pgeom = load_plotfile_geometry(plotfile, "", 0, -1, False, verbose=False)
+    card_counts, card_total = dsc.device_histogram(
+        [torch.from_numpy(np.asarray(b.data)).to(dev) for b in pgeom.bricks],
+        pgeom.scalar_transform, 256, pgeom.scalar_range)
+    log(f"phase 24: compute_histogram(plotfile): {host_ms:.3f} ms on the host, "
+        f"{hist_dict['samples']} samples; the same bricks binned on the card "
+        f"give the same counts {hist_dict['counts'] == card_counts.tolist()}")
+    assert hist_dict["counts"] == card_counts.tolist()
+    assert hist_dict["samples"] == card_total == side ** 3
+    del on_card, on_cpu, card_bricks, r24, r24_cpu, s_card, s_cpu
+    torch.cuda.empty_cache()
+
+    # phase 25: the raymarch oracle
+    reset_counts()
+    image, _ = api.render(r2, api.RenderOptions(
+        width=48, height=48, render_method="raymarch", device="cuda",
+        output_filename=os.path.join(SCRATCH, "golden-raymarch.ppm")),
+        verbose=False)
+    same, diff = max_diff(image.pixels, golden["raymarch-1dev"])
+    log(f"phase 25: raymarch vs raymarch-1dev: non-finite pattern same {same}, "
+        f"max |diff| {diff:.3g} (atol {ATOL:g}); launches {counts()}")
+    assert counts()["composite_pixels"] == 1 and same and diff <= ATOL
+    # the 3-level scene, card against CPU (the CPU march at 1024^2 takes
+    # about 15 s)
+    p25 = RenderParameters(width=full, height=full)
+    ms_card, (img_card, _) = synced_ms(lambda: render_scene(
+        "", p25, geometry3, verbose=False, method="raymarch", device=dev))
+    t0 = time.perf_counter()
+    img_cpu, _ = render_scene("", p25, geometry3, verbose=False, method="raymarch",
+                              device=cpu)
+    same, d = max_diff(img_card.pixels, img_cpu.pixels)
+    log(f"phase 25: render_scene(method='raymarch') 3-level {full}x{full} "
+        f"({len(geometry3.bricks)} bricks): card {ms_card:.3f} ms wall, CPU "
+        f"{time.perf_counter() - t0:.3f} s; max |diff| {d:.3g}, non-finite "
+        f"pattern same {same}")
+    assert same and d == 0.0
+    # the 512-brick plotfile at 1024^2 through render() and the CLI
+    png_ray = os.path.join(SCRATCH, "radial_raymarch.png")
+    png_ray_cli = os.path.join(SCRATCH, "radial_raymarch_cli.png")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()  # counted run: the raymarch route's main path
+    with recorded_folds() as fold_rec:
+        wall_ms, rc = synced_ms(lambda: amrvolumerenderer_torch.render(
+            plotfile, width=full, height=full, output=png_ray,
+            render_method="raymarch"))
+    got = counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches["composite_pixels_raymarch"] = got["composite_pixels"]
+    log(f"phase 25: {smi}: render(plotfile, render_method='raymarch') {n_bricks} bricks "
+        f"at {full}x{full}: rc {rc}, {wall_ms:.3f} ms wall (scene build included), "
+        f"launches {got}, peak device memory {peak:.3f} GiB")
+    assert rc == 0 and got == {"tilemarch": 0, "slicemarch": 0, "composite": 0,
+                               "composite_pixels": 1}, got
+    cli = subprocess.run(
+        [sys.executable, "-m", "amrvolumerenderer_torch.driver", "--width", str(full),
+         "--height", str(full), "--render-method", "raymarch", "--output",
+         png_ray_cli, plotfile], cwd=ROOT, capture_output=True, text=True,
+        timeout=600)
+    assert cli.returncode == 0, cli.stderr[-4000:]
+    ray_api, ray_cli = read_png_rgb(png_ray), read_png_rgb(png_ray_cli)
+    log(f"phase 25: the CLI's --render-method raymarch PNG equals render()'s "
+        f"{bool(np.array_equal(ray_api, ray_cli))}")
+    assert np.array_equal(ray_api, ray_cli)
+    # the wall split of one frame: march, fold, readback
+    bounds_p = compute_global_bounds(pgeom)
+    srange_p = pgeom.scalar_range
+    rsd_p = compute_reference_sample_distance(pgeom, bounds_p)
+    cam_p = auto_orbit_camera(bounds_p)
+    march_ms, (layers, hints, owners, local) = synced_ms(
+        lambda: rnd._render_layers_raymarch(pgeom, p25, cam_p, bounds_p, srange_p,
+                                            rsd_p, full, full, None, dev))
+    fold_ms, folded = synced_ms(lambda: compositor.composite_layers_device(
+        layers, hints, owners, local))
+    read_ms, frame_p = synced_ms(lambda: folded.cpu().numpy())
+    covered = float((frame_p[:, 3] > 0).mean())
+    log(f"phase 25: {smi}: one {n_bricks}-brick raymarch frame at {full}x{full}: march "
+        f"{march_ms:.3f} ms, fold {fold_ms:.3f} ms, readback {read_ms:.3f} ms "
+        f"(wall, synchronised); stack {tuple(layers.shape)} "
+        f"({layers.numel() * 4 / 2 ** 30:.3f} GiB), alpha > 0 on {covered:.4f}")
+    assert np.isfinite(frame_p[:, :4]).all()
+    assert ALPHA_FRACTION[0] <= covered <= ALPHA_FRACTION[1], covered
+    # the frame with the bounds wireframe drawn over it, byte coded, is the
+    # PNG that render() wrote
+    shown = ImageBuffer(ImageKind.RGBA_F32_DEPTH_SORT, full, full, frame_p.copy())
+    rnd.render_bounding_box_overlay(rnd.compute_tight_bounds(pgeom, bounds_p),
+                                    cam_p, 1, shown)
+    expect = np.clip((shown.pixels[:, :3] * np.float32(256.0)).astype(np.int32),
+                     0, 255)
+    expect = expect.astype(np.uint8).reshape(full, full, 3)[::-1]
+    assert np.array_equal(ray_api, expect), "the raymarch PNG differs from the frame"
+    hold_calls("composite_pixels_raymarch", lambda *a: [comp.composite_pixels(*a)],
+               lambda *a: [comp.composite_pixels_reference(*a)],
+               f"phase 25: the raymarch fold launch replayed "
+               f"({[tuple(a[0].shape[:2]) for a, _ in fold_rec]} layers x pixels)",
+               fold_rec, atol=0.0)
+    (fold_args, _), = fold_rec
+    n_l, n_p = fold_args[0].shape[:2]
+    fold_kernel_ms = min(event_ms(lambda: comp.composite_pixels(*fold_args))
+                         for _ in range(3))
+    fold_plain_ms = event_ms(lambda: comp.composite_pixels_reference(*fold_args))
+    nbytes, nflops = (n_l + 1) * n_p * 20, n_l * n_p * BLEND_FLOPS
+    times["composite_pixels_raymarch"] = (fold_kernel_ms, fold_plain_ms)
+    bounds_ms["composite_pixels_raymarch"] = bound(nbytes, nflops)
+    log(f"phase 25: {smi}: the {n_l}-layer fold ({n_l} x {n_p}): kernel "
+        f"{fold_kernel_ms:.4f} ms, plain {fold_plain_ms:.4f} ms, byte bound "
+        f"(L + 1) x P x 20 B = {bound(nbytes, nflops)[0]:.5f} ms "
+        f"({bound(nbytes, nflops)[1]}), kernel at "
+        f"{bound(nbytes, nflops)[0] / fold_kernel_ms:.4f} of its bound")
+    del fold_rec, fold_args, folded
+    one_layers = layers
+    del layers
+    torch.cuda.empty_cache()
+
+    # phase 26: the raymarch sharded frame, D = 8 on one card, both
+    # transports, against the one-device layers folded in the same order
+    assign_owners(pgeom, 8)
+    (bucket,) = build_brick_buckets(pgeom.bricks)
+    order = np.argsort(bucket.owners, kind="stable")  # shard-major slots
+    steps = np.array([max(pgeom.bricks[i].min_spacing() * 0.5, 1e-5)
+                      for i in bucket.brick_indices[order]], np.float32)
+    luts = np.stack([build_color_table(1.0, s / rsd_p, srange_p, None)
+                     for s in steps])
+    hints26 = np.array([compute_box_depth_hint(pgeom.bricks[i].min_corner,
+                                               pgeom.bricks[i].max_corner, cam_p)
+                        for i in bucket.brick_indices[order]], np.float32)
+    tables = (torch.from_numpy(bucket.data[order]).to(dev),
+              bucket.min_corner[order], bucket.max_corner[order],
+              bucket.cell_dims[order], luts, steps, np.ones(n_bricks, bool), hints26)
+    forward, right, up = camera_basis(cam_p)
+    t_p = pgeom.scalar_transform
+    args26 = ([np.asarray(v, np.float32) for v in (cam_p.eye, forward, right, up)],
+              cam_p.fov_y_degrees, srange_p[0], 1.0 / (srange_p[1] - srange_p[0]),
+              (t_p.positive_floor, t_p.normalization_min,
+               t_p.inverse_normalization_span))
+    kw26 = dict(width=full, height=full,
+                num_steps=rm.max_steps_for_bucket(tables[1], tables[2], steps),
+                log_scale=t_p.log_scale_input, normalize=t_p.normalize_to_unit_range,
+                clip_start=float(np.clip(srange_p[1], 0.0, 1.0)), apply_clip=False)
+    # the shards' (hint, owner, local slot) keys of each brick, in brick
+    # order: the one-device stack folded in the sharded frame's order
+    slot_bricks = bucket.brick_indices[order]
+    hint_b, owner_b, local_b = (np.empty(n_bricks, np.float32),
+                                np.empty(n_bricks, np.int32),
+                                np.empty(n_bricks, np.int32))
+    hint_b[slot_bricks] = hints26
+    owner_b[slot_bricks] = np.repeat(np.arange(8, dtype=np.int32), per_shard)
+    local_b[slot_bricks] = np.tile(np.arange(per_shard, dtype=np.int32), 8)
+    one26 = compositor.composite_layers_device(
+        one_layers, hint_b, owner_b, local_b).cpu().numpy()
+    del one_layers
+    torch.cuda.empty_cache()
+    mesh8 = ds.make_mesh(8, dev)
+
+    @contextlib.contextmanager
+    def unfolded_raymarch():
+        """The sharded raymarch with the camera rounded as the one-device
+        program rounds it (``fold_camera=False``)."""
+        folded = rm.render_bucket_into
+        rm.render_bucket_into = lambda *a, **k: folded(*a, **dict(k, fold_camera=False))
+        try:
+            yield
+        finally:
+            rm.render_bucket_into = folded
+
+    frames26 = {}
+    for transport in ("float32", "ubyte"):
+        reset_counts()
+        with recorded_folds() as fold_rec:
+            ms26, shards = synced_ms(lambda tr=transport: ds.render_and_composite_sharded(
+                mesh8, *tables, *args26, transport=tr, **kw26))
+        got = counts()
+        frame26 = frames26[transport] = torch.cat(shards).cpu().numpy()
+        same, d = max_diff(frame26, one26)
+        with np.errstate(invalid="ignore"):  # inf - inf where both are +inf
+            diff = np.where(np.isfinite(one26), np.abs(frame26 - one26),
+                            0.0).max(axis=1)
+        beyond = int((diff > 1e-5).sum())
+        log(f"phase 26: {smi}: render_and_composite_sharded D=8 {transport}, "
+            f"{n_bricks} bricks at {full}x{full}: {ms26:.3f} ms wall, launches "
+            f"{got}; vs the one-device layers folded in the same order: max "
+            f"|diff| {d:.3g}, {beyond} of {len(diff)} pixels beyond 1e-5, "
+            f"non-finite pattern same {same}")
+        assert got["composite_pixels"] == 8 and got["tilemarch"] == 0, got
+        assert same
+        if transport == "float32":
+            # JAX's program folds the camera: an ulp of ray direction flips
+            # a nearest-cell sample on a few pixels; unfolded, the frame is
+            # the one-device fold's
+            assert beyond <= 1e-3 * len(diff), beyond
+            with unfolded_raymarch():
+                plain = torch.cat(ds.render_and_composite_sharded(
+                    mesh8, *tables, *args26, **kw26)).cpu().numpy()
+            same_p, d_p = max_diff(plain, one26)
+            log(f"phase 26: float32 with the camera unfolded: max |diff| "
+                f"{d_p:.3g} (limit 1e-5), non-finite pattern same {same_p}")
+            assert same_p and d_p <= 1e-5
+        else:
+            # the byte colours against the float32 exchange of the same
+            # sharded frame: the codec's quantisation alone
+            same_b, d_b = max_diff(frame26, frames26["float32"])
+            log(f"phase 26: ubyte vs float32 exchange: max |diff| {d_b:.3g} "
+                f"(limit 0.02), non-finite pattern same {same_b}")
+            assert same_b and d_b < 0.02, d_b
+        hold_calls("composite_pixels", lambda *a: [comp.composite_pixels(*a)],
+                   lambda *a: [comp.composite_pixels_reference(*a)],
+                   f"phase 26: {transport}: {len(fold_rec)} fold launches replayed",
+                   fold_rec, atol=0.0)
+        del fold_rec, shards
+    del tables
+    torch.cuda.empty_cache()
+
     sources = {
         "tilemarch": ("ops/csrc/tilemarch.cu", "amrvolumerenderer_tpu/ops/tilemarch.py:819"),
         "slicemarch": ("ops/csrc/slicemarch.cu", "amrvolumerenderer_tpu/ops/slicemarch.py:750"),
@@ -2047,6 +2396,8 @@ def main() -> int:
                              "amrvolumerenderer_tpu/ops/slicemarch.py:555"),
         "composite_runs": ("ops/csrc/composite.cu",
                            "amrvolumerenderer_tpu/parallel/directsend.py:300"),
+        "composite_pixels_raymarch": ("ops/csrc/composite.cu",
+                                      "amrvolumerenderer_tpu/compositor.py:81"),
     }
     for prec, name in batch_name.items():
         times[name] = batch_times[prec][:2]

@@ -111,7 +111,8 @@ def test_cli_matches_jax(tmp_path, plotfile, flags):
 
 @pytest.mark.parametrize("argv,message", [
     (["--device", "cuda"], "no CUDA device"),
-    (["--device", "cpu", "--render-method", "raymarch"], "ROADMAP.md module item 4"),
+    (["--device", "cpu", "--render-method", "raymarch", "--sampling", "trilinear"],
+     "requires the slicemarch or tilemarch method"),
     (["--device", "cpu", "--devices", "3", "--orbit-frames", "2"],
      "not divisible by the device count 3"),
     (["--device", "cpu", "--orbit-frames", "3", "--render-method", "raymarch"],
@@ -132,11 +133,16 @@ def test_cli_errors_are_clean(tmp_path, plotfile, capsys, argv, message):
 def test_api_errors(tmp_path):
     data = api.AmrData(*port_levels(*make_r2_scene_data(16, 8)))
     out = str(tmp_path / "x.ppm")
-    with pytest.raises(ValueError, match="raymarch"):
-        api.render(data, api.RenderOptions(width=32, height=32, device="cpu",
-                                           output_filename=out,
-                                           render_method="raymarch"),
-                   verbose=False)
+    # raymarch renders (the oracle), pixel for pixel as the JAX package
+    levels, geoms = make_r2_scene_data(16, 8)
+    ray = dict(width=32, height=32, render_method="raymarch",
+               output_filename=str(tmp_path / "ray.ppm"))
+    got, _ = api.render(data, api.RenderOptions(device="cpu", **ray),
+                        verbose=False)
+    want, _ = jax_api.render(jax_api.AmrData(level_data=levels, level_geometry=geoms),
+                             jax_api.RenderOptions(**ray), verbose=False)
+    np.testing.assert_array_equal(got.pixels, want.pixels)
+    assert (got.pixels[:, 3] > 0).mean() > 0.1
     with pytest.raises(ValueError, match="multi-device"):
         api.render(data, api.RenderOptions(width=32, height=32, device="cpu",
                                            output_filename=out, devices=2,

@@ -748,3 +748,139 @@ def test_persistent_golden_rows(cuda, row, force):
     got = r.render(auto_orbit_camera(r.bounds), overlay=False)
     assert comp.composite_runs.launches == before + (8 if force else 0)
     assert_close(torch.from_numpy(got), torch.from_numpy(np.load(GOLDEN)[row]))
+
+
+def r2_tensor_levels(dev):
+    """The golden scene's boxes as (tensor, lo) pairs on ``dev``."""
+    data = r2_data()
+    return [[(torch.as_tensor(np.asarray(b.data, np.float32)).to(dev), b.lo)
+             for b in level] for level in data.level_data], data.level_geometry
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampling", ["nearest", "trilinear"])
+def test_device_ingestion_matches_cpu(cuda, sampling):
+    """prepare_device_amr from CUDA tensors equals the same call on the
+    CPU: canonical table, scalar ranges and the frame, which launches the
+    tile-march kernel."""
+    from amrvolumerenderer_torch.device_scene import prepare_device_amr
+
+    params = RenderParameters(width=64, height=48, sampling=sampling)
+    renderers = []
+    for dev in (cuda, torch.device("cpu")):
+        levels, geoms = r2_tensor_levels(dev)
+        renderers.append(prepare_device_amr(levels, geoms, parameters=params,
+                                            device=dev))
+    gpu, cpu = renderers
+    assert gpu.canonical.device.type == "cuda"
+    assert torch.equal(gpu.canonical.cpu(), cpu.canonical)
+    assert gpu.geometry.original_scalar_range == cpu.geometry.original_scalar_range
+    assert gpu.scalar_range == cpu.scalar_range
+    cam = auto_orbit_camera(gpu.bounds)
+    before = tm.tilemarch_render.launches
+    got = gpu.render(cam)
+    assert tm.tilemarch_render.launches == before + 1
+    want = cpu.render(cam)
+    assert (want[:, 3] > 0).mean() > 0.1
+    assert_close(torch.from_numpy(got), torch.from_numpy(want))
+
+
+@pytest.mark.cuda
+def test_device_histogram_and_stats_match_cpu(cuda):
+    """device_histogram and device_scalar_stats of CUDA tensors equal the
+    CPU tensor route's, with NaN, inf and subnormal samples."""
+    from amrvolumerenderer_torch.device_scene import (
+        device_histogram,
+        device_scalar_stats,
+    )
+    from amrvolumerenderer_torch.types import ScalarTransform
+
+    rng = np.random.default_rng(5)
+    arrays = [(rng.random((16, 16, 16)) * 2 - 0.3).astype(np.float32)
+              for _ in range(3)]
+    arrays[0][0, 0, 0], arrays[1][1, 1, 1], arrays[2][2, 2, 2] = np.nan, np.inf, 1e-40
+    cpu = [torch.from_numpy(a) for a in arrays]
+    gpu = [t.to(cuda) for t in cpu]
+    assert device_scalar_stats(gpu) == device_scalar_stats(cpu)
+    for t in (ScalarTransform(),
+              ScalarTransform(log_scale_input=True, positive_floor=1e-3,
+                              normalize_to_unit_range=True,
+                              normalization_min=-6.9, normalization_max=0.7,
+                              inverse_normalization_span=1 / 7.6)):
+        got = device_histogram(gpu, t, 97, (0.0, 1.0))
+        want = device_histogram(cpu, t, 97, (0.0, 1.0))
+        np.testing.assert_array_equal(got[0], want[0])
+        assert got[1] == want[1] == 3 * 16 ** 3
+
+
+@pytest.mark.cuda
+def test_raymarch_golden_row(cuda, tmp_path):
+    """render_method="raymarch" on the card reproduces ``raymarch-1dev``
+    and folds its layers with one pixel-mode composite launch."""
+    before = comp.composite_pixels.launches
+    image, _ = api.render(r2_data(), api.RenderOptions(
+        width=48, height=48, render_method="raymarch", device=cuda,
+        output_filename=str(tmp_path / "ray.ppm")), verbose=False)
+    assert comp.composite_pixels.launches == before + 1
+    ref = np.load(GOLDEN)["raymarch-1dev"]
+    finite = np.isfinite(ref)
+    np.testing.assert_array_equal(np.isfinite(image.pixels), finite)
+    np.testing.assert_allclose(image.pixels[finite], ref[finite], rtol=0, atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aa", [1, 4])
+def test_raymarch_matches_cpu(cuda, aa):
+    """The 3-level scene through the raymarch route on the card equals the
+    same call on the CPU, bit for bit."""
+    geometry = three_level_geometry()
+    params = RenderParameters(width=96, height=80, antialiasing=aa)
+    got, _ = render_scene("", params, geometry, verbose=False,
+                          method="raymarch", device=cuda)
+    want, _ = render_scene("", params, geometry, verbose=False,
+                           method="raymarch", device="cpu")
+    assert (want.pixels[:, 3] > 0).mean() > 0.1
+    np.testing.assert_array_equal(got.pixels, want.pixels)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transport", ["float32", "ubyte"])
+def test_sharded_raymarch_matches_cpu(cuda, transport):
+    """render_and_composite_sharded over 8 shards of the card equals the
+    CPU mesh's frame; each shard's fold is a pixel-mode launch."""
+    from amrvolumerenderer_torch.camera import compute_box_depth_hint
+    from amrvolumerenderer_torch.colormap import build_color_table
+    from amrvolumerenderer_torch.ops.raymarch import max_steps_for_bucket
+    from amrvolumerenderer_torch.parallel import directsend as ds
+    from amrvolumerenderer_torch.scene import assign_owners, build_brick_buckets
+
+    geometry = api.load_amr_geometry(r2_data(), 0, -1, 0, False, True, verbose=False)
+    assign_owners(geometry, 8)
+    bounds = compute_global_bounds(geometry)
+    camera = auto_orbit_camera(bounds)
+    rsd = compute_reference_sample_distance(geometry, bounds)
+    srange = geometry.scalar_range
+    (bucket,) = build_brick_buckets(geometry.bricks)
+    steps = np.array([max(b.min_spacing() * 0.5, 1e-5) for b in geometry.bricks],
+                     np.float32)
+    luts = np.stack([build_color_table(1.0, s / rsd, srange, None) for s in steps])
+    hints = np.array([compute_box_depth_hint(b.min_corner, b.max_corner, camera)
+                      for b in geometry.bricks], np.float32)
+    tables = (bucket.data, bucket.min_corner, bucket.max_corner, bucket.cell_dims,
+              luts, steps, np.ones(8, bool), hints)
+    forward, right, up = camera_basis(camera)
+    t = geometry.scalar_transform
+    args = ([np.asarray(v, np.float32) for v in (camera.eye, forward, right, up)],
+            camera.fov_y_degrees, srange[0], 1.0 / (srange[1] - srange[0]),
+            (t.positive_floor, t.normalization_min, t.inverse_normalization_span))
+    kw = dict(width=64, height=48, transport=transport,
+              num_steps=max_steps_for_bucket(tables[1], tables[2], steps),
+              log_scale=t.log_scale_input, normalize=t.normalize_to_unit_range,
+              clip_start=1.0, apply_clip=False)
+    before = comp.composite_pixels.launches
+    got = ds.render_and_composite_sharded(ds.make_mesh(8, cuda), *tables, *args, **kw)
+    assert comp.composite_pixels.launches == before + 8
+    want = ds.render_and_composite_sharded(ds.make_mesh(8, "cpu"), *tables, *args, **kw)
+    assert (torch.cat(want)[:, 3] > 0).float().mean() > 0.1
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)

@@ -1,11 +1,11 @@
 """The port stands alone: in a fresh interpreter where importing ``jax``,
 ``jaxlib`` or ``amrvolumerenderer_tpu`` raises, every module of
 ``amrvolumerenderer_torch`` imports (the animation path's ``transforms``
-and ``device_scene`` among them), and the CLI renders a plotfile through
-the default (slice-march) route, over two shards (``--devices 2``, the
-``parallel`` package), an orbit through the batched tile-march path and an
-orbit over two shards (the persistent multi-device renderer) on the
-CPU."""
+``device_scene`` and ``ops.raymarch`` among them), and the CLI renders a
+plotfile through the default (slice-march) route, the raymarch oracle,
+over two shards (``--devices 2``, the ``parallel`` package), an orbit
+through the batched tile-march path and an orbit over two shards (the
+persistent multi-device renderer) on the CPU."""
 
 import os
 import subprocess
@@ -38,6 +38,8 @@ names = [m.name for m in pkgutil.walk_packages(
     amrvolumerenderer_torch.__path__, "amrvolumerenderer_torch.")]
 assert "amrvolumerenderer_torch.parallel.directsend" in names, names
 assert "amrvolumerenderer_torch.parallel.persistent" in names, names
+assert "amrvolumerenderer_torch.ops.raymarch" in names, names
+assert "amrvolumerenderer_torch.device_scene" in names, names
 for name in names:
     importlib.import_module(name)
 print("imported", len(names), "modules")
@@ -64,7 +66,8 @@ def plotfile(tmp_path_factory):
 
 
 @pytest.mark.parametrize("flags", [[], ["--sampling", "trilinear",
-                                        "--antialiasing", "4"], ["--devices", "2"]])
+                                        "--antialiasing", "4"], ["--devices", "2"],
+                                   ["--render-method", "raymarch"]])
 def test_port_imports_and_renders_with_jax_and_reference_blocked(
         tmp_path, plotfile, flags):
     out = tmp_path / "standalone.ppm"
