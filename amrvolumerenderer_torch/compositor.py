@@ -1,23 +1,33 @@
-"""Sort-last compositing: the layer order, the run-grouped fold and its
-host oracle.
+"""Sort-last compositing: the layer order, the run-grouped fold, its
+host oracle and the flat direct-send mode on the host.
 
-The port's part of the JAX package's ``compositor.py``: the global layer
-order of composeLayered (DirectSendBase.cpp:378-388), the reference-
-faithful host fold that the tests hold the device composites against, and
+The port of the JAX package's ``compositor.py``: the global layer order of
+composeLayered (DirectSendBase.cpp:378-388), the reference-faithful host
+fold that the tests hold the device composites against,
 ``_composite_sorted_runs``, the run-grouped fold the multi-device
-pipelines run on each shard, through the pixel mode of the
-``ops/composite.py`` kernel on the layers' device.
+pipelines run on each shard through the pixel mode of the
+``ops/composite.py`` kernel on the layers' device, and the flat mode
+(compose, DirectSendBase.cpp:257-314) over per-rank images on the host.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from .image import blend_depth_sort
+from .image import ImageBuffer, blend_depth_sort
 from .ops import composite as comp
+
+
+def piece_range(image_size: int, piece_index: int, num_pieces: int) -> Tuple[int, int]:
+    """Contiguous pixel piece for one receiver (DirectSendBase.cpp:59-74):
+    equal sizes, remainder to the last piece."""
+    piece_size = image_size // num_pieces
+    begin = piece_size * piece_index
+    end = begin + piece_size if piece_index < num_pieces - 1 else image_size
+    return begin, end
 
 
 def sort_layers(
@@ -85,3 +95,48 @@ def composite_layers_device(
         np.asarray(owners)[order].astype(np.int32)).to(dev)
     return comp.composite_pixels(layers.contiguous(),
                                  torch.from_numpy(order).to(dev), sorted_owners)
+
+
+def compose_flat_host(
+    rank_images: Sequence[ImageBuffer],
+    group_order: np.ndarray,
+    max_image_split: int = 1_000_000,
+    compress: bool = False,
+) -> List[ImageBuffer]:
+    """Flat direct-send compose (DirectSendBase.cpp:257-314) on the host.
+
+    ``rank_images[r]`` is rank r's full local image; ``group_order`` the
+    visibility permutation (group index -> rank, earlier on top).  Returns
+    one composited piece per receiver, covering ``piece_range(num_pixels,
+    i, num_receivers)``.  With ``compress=True`` each sent piece travels
+    and blends as a ``CompactImage`` and is uncompressed at the end, as
+    the reference's image-compress mode does; pixels outside the valid
+    viewport and background-classified depth pixels then come back as
+    cleared background."""
+    group_size = len(group_order)
+    num_receivers = min(max_image_split, group_size)
+    assert group_size >= 1
+    image_size = rank_images[0].num_pixels
+    pieces: List[ImageBuffer] = []
+    for recv_idx in range(num_receivers):
+        begin, end = piece_range(image_size, recv_idx, num_receivers)
+        acc = None
+        for send_idx in range(group_size):  # group order: first on top
+            piece = rank_images[int(group_order[send_idx])].window(begin, end)
+            if compress:
+                piece = piece.compress()
+            acc = piece.deep_copy() if acc is None else acc.blend(piece)
+        pieces.append(acc.uncompress() if compress else acc)
+    return pieces
+
+
+def assemble_pieces(pieces: Sequence[ImageBuffer]) -> ImageBuffer:
+    """Concatenate per-receiver pieces into a full-frame image (the
+    reference's gather to rank 0, ImageColorOnly.hpp:220-270)."""
+    assert pieces
+    first = pieces[0]
+    out = ImageBuffer.create(first.kind, first.width, first.height, 0,
+                             first.width * first.height)
+    for p in pieces:
+        out.pixels[p.region_begin:p.region_end] = np.asarray(p.pixels)
+    return out

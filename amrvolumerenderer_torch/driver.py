@@ -8,7 +8,6 @@ VolumeRenderer.cpp:339-477 and main.cpp): the same flag surface plus
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import math
 import os
@@ -33,6 +32,7 @@ from .types import (
     ScalarHistogram,
     SceneGeometry,
 )
+from .utils.timers import device_trace
 
 USAGE = """Usage: volume_renderer [options] plotfile
   --width W        Image width (default: 512)
@@ -297,23 +297,6 @@ def load_plotfile_geometry(
     return scene
 
 
-@contextlib.contextmanager
-def _trace(trace_dir: str):
-    """torch.profiler over the render, written as a Chrome trace."""
-    if not trace_dir:
-        yield
-        return
-    import torch
-
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    os.makedirs(trace_dir, exist_ok=True)
-    with torch.profiler.profile(activities=activities) as prof:
-        yield
-    prof.export_chrome_trace(os.path.join(trace_dir, "render_trace.json"))
-
-
 def run_options(options: RunOptions, verbose: bool = True) -> int:
     """VolumeRenderer::run(RunOptions) (cpp:1341-1576) on ``options.device``."""
     validate_render_parameters(options.parameters)
@@ -364,7 +347,7 @@ def run_options(options: RunOptions, verbose: bool = True) -> int:
             near_plane=camera.near_plane,
             far_plane=camera.far_plane,
         )
-    with _trace(options.trace_dir):
+    with device_trace(options.trace_dir):
         if options.orbit_frames > 0:
             name = options.output_filename
             if "{" in name:

@@ -17,7 +17,7 @@ from typing import List, Optional, Tuple
 
 import torch
 
-from .numerics import RSQRT_SEED, exp as _exp, fma as _fma, rsqrt as _rsqrt
+from .numerics import exp as _exp, fma as _fma, rsqrt as _rsqrt, seed_table
 from .worklist import TILE_H, TILE_P, TILE_W
 
 Tensor = torch.Tensor
@@ -48,18 +48,6 @@ def require(t: Tensor, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-
-
-_seed_tables: dict = {}  # device -> RSQRT_SEED on that device
-
-
-def seed_table(dev: torch.device) -> Tensor:
-    """The x86 rsqrt estimate table the kernels take, on ``dev``."""
-    table = _seed_tables.get(dev)
-    if table is None:
-        table = torch.from_numpy(RSQRT_SEED).to(dev).contiguous()
-        _seed_tables[dev] = table
-    return table
 
 
 def blend(top_c, top_d, bot_c, bot_d):

@@ -17,7 +17,9 @@ the CUDA kernels (``csrc/march.cuh``, which takes ``RSQRT_SEED`` as an
 argument) match the JAX reference bit for bit on the tested scenes
 (tests/test_torch_tilemarch.py, tests/test_torch_slicemarch.py).  The FMA sites were read off XLA's
 optimised LLVM IR of the interpret-mode kernel; each call site of
-``fma`` names one.
+``fma`` names one.  ``rsqrt`` and ``log`` are autograd functions with
+JAX's derivative rules (their bit views carry none), for the
+differentiable path (``diff``).
 """
 
 from __future__ import annotations
@@ -177,7 +179,13 @@ MIN_NORMAL = float.fromhex("0x1p-126")
 
 def log(x: Tensor) -> Tensor:
     """XLA's float32 ``log``, operation for operation, including its
-    treatment of subnormal inputs as zero (-inf)."""
+    treatment of subnormal inputs as zero (-inf).  Differentiable in both
+    modes: the value goes through integer bit views, which carry no
+    gradient, so autograd takes JAX's rule ``1 / x`` instead."""
+    return _Log.apply(x)
+
+
+def _log(x: Tensor) -> Tensor:
     x = torch.where(torch.abs(x) < MIN_NORMAL, 0.0, x)
     bits = torch.clamp(torch.nan_to_num(x, nan=0.0), min=MIN_NORMAL).view(torch.int32)
     m = ((bits & -2139095041) | 0x3F000000).view(torch.float32)  # [0.5, 1)
@@ -201,13 +209,26 @@ def log(x: Tensor) -> Tensor:
     return torch.where((x < 0.0) | torch.isnan(x), float("nan"), out)
 
 
+_seed_tables: dict = {}  # device -> RSQRT_SEED on that device
+
+
+def seed_table(dev: torch.device) -> Tensor:
+    """The x86 rsqrt estimate table (``RSQRT_SEED``, int32) on ``dev``,
+    copied there once: the kernels take it, and ``rsqrt_seed`` reads it
+    without a copy from the host, so a CUDA graph can capture it."""
+    table = _seed_tables.get(dev)
+    if table is None:
+        table = torch.from_numpy(RSQRT_SEED).to(dev).contiguous()
+        _seed_tables[dev] = table
+    return table
+
+
 def rsqrt_seed(x: Tensor) -> Tensor:
     """The x86 rsqrt estimate of a positive normal float32 ``x``."""
     bits = x.view(torch.int32).long()
     e = ((bits >> 23) & 0xFF) - 127
     parity = e & 1
-    table = torch.from_numpy(RSQRT_SEED).to(x.device).long()
-    mant = table[parity, (bits >> 13) & 0x3FF]
+    mant = seed_table(x.device)[parity, (bits >> 13) & 0x3FF].long()
     return (((126 - ((e - parity) >> 1)) << 23) | (mant << 11)).int().view(
         torch.float32
     )
@@ -215,11 +236,54 @@ def rsqrt_seed(x: Tensor) -> Tensor:
 
 def rsqrt(x: Tensor) -> Tensor:
     """XLA's float32 ``rsqrt`` of a positive normal ``x``: two Newton steps
-    from the estimate."""
+    from the estimate.  Differentiable in both modes through JAX's rule
+    ``-0.5 * (y / x)``, since the estimate's bit views carry no
+    gradient."""
+    return _Rsqrt.apply(x)
+
+
+def _rsqrt(x: Tensor) -> Tensor:
     y = rsqrt_seed(x)
     for _ in range(2):
         y = fma(y * -0.5, fma(x * y, y, -1.0), y)
     return y
+
+
+class _Log(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        ctx.save_for_forward(x)
+        return _log(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return g / x
+
+    @staticmethod
+    def jvp(ctx, t):
+        (x,) = ctx.saved_tensors
+        return t / x
+
+
+class _Rsqrt(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        y = _rsqrt(x)
+        ctx.save_for_backward(x, y)
+        ctx.save_for_forward(x, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        return g * (-0.5 * (y / x))
+
+    @staticmethod
+    def jvp(ctx, t):
+        x, y = ctx.saved_tensors
+        return t * (-0.5 * (y / x))
 
 
 def tanf(x: float) -> float:

@@ -79,10 +79,11 @@ def _ray_directions(width: int, height: int, tan_half_fov: float, aspect: float,
     rows bottom to top, SavePPM.cpp:25).  ``fold_aspect`` rounds the
     image-plane x term as ``ndc * (tan * aspect)``, the association XLA
     makes when the camera is a compile-time constant; otherwise it is
-    ``(ndc * tan) * aspect``."""
+    ``(ndc * tan) * aspect``.  ``tan_half_fov`` may be a float32 tensor
+    that carries a gradient (``diff``)."""
     forward, right, up = basis
     dev = forward.device
-    tan = f32(tan_half_fov)
+    tan = tan_half_fov if isinstance(tan_half_fov, Tensor) else f32(tan_half_fov)
     px = fma(torch.arange(width, dtype=torch.float32, device=dev) + 0.5,
              f32(2.0 * f32(1.0 / width)), -1.0)  # FMA: NDC x
     py = fma(torch.arange(height, dtype=torch.float32, device=dev) + 0.5,

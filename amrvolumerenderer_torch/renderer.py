@@ -108,6 +108,24 @@ def compute_tight_bounds(
     return VolumeBounds(g_min, g_max)
 
 
+def _transformed_range_numpy(geometry: SceneGeometry) -> Tuple[float, float]:
+    """The transformed min/max over every sample in float64, brick by
+    brick: the oracle ``compute_global_scalar_range`` is held to."""
+    t = geometry.scalar_transform
+    lo, hi = math.inf, -math.inf
+    for brick in geometry.bricks:
+        v = np.asarray(brick.data).astype(np.float64)
+        v = np.where(np.isfinite(v), v, 0.0)
+        if t.log_scale_input:
+            v = np.where(v > 0.0, np.maximum(v, t.positive_floor), t.positive_floor)
+            v = np.log(v)
+        if t.normalize_to_unit_range:
+            v = np.clip((v - t.normalization_min) * t.inverse_normalization_span, 0, 1)
+        lo = min(lo, float(v.min()))
+        hi = max(hi, float(v.max()))
+    return lo, hi
+
+
 def _apply_transform_scalar(v: float, t) -> float:
     """The scalar transform (VolumeTypes.hpp:53-67) on one float64 value."""
     if t.log_scale_input:

@@ -82,6 +82,20 @@ replayed against its plain version and timed against its byte bound; and
 transports against the one-device layers folded in the same order, every
 fold launch replayed.
 
+Then the differentiable path (phase 27, ``amrvolumerenderer_torch.diff``,
+plain PyTorch with autograd and no kernel of its own): the 6^3 scene of
+tests/test_diff.py and the golden r^2 scene on the card against the CPU
+(the image at 2e-6 with the same non-finite depth pattern; gradients with
+respect to data and LUT at 1e-4 of the largest, with respect to eye,
+basis and field of view at 1e-4 of the sum of their terms' magnitudes);
+bench.py's 3-level scene through ``diff.prepare_geometry`` (13 bricks
+padded to 64^3, 224 steps), the forward at 1024^2 under ``no_grad`` and
+``loss.backward()`` with respect to data and LUT at 512^2 with
+``remat=True``, each timed with its peak memory, with every kernel's
+launch count read around them (all 0); and both fitting examples with
+their defaults on the card, run together (the loss must fall below half
+its first value, and each example must reach its own goal).
+
 Phase 1 also logs each kernel instantiation's registers, shared memory and
 spills (and fails on a spill) and counts the SASS instructions of one
 valid sample and of one composite fold step (``ops/csrc/sample_probe.cu``),
@@ -2382,6 +2396,9 @@ def main() -> int:
     del tables
     torch.cuda.empty_cache()
 
+    # ---- phase 27: the differentiable path ---------------------------------
+    diff_phase(torch, dev, smi, reset_counts, counts)
+
     sources = {
         "tilemarch": ("ops/csrc/tilemarch.cu", "amrvolumerenderer_tpu/ops/tilemarch.py:819"),
         "slicemarch": ("ops/csrc/slicemarch.cu", "amrvolumerenderer_tpu/ops/slicemarch.py:750"),
@@ -2421,6 +2438,197 @@ def main() -> int:
         "count": torch.cuda.device_count(),
     }}))
     return 0
+
+
+# phase 27: the differentiable path's gradient tolerance against the CPU
+# (tests/test_torch_cuda.py test_diff_matches_cpu): the card's backward adds
+# its scatter-adds and pixel sums in another order
+DIFF_GRAD_REL = 1e-4
+DIFF_EXAMPLES = ("fit_transfer_function_torch.py", "fit_volume_torch.py")
+
+
+def diff_scenes(torch):
+    """Phase 27 (a)'s scenes as (name, NumPy args, static): the 6^3 scene
+    of tests/test_diff.py at 12x12 and 64 steps with its smooth LUT, and
+    the golden manifest's r^2 scene through ``diff.prepare_geometry``."""
+    from amrvolumerenderer_torch import api, diff
+    from amrvolumerenderer_torch.camera import camera_basis
+    from amrvolumerenderer_torch.types import CameraParameters
+
+    rng = np.random.default_rng(11)
+    data = rng.uniform(0.2, 0.8, size=(6, 6, 6)).astype(np.float32)
+    t = np.linspace(0.0, 1.0, 256)
+    lut = np.stack([t, np.full_like(t, 0.4), 1.0 - t, 0.3 * t], 1).astype(np.float32)
+    camera = CameraParameters(eye=(0.5, 0.5, 3.0), look_at=(0.5, 0.5, 0.5),
+                              up=(0.0, 1.0, 0.0), fov_y_degrees=45.0)
+    f32 = np.float32
+    basis = [np.asarray(v, f32) for v in (camera.eye, *camera_basis(camera))]
+    static = dict(width=12, height=12, num_steps=64, log_scale=False,
+                  normalize=False, clip_start=1.0, apply_clip=False)
+    scenes = []
+    for name, table in (("test_diff 6^3", lut),):
+        scenes.append((name, (data[None], np.zeros((1, 3), f32), np.ones((1, 3), f32),
+                              np.full((1, 3), 6, np.int32), table[None],
+                              np.full(1, 1.0 / 12, f32), *basis,
+                              f32(camera.fov_y_degrees), f32(0.0), f32(1.0), f32(0.0),
+                              f32(0.0), f32(1.0)), static))
+    levels, geoms = r2_scene_data(16, 8)
+    geometry = api.load_amr_geometry(api.AmrData(level_data=levels,
+                                                 level_geometry=geoms),
+                                     0, -1, 0, False, True, verbose=False)
+    args, r2_static = diff.prepare_geometry(
+        geometry, CameraParameters(eye=(1.6, 1.3, 2.4), look_at=(0.5, 0.5, 0.5),
+                                   up=(0.0, 1.0, 0.0)),
+        width=48, height=40, device="cpu")
+    scenes.append(("golden r^2 16^3", tuple(a.numpy() for a in args), r2_static))
+    return scenes
+
+
+def diff_phase(torch, dev, smi: str, reset_counts, counts, full: int = 1024,
+               grad_size: int = 512, example_args=()) -> None:
+    """Phase 27, the differentiable path (``amrvolumerenderer_torch.diff``,
+    plain PyTorch with autograd, no kernel of its own): (a) each scene of
+    ``diff_scenes`` on the card against the CPU; (b) bench.py's 3-level
+    scene through ``diff.prepare_geometry`` (13 bricks padded to 64^3),
+    the forward at ``full``^2 under ``no_grad`` and ``loss.backward()``
+    with respect to data and LUT at ``grad_size``^2 with ``remat=True``,
+    timed with their peak memory, driven with the kernels' launch counts
+    set to 0 just before and read just after (the path is plain PyTorch:
+    every count must stay 0); (c) both fitting examples, run together with
+    their defaults on the card.  Every check asserts."""
+    from amrvolumerenderer_torch import diff
+    from amrvolumerenderer_torch.renderer import auto_orbit_camera, compute_global_bounds
+
+    cpu = torch.device("cpu")
+
+    def run(args, static, weights, argnums, device):
+        targs = list(diff.args_from_arrays(args, device))
+        for i in argnums:
+            targs[i].requires_grad_(True)
+        image = diff.render_image_diff(*targs, **static)
+        (image * torch.from_numpy(weights).to(device)).sum().backward()
+        with torch.no_grad():
+            _, depth = diff.render_layers_diff(*targs, **static)
+        return (image.detach().cpu().numpy(), depth.cpu().numpy(),
+                [targs[i].grad.cpu().numpy() for i in argnums])
+
+    def camera_terms(args, static, weights, argnum):
+        """Per component of camera argument ``argnum``: the sum over pixels
+        of |weights * d image / d component| (forward mode on the CPU),
+        the scale a reordered sum of the gradient's terms rounds against."""
+        import torch.autograd.forward_ad as fwAD
+
+        targs = list(diff.args_from_arrays(args, cpu))
+        base, terms = targs[argnum], []
+        for c in range(base.numel()):
+            tangent = torch.zeros(base.numel())
+            tangent[c] = 1.0
+            with fwAD.dual_level():
+                full = list(targs)
+                full[argnum] = fwAD.make_dual(base, tangent.reshape(base.shape))
+                column = fwAD.unpack_dual(diff.render_image_diff(
+                    *full, remat=False, **static)).tangent
+            terms.append(float((column * torch.from_numpy(weights)).abs().sum()))
+        return np.asarray(terms).reshape(base.shape)
+
+    # (a) card against CPU: the image at ATOL, data and LUT gradients at
+    # DIFF_GRAD_REL of the largest, and each camera gradient (a sum over
+    # the frame whose terms cancel) at DIFF_GRAD_REL of its terms' sum
+    for name, args, static in diff_scenes(torch):
+        n = static["width"] * static["height"]
+        w = np.random.default_rng(7).uniform(0, 1, size=(n, 4)).astype(np.float32)
+        argnums = (0, 4, 6, 7, 8, 9, 10)  # data, LUT, eye, forward, right, up, fov
+        image, depth, grads = run(args, static, w, argnums, dev)
+        image_c, depth_c, grads_c = run(args, static, w, argnums, cpu)
+        same, d = max_diff(image, image_c)
+        same_d, d_d = max_diff(depth, depth_c)
+        rel = [float(np.abs(g - r).max() / np.abs(r).max())
+               for g, r in zip(grads[:2], grads_c[:2])]
+        for i, g, r in zip(argnums[2:], grads[2:], grads_c[2:]):
+            terms = camera_terms(args, static, w, i)
+            assert np.all(terms > 0.0), (i, terms)
+            rel.append(float((np.abs(g - r) / terms).max()))
+        log(f"phase 27: {name} {static['width']}x{static['height']}, card vs CPU: "
+            f"image max |diff| {d:.3g}, depth max |diff| {d_d:.3g}, non-finite "
+            f"patterns same {same and same_d}; gradient max |diff| over max |g| "
+            f"(data, LUT) and over the sum of the terms (eye, forward, right, up, "
+            f"fov): {', '.join(f'{r:.3g}' for r in rel)}; alpha max "
+            f"{image_c[:, 3].max():.9g}")
+        assert same and same_d and d <= ATOL and d_d <= ATOL, (d, d_d)
+        assert image_c[:, 3].max() > 0.0
+        assert max(rel) <= DIFF_GRAD_REL, rel
+
+    # (b) full size
+    geometry = three_level_geometry()
+    camera = auto_orbit_camera(compute_global_bounds(geometry))
+    args, static = diff.prepare_geometry(geometry, camera, width=full, height=full,
+                                         device=dev)
+    log(f"phase 27: prepare_geometry 3-level: data {tuple(args[0].shape)}, "
+        f"{static['num_steps']} march steps")
+    reset_counts()  # counted run: the differentiable path at full size
+    for attempt in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            image = diff.render_image_diff(*args, **static)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        covered = float((image[:, 3] > 0).float().mean())
+        log(f"phase 27: {smi}: render_image_diff 3-level {full}x{full} under "
+            f"no_grad (run {attempt + 1}): {ms:.3f} ms wall, peak device memory "
+            f"{peak:.3f} GiB, covered share {covered:.4f}")
+    assert image.shape == (full * full, 4) and bool(torch.isfinite(image).all())
+    assert ALPHA_FRACTION[0] < covered < ALPHA_FRACTION[1], covered
+    del image
+    small = dict(static, width=grad_size, height=grad_size)
+    for attempt in range(2):
+        data = args[0].clone().requires_grad_(True)
+        table = args[4].clone().requires_grad_(True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        image = diff.render_image_diff(data, *args[1:4], table, *args[5:],
+                                       remat=True, **small)
+        loss = (image * image).mean()
+        torch.cuda.synchronize()
+        fwd_ms = (time.perf_counter() - t0) * 1e3
+        loss.backward()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"phase 27: {smi}: loss.backward() w.r.t. data and LUT, 3-level "
+            f"{grad_size}x{grad_size}, remat=True (run {attempt + 1}): forward "
+            f"{fwd_ms:.3f} ms + backward {ms - fwd_ms:.3f} ms = {ms:.3f} ms wall, "
+            f"peak device memory {peak:.3f} GiB")
+    got = counts()
+    log(f"phase 27: launches of the hand-written kernels in (b): {got}")
+    assert not any(got.values()), got
+    for g in (data.grad, table.grad):
+        assert bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0.0
+    del data, table, image, loss, args
+    torch.cuda.empty_cache()
+
+    # (c) the examples, both at once (each is bound by its host thread)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.join(ROOT, "examples", ex),
+                               *example_args], cwd=ROOT, env=env, text=True,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+             for ex in DIFF_EXAMPLES]
+    outs = [p.communicate(timeout=600) for p in procs]
+    wall = time.perf_counter() - t0
+    for ex, proc, (out, err) in zip(DIFF_EXAMPLES, procs, outs):
+        summary = [line for line in out.splitlines() if line.startswith("loss: ")]
+        log(f"phase 27: examples/{ex} rc {proc.returncode}: "
+            f"{summary[-1] if summary else err[-2000:]}")
+        assert proc.returncode == 0 and len(summary) == 1, err[-2000:]
+        first, final = (float(v) for v in
+                        summary[0][6:].split(";")[0].split(" (")[0].split(" -> "))
+        assert final < 0.5 * first, summary
+    log(f"phase 27: {smi}: both examples with their defaults, run together: "
+        f"{wall:.3f} s wall")
 
 
 def ptxas_report(build_log: str):

@@ -1,9 +1,10 @@
 """The port's CUDA kernels on the card: tile-march (one frame and batched,
 float32 and bfloat16 volumes), slice-march (work list and dense), the
 composite (tile, pixel and runs modes), the multi-device route over 8
-shards of one card and the persistent multi-device renderer against the
-same on the CPU (marked ``cuda``; every test skips itself when
-``torch.cuda.is_available()`` is false).
+shards of one card, the persistent multi-device renderer, the raymarch
+oracle and the differentiable path against the same on the CPU (marked
+``cuda``; every test skips itself when ``torch.cuda.is_available()`` is
+false).
 
 This file imports neither jax nor the tests' conftest (which does), so it
 runs on a machine that has only PyTorch:
@@ -884,3 +885,112 @@ def test_sharded_raymarch_matches_cpu(cuda, transport):
     assert (torch.cat(want)[:, 3] > 0).float().mean() > 0.1
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+
+
+def diff_scene(name):
+    """(args, static) of the differentiable path as NumPy arrays:
+    tests/test_diff.py's 6^3 scene at 12x12 and 64 steps (its smooth LUT,
+    an opaque-tail LUT whose rays saturate at alpha exactly 1, and a
+    log-scaled, normalised, soft-clipped variant), or the golden
+    manifest's r^2 scene through ``prepare_geometry``."""
+    from amrvolumerenderer_torch import diff
+
+    if name == "r2":
+        geometry = api.load_amr_geometry(r2_data(), 0, -1, 0, False, True,
+                                         verbose=False)
+        camera = CameraParameters(eye=(1.6, 1.3, 2.4), look_at=(0.5, 0.5, 0.5),
+                                  up=(0.0, 1.0, 0.0))
+        args, static = diff.prepare_geometry(geometry, camera, width=48, height=40,
+                                             device="cpu")
+        return tuple(a.numpy() for a in args), static
+    rng = np.random.default_rng(11)
+    data = rng.uniform(0.2, 0.8, size=(6, 6, 6)).astype(np.float32)
+    t = np.linspace(0.0, 1.0, 256)
+    lut = np.stack([t, np.full_like(t, 0.4), 1.0 - t, 0.3 * t], 1).astype(np.float32)
+    scalars = (0.0, 1.0, 0.0, 0.0, 1.0)
+    static = dict(width=12, height=12, num_steps=64, log_scale=False,
+                  normalize=False, clip_start=1.0, apply_clip=False)
+    if name == "saturating":
+        lut[160:, 3] = 1.0
+    if name == "log":
+        data = rng.uniform(0.01, 5.0, size=(6, 6, 6)).astype(np.float32)
+        scalars = (0.0, 1.0, 0.02, np.log(0.02), 1.0 / (np.log(5.0) - np.log(0.02)))
+        static.update(log_scale=True, normalize=True, apply_clip=True, clip_start=0.7)
+    camera = CameraParameters(eye=(0.5, 0.5, 3.0), look_at=(0.5, 0.5, 0.5),
+                              up=(0.0, 1.0, 0.0), fov_y_degrees=45.0)
+    forward, right, up = camera_basis(camera)
+    f32 = np.float32
+    args = (data[None], np.zeros((1, 3), f32), np.ones((1, 3), f32),
+            np.full((1, 3), 6, np.int32), lut[None], np.full(1, 1.0 / 12, f32),
+            *(np.asarray(v, f32) for v in (camera.eye, forward, right, up)),
+            f32(camera.fov_y_degrees), *(f32(v) for v in scalars))
+    return args, static
+
+
+def diff_run(args, static, weights, argnums, device):
+    """The image, layer depths and the gradients of ``sum(image *
+    weights)`` with respect to ``argnums``, computed on ``device``."""
+    from amrvolumerenderer_torch import diff
+
+    targs = list(diff.args_from_arrays(args, device))
+    for i in argnums:
+        targs[i].requires_grad_(True)
+    image = diff.render_image_diff(*targs, **static)
+    (image * torch.from_numpy(weights).to(device)).sum().backward()
+    with torch.no_grad():
+        _, depth = diff.render_layers_diff(*targs, **static)
+    return (image.detach().cpu(), depth.cpu(),
+            [targs[i].grad.cpu().numpy() for i in argnums])
+
+
+def camera_terms(args, static, weights, argnum):
+    """Per component of camera argument ``argnum``, the sum over pixels of
+    ``|weights * d image / d component|``: the scale a reordered sum of a
+    camera gradient's terms rounds against.  Forward mode on the CPU, one
+    pass a component."""
+    import torch.autograd.forward_ad as fwAD
+
+    from amrvolumerenderer_torch import diff
+
+    targs = list(diff.args_from_arrays(args, "cpu"))
+    base = targs[argnum]
+    terms = []
+    for c in range(base.numel()):
+        tangent = torch.zeros(base.numel())
+        tangent[c] = 1.0
+        with fwAD.dual_level():
+            full = list(targs)
+            full[argnum] = fwAD.make_dual(base, tangent.reshape(base.shape))
+            out = diff.render_image_diff(*full, remat=False, **static)
+            column = fwAD.unpack_dual(out).tangent
+        terms.append(float((column * torch.from_numpy(weights)).abs().sum()))
+    return np.asarray(terms).reshape(base.shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["test_diff", "saturating", "log", "r2"])
+def test_diff_matches_cpu(cuda, name):
+    """``diff.render_image_diff`` on the card against the same call on the
+    CPU: the image at 2e-6 with the same non-finite depth pattern; the
+    gradients of a randomly weighted loss with respect to data and LUT at
+    1e-4 x max |g_CPU| (the card's scatter-add backward adds in another
+    order), and with respect to eye, basis and field of view, each a sum
+    over the frame whose terms cancel, at 1e-4 x the sum of their terms'
+    magnitudes (``camera_terms``)."""
+    args, static = diff_scene(name)
+    n = static["width"] * static["height"]
+    w = np.random.default_rng(7).uniform(0, 1, size=(n, 4)).astype(np.float32)
+    argnums = (0, 4, 6, 7, 8, 9, 10)
+    got_image, got_depth, got = diff_run(args, static, w, argnums, cuda)
+    want_image, want_depth, want = diff_run(args, static, w, argnums, "cpu")
+    assert float(want_image[:, 3].max()) > 0.0
+    if name == "saturating":
+        assert float(want_image[:, 3].max()) == 1.0
+    assert_close(got_image, want_image)
+    assert_close(got_depth, want_depth)
+    for g, ref in zip(got[:2], want[:2]):
+        assert np.abs(g - ref).max() <= 1e-4 * np.abs(ref).max()
+    for i, g, ref in zip(argnums[2:], got[2:], want[2:]):
+        terms = camera_terms(args, static, w, i)
+        assert np.all(terms > 0.0)
+        assert np.all(np.abs(g - ref) <= 1e-4 * terms), (i, np.abs(g - ref) / terms)

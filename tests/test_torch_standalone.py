@@ -1,11 +1,12 @@
 """The port stands alone: in a fresh interpreter where importing ``jax``,
 ``jaxlib`` or ``amrvolumerenderer_tpu`` raises, every module of
 ``amrvolumerenderer_torch`` imports (the animation path's ``transforms``
-``device_scene`` and ``ops.raymarch`` among them), and the CLI renders a
-plotfile through the default (slice-march) route, the raymarch oracle,
-over two shards (``--devices 2``, the ``parallel`` package), an orbit
-through the batched tile-march path and an orbit over two shards (the
-persistent multi-device renderer) on the CPU."""
+``device_scene``, ``ops.raymarch``, ``diff`` and ``utils.timers`` among
+them), the CLI renders a plotfile through the default (slice-march)
+route, the raymarch oracle, over two shards (``--devices 2``, the
+``parallel`` package), an orbit through the batched tile-march path and
+an orbit over two shards (the persistent multi-device renderer) on the
+CPU, and the port's transfer-function fitting example runs."""
 
 import os
 import subprocess
@@ -19,7 +20,7 @@ from amrvolumerenderer_tpu.scene import LevelBox, LevelGeometry
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-BLOCKED_RUN = """
+BLOCK = """
 import importlib, pkgutil, runpy, sys
 
 BLOCKED = ("jax", "jaxlib", "amrvolumerenderer_tpu")
@@ -32,6 +33,9 @@ class Block:
 
 
 sys.meta_path.insert(0, Block())
+"""
+
+BLOCKED_RUN = BLOCK + """
 import amrvolumerenderer_torch
 
 names = [m.name for m in pkgutil.walk_packages(
@@ -40,6 +44,8 @@ assert "amrvolumerenderer_torch.parallel.directsend" in names, names
 assert "amrvolumerenderer_torch.parallel.persistent" in names, names
 assert "amrvolumerenderer_torch.ops.raymarch" in names, names
 assert "amrvolumerenderer_torch.device_scene" in names, names
+assert "amrvolumerenderer_torch.diff" in names, names
+assert "amrvolumerenderer_torch.utils.timers" in names, names
 for name in names:
     importlib.import_module(name)
 print("imported", len(names), "modules")
@@ -119,3 +125,35 @@ def test_port_renders_multi_device_orbit_with_jax_and_reference_blocked(
     assert "imported" in proc.stdout and "Saved orbit frames" in proc.stdout
     frames = [(tmp_path / f"orbit_{i:04d}.ppm").read_bytes() for i in range(2)]
     assert all(f.startswith(b"P6") for f in frames) and frames[0] != frames[1]
+
+
+BLOCKED_EXAMPLE = BLOCK + """
+sys.argv = sys.argv[1:]
+try:
+    runpy.run_path(sys.argv[0], run_name="__main__")
+except SystemExit:
+    leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+    assert not leaked, leaked
+    assert "amrvolumerenderer_torch.diff" in sys.modules
+    raise
+"""
+
+
+def test_port_fitting_example_runs_with_jax_and_reference_blocked():
+    """examples/fit_transfer_function_torch.py, three Adam steps on the
+    CPU: the loss must fall below half its first value (the descent
+    tests/test_diff.py asks of twelve plain steps).  Three steps are too
+    few for the example's own 10x goal, so its exit code may be 1."""
+    path = os.environ.get("PYTHONPATH")
+    env = dict(os.environ, PYTHONPATH=REPO + (os.pathsep + path if path else ""))
+    proc = subprocess.run(
+        [sys.executable, "-c", BLOCKED_EXAMPLE,
+         os.path.join(REPO, "examples", "fit_transfer_function_torch.py"),
+         "--device", "cpu", "--steps", "3"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode in (0, 1), proc.stderr[-3000:]
+    summary = [line for line in proc.stdout.splitlines() if line.startswith("loss: ")]
+    assert len(summary) == 1, proc.stdout
+    first, final = (float(v) for v in summary[0][6:].split(" (")[0].split(" -> "))
+    assert final < 0.5 * first, summary
