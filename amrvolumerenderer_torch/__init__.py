@@ -7,7 +7,8 @@ composite kernels of the one-shot route, the tile-march kernel for
 scenes of more than 96 pieces and for the animation path
 (``FastSceneRenderer.render_batch``, orbits, in-situ ``update_data``), and
 the one-shot multi-device render (``devices=N``: the dense slice-march
-kernel per shard and the direct-send exchange, ``parallel/``).  It imports neither jax nor the JAX
+kernel per shard and the direct-send exchange, ``parallel/``, over the
+processes of a ``torch.distributed`` launch too).  It imports neither jax nor the JAX
 package: the host modules (types, scene, amr, plotfile, camera, colormap,
 visibility, native) are its own copies.
 
@@ -174,14 +175,16 @@ def compute_histogram(
     max_level: int = -1,
     log_scale: bool = False,
     bins: int = 256,
+    device: str = "cuda",
 ) -> dict:
     """Histogram of the normalized scalar values used during rendering;
     the reference binding's return dict (module.cpp:304-356).  The
-    plotfile's bricks are binned on the host."""
+    plotfile's bricks are binned on ``device`` ("cuda" or "cpu")."""
     from .driver import compute_scalar_histogram
 
     hist = compute_scalar_histogram(
-        plotfile, variable or "", min_level, max_level, log_scale, bins
+        plotfile, variable or "", min_level, max_level, log_scale, bins,
+        device=device,
     )
     return {
         "counts": hist.bin_counts.tolist(),

@@ -83,13 +83,14 @@ class RenderOptions:
 
 @dataclasses.dataclass
 class HistogramOptions:
-    """VolumeRendererApi.hpp:46-52."""
+    """VolumeRendererApi.hpp:46-52, with ``device``."""
 
     min_level: int = 0
     max_level: int = -1
     log_scale_input: bool = False
     bin_count: int = 256
     component: int = 0
+    device: Device = DEFAULT_DEVICE
 
 
 def validate_scalar_range(scalar_range) -> None:
@@ -352,7 +353,7 @@ def compute_histogram(
     data: AmrData, options: HistogramOptions, verbose: bool = False
 ) -> ScalarHistogram:
     """In-situ histogram entry point (VolumeRendererApi.cpp:397-412).  The
-    bricks are NumPy arrays, so they are binned on the host
+    bricks are uploaded to ``options.device`` and binned there
     (``device_scene.device_histogram``)."""
     if options.bin_count <= 0:
         raise ValueError("binCount must be positive")
@@ -365,4 +366,5 @@ def compute_histogram(
         normalize_to_data_range=True,
         verbose=verbose,
     )
-    return compute_scene_histogram(geometry, options.bin_count)
+    return compute_scene_histogram(geometry, options.bin_count,
+                                   device=options.device)

@@ -2,7 +2,8 @@
 
 Entry points default to ``"cuda"`` and never fall back to the CPU: the CPU
 runs only when a caller asks for it (``device="cpu"`` / ``--device cpu``),
-and then every kernel runs its plain PyTorch version.
+and then every kernel runs its plain PyTorch version.  ``process_index``
+is this process's rank in a several-process launch (0 in one process).
 """
 
 from __future__ import annotations
@@ -10,6 +11,7 @@ from __future__ import annotations
 from typing import Union
 
 import torch
+import torch.distributed as dist
 
 DEFAULT_DEVICE = "cuda"
 
@@ -32,3 +34,10 @@ def resolve_device(device: Device = DEFAULT_DEVICE) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {str(device)!r}: use cuda or cpu")
     return dev
+
+
+def process_index() -> int:
+    """This process's rank under ``torch.distributed``; 0 when no process
+    group is up.  Only process 0 saves images (the JAX package's
+    ``jax.process_index() == 0`` guard)."""
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0

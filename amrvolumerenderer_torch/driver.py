@@ -3,7 +3,8 @@
 The port of the JAX package's ``driver.py`` (the reference driver,
 VolumeRenderer.cpp:339-477 and main.cpp): the same flag surface plus
 ``--device`` (default ``cuda``).  Run it as
-``python -m amrvolumerenderer_torch.driver [options] plotfile``.
+``python -m amrvolumerenderer_torch.driver [options] plotfile``, once per
+process under a several-process launch (``maybe_initialize_distributed``).
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import numpy as np
 from .amr import convexify
 from .api import apply_scalar_override_and_colormap, validate_camera
 from .camera import safe_normalize
-from .device import DEFAULT_DEVICE
+from .device import DEFAULT_DEVICE, process_index
 from .plotfile import (
     read_plotfile_header,
     write_plotfile,  # noqa: F401 - re-exported for scripts that make plotfiles
@@ -54,7 +55,10 @@ USAGE = """Usage: volume_renderer [options] plotfile
   --devices N      Render over N shards (default 1), placed round-robin
                    over the visible cards (or on the CPU with --device cpu);
                    with --orbit-frames the orbit renders over N shards with
-                   the bricks resident (the persistent multi-device renderer)
+                   the bricks resident (the persistent multi-device renderer);
+                   under a several-process launch (AVR_DISTRIBUTED=1 with
+                   torchrun, or JAX_COORDINATOR_ADDRESS, JAX_NUM_PROCESSES
+                   and JAX_PROCESS_ID) the N shards spread over the processes
   --render-method M  Kernel route: auto (= slicemarch), slicemarch (march +
                    tile composite kernels; scenes of more than 96 pieces go
                    to tile-march), tilemarch, or raymarch (the per-pixel
@@ -387,9 +391,11 @@ def compute_scalar_histogram(
     log_scale_input: bool,
     bin_count: int,
     verbose: bool = False,
+    device: str = DEFAULT_DEVICE,
 ) -> ScalarHistogram:
     """VolumeRenderer::computeScalarHistogram (cpp:880-897): the plotfile's
-    bricks are NumPy arrays, binned on the host."""
+    bricks are uploaded to ``device`` and binned there
+    (``device_scene.device_histogram``)."""
     if bin_count <= 0:
         raise ValueError("binCount must be positive")
     geometry = load_plotfile_geometry(
@@ -400,7 +406,99 @@ def compute_scalar_histogram(
         log_scale_input,
         verbose=verbose,
     )
-    return compute_scene_histogram(geometry, bin_count)
+    return compute_scene_histogram(geometry, bin_count, device=device)
+
+
+def _distributed_env():
+    """(init_method, world size, rank, local rank, local world size) from
+    the environment, or None for a one-process run.  The JAX package's
+    explicit coordinator (``JAX_COORDINATOR_ADDRESS``,
+    ``JAX_NUM_PROCESSES``, ``JAX_PROCESS_ID``) takes precedence, so one
+    launch line drives both packages; ``AVR_DISTRIBUTED=1`` reads
+    torchrun's ``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE`` and
+    ``RANK``.  The local rank and local world size are torchrun's
+    ``LOCAL_RANK`` and ``LOCAL_WORLD_SIZE``; the local world size is None
+    where it is not set, and the local rank then falls back to the rank
+    (modulo the local world size where that is set)."""
+    env = os.environ
+    addr = env.get("JAX_COORDINATOR_ADDRESS")
+    if addr:
+        world, rank = int(env["JAX_NUM_PROCESSES"]), int(env["JAX_PROCESS_ID"])
+        init_method = f"tcp://{addr}"
+    elif env.get("AVR_DISTRIBUTED", "0") not in ("", "0"):
+        world, rank = int(env["WORLD_SIZE"]), int(env["RANK"])
+        init_method = f"tcp://{env['MASTER_ADDR']}:{env['MASTER_PORT']}"
+    else:
+        return None
+    local_world = int(env["LOCAL_WORLD_SIZE"]) if env.get("LOCAL_WORLD_SIZE") else None
+    local_rank = int(env.get("LOCAL_RANK", rank % (local_world or world)))
+    return init_method, world, rank, local_rank, local_world
+
+
+def maybe_initialize_distributed(device: str = DEFAULT_DEVICE,
+                                 verbose: bool = True) -> bool:
+    """The several-process launch (the reference's ``mpirun``,
+    main.cpp:19-36): one process per rank joined by
+    ``torch.distributed.init_process_group``, after which ``--devices N``
+    spreads its N shards over every process (``parallel.directsend.
+    make_mesh``), every process assembles the whole frame and process 0
+    saves it.  Started by the variables of ``_distributed_env``.
+
+    The backend is chosen before the process group starts, from the device
+    and the card count, and printed: ``gloo`` for ``--device cpu``;
+    ``nccl`` when each process on this host has a card of its own (local
+    rank r renders on ``cuda:r``); ``gloo`` when the processes share the
+    cards, since NCCL refuses two ranks on one device, with the device
+    tensors copied through pinned host memory around each collective.
+    Without ``LOCAL_WORLD_SIZE`` the processes of a host cannot be told
+    from those of the others, so a CUDA launch of more processes than this
+    host has cards raises rather than guess that they share the cards.
+    Each process takes its share of the host's cores for PyTorch's CPU
+    threads unless ``OMP_NUM_THREADS`` is set (torchrun sets it), since
+    every process otherwise spins a thread per core.
+    Returns True when the process group was started."""
+    spec = _distributed_env()
+    if spec is None:
+        return False
+    import torch
+    import torch.distributed as dist
+
+    init_method, world, rank, local_rank, local_world = spec
+    if "OMP_NUM_THREADS" not in os.environ:
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // (local_world or world)))
+    note = ""
+    devices = world
+    if device.split(":")[0] == "cpu":
+        backend = "gloo"
+    else:
+        count = torch.cuda.device_count()
+        if count == 0:
+            raise RuntimeError(
+                "a CUDA launch needs a card: torch.cuda.device_count() is 0 "
+                "(pass --device cpu to run on the CPU)")
+        if local_world is None:
+            if world > count:
+                raise RuntimeError(
+                    f"{world} processes and {count} card(s) on this host: set "
+                    "LOCAL_WORLD_SIZE to the number of processes on each host "
+                    "(and LOCAL_RANK to each one's index there)")
+            local_world = world
+        if count >= local_world:
+            if not dist.is_nccl_available():
+                raise RuntimeError("this PyTorch build has no NCCL backend")
+            backend = "nccl"
+        else:
+            backend = "gloo"
+            devices = (world // local_world) * count
+            note = (f", {local_world} processes share {count} card(s): "
+                    "collectives through pinned host memory")
+        torch.cuda.set_device(local_rank % count)
+    dist.init_process_group(backend, init_method=init_method,
+                            world_size=world, rank=rank)
+    if verbose and rank == 0:
+        print(f"volume_renderer: distributed runtime up — {world} host(s), "
+              f"{devices} device(s), backend {backend}{note}")
+    return True
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -417,10 +515,21 @@ def main(argv: Optional[List[str]] = None) -> int:
     if options.exit_early:
         return 0
     try:
+        distributed = maybe_initialize_distributed(options.device)
+    except Exception as error:  # noqa: BLE001 - mirror MPI_Init failure
+        print(f"Error initializing distributed runtime: {error}",
+              file=sys.stderr)
+        return 1
+    try:
         return run_options(options)
     except Exception as error:  # noqa: BLE001 - main.cpp:27-33 catches all
-        print(f"Error on rank 0: {error}", file=sys.stderr)
+        print(f"Error on rank {process_index()}: {error}", file=sys.stderr)
         return 1
+    finally:
+        if distributed:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -29,7 +29,7 @@ from torch import nn
 
 from .camera import camera_basis
 from .colormap import SOFT_CLIP_TOLERANCE, build_color_table
-from .device import DEFAULT_DEVICE, Device, resolve_device
+from .device import DEFAULT_DEVICE, Device, process_index, resolve_device
 from .ghost import edge_pad
 from .image import color_to_byte_device
 from .ops import tilemarch as tm
@@ -749,7 +749,7 @@ class FastSceneRenderer(nn.Module):
             )
             if overlay:
                 render_bounding_box_overlay(self.tight_bounds, camera, 1, image)
-            if output_filename:
+            if output_filename and process_index() == 0:
                 from . import io as image_io
 
                 image_io.save_image(image, output_filename)
@@ -990,7 +990,7 @@ class FastSceneRenderer(nn.Module):
                     render_bounding_box_overlay(
                         self.tight_bounds, camera, 1, image
                     )
-                if output_pattern:
+                if output_pattern and process_index() == 0:
                     from . import io as image_io
 
                     image_io.save_image(image, output_pattern.format(i))

@@ -3,16 +3,22 @@
 The reference's host layer is C++; this module binds the rebuild's native
 equivalents (FAB decode, PPM encode, box downsample, visibility ordering).
 It is the port's own copy of ``amrvolumerenderer_tpu/native.py``, bound to
-the same ``native/libavr_native.so``, which sits outside both packages.
-The library is built on demand with ``make -C native`` and every entry point
-has a pure-Python fallback, so the package works without a toolchain.
+a library built from the same ``native/avr_native.cpp``, which sits outside
+both packages, with the Makefile's own flags.  The port builds it on
+demand into ``build/native/`` under a name that hashes the source and the
+flags, and every entry point has a pure-Python fallback, so the package
+works without a toolchain.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
+import hashlib
 import os
+import shutil
 import subprocess
+import tempfile
 from typing import Optional
 
 import numpy as np
@@ -22,46 +28,73 @@ import numpy as np
 TILE_W = 32
 TILE_H = 32
 
-_NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "native")
-_LIB_PATH = os.path.join(_NATIVE_DIR, "libavr_native.so")
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_SOURCE = os.path.join(_ROOT, "native", "avr_native.cpp")
+BUILD_DIR = os.path.join(_ROOT, "build", "native")
+# native/Makefile's CXXFLAGS: the same source and flags give the same
+# machine code as the library the JAX package builds.  -ffp-contract=off
+# pins no-fma double arithmetic, so item_bands matches the NumPy oracle.
+CXXFLAGS = ["-O3", "-march=native", "-ffp-contract=off", "-fPIC", "-std=c++20",
+            "-Wall", "-Wextra"]
 
 _lib: Optional[ctypes.CDLL] = None
-_load_attempted = False
+_unavailable = False  # no source, no compiler or a failed compile: final
 
 
-def _try_build() -> bool:
-    makefile = os.path.join(_NATIVE_DIR, "Makefile")
-    if not os.path.exists(makefile):
-        return False
-    try:
-        subprocess.run(
-            ["make", "-C", _NATIVE_DIR, "-s"],
-            check=True,
-            capture_output=True,
-            timeout=120,
-        )
-        return os.path.exists(_LIB_PATH)
-    except (subprocess.SubprocessError, OSError):
-        return False
+def library_path() -> str:
+    """The private library of this source and these flags."""
+    digest = hashlib.sha256(" ".join(CXXFLAGS).encode() + b"\0")
+    with open(_SOURCE, "rb") as f:
+        digest.update(f.read())
+    return os.path.join(BUILD_DIR, f"libavr_native_{digest.hexdigest()[:16]}.so")
+
+
+def _build(path: str) -> bool:
+    """Compile the library to ``path`` unless it is there.  The build holds
+    an exclusive lock on the build directory and writes a temporary file
+    that is renamed into place, so a process never loads a file that
+    another is still writing (and ``make -C native``, run by the JAX
+    package, never touches it)."""
+    global _unavailable
+    cxx = os.environ.get("CXX", "g++")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if os.path.exists(path):
+            return True
+        if shutil.which(cxx) is None:
+            _unavailable = True
+            return False
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        try:
+            subprocess.run([cxx, *CXXFLAGS, "-shared", "-o", tmp, _SOURCE],
+                           check=True, capture_output=True, timeout=300)
+            os.replace(tmp, path)
+        except subprocess.CalledProcessError:
+            _unavailable = True
+            return False
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    return True
 
 
 def get_lib() -> Optional[ctypes.CDLL]:
-    """Load (building if necessary) the native library; None if unavailable."""
-    global _lib, _load_attempted
-    if _lib is not None or _load_attempted:
+    """Load (building if necessary) the native library; None if unavailable.
+    Only a missing source or compiler, or a failed compile, is final; any
+    other failure is tried again at the next call."""
+    global _lib
+    if _lib is not None or _unavailable:
         return _lib
-    _load_attempted = True
-    # ALWAYS run make, even when the .so exists: the build is mtime-based
-    # (a fresh library is a no-op), and loading a stale library after a C
-    # ABI/contract change (e.g. the uint16 -> uint64 occupancy-mask
-    # widening) would silently disable native paths — old avr_item_bands
-    # rejects nq=8, so every frame would fall back to the NumPy oracle
-    # with no warning.
-    if not _try_build() and not os.path.exists(_LIB_PATH):
+    if not os.path.exists(_SOURCE):
         return None
+    path = library_path()
     try:
-        lib = ctypes.CDLL(_LIB_PATH)
-    except OSError:
+        if not _build(path):
+            return None
+        lib = ctypes.CDLL(path)
+    except (OSError, subprocess.SubprocessError):
         return None
 
     c_float_p = ctypes.POINTER(ctypes.c_float)

@@ -2,22 +2,30 @@
 
 The port of the JAX package's ``parallel/directsend.py`` one-shot
 pipelines: the reference's direct-send exchange
-(``DirectSend/Base/DirectSendBase.cpp``) over D shards held by one
-process, the counterpart of JAX's single-controller ``shard_map``.
+(``DirectSend/Base/DirectSendBase.cpp``) over D shards, the counterpart of
+JAX's ``shard_map``.
 
-* A ``Mesh`` is the list of shard devices.  ``device="cpu"`` gives D
-  shards on the CPU; CUDA gives D shards placed round-robin over the
-  visible cards, so one card may hold several shards (JAX instead raises
-  when fewer devices are visible than asked for).
+* A ``Mesh`` is the list of shard devices.  In one process,
+  ``device="cpu"`` gives D shards on the CPU; CUDA gives D shards placed
+  round-robin over the visible cards, so one card may hold several shards
+  (JAX instead raises when fewer devices are visible than asked for).
+  Under ``torch.distributed`` (``driver.maybe_initialize_distributed``)
+  the mesh spans the processes, process-major, D / world size shards on
+  each process's device; every process runs the whole host prep (as
+  JAX's SPMD program does), so every host decision comes out the same on
+  every rank, and each process renders and folds only its own shards.
 * Each shard owns a block of the brick table and renders its pieces into
   full-frame layers on its own device (``ops.slicemarch.slicemarch_render``
   or ``ops.tilemarch.tilemarch_render``), one launch per shard.
 * ``all_to_all`` exchanges pixel chunks: on shard r, ``received[s]`` is
   shard s's chunk r (``jax.lax.all_to_all(split_axis=0, concat_axis=0)``);
-  ``all_gather`` stacks every shard's value on every shard.  Both are
-  device-to-device copies (``Tensor.to``), which PyTorch orders after the
-  producing device's current stream and before the consuming one's; on
-  one card every copy is local and stays on that card's stream.
+  ``all_gather`` stacks every shard's value on every shard.  In one
+  process both are device-to-device copies (``Tensor.to``), which PyTorch
+  orders after the producing device's current stream and before the
+  consuming one's; on one card every copy is local and stays on that
+  card's stream.  Across processes they are one ``all_to_all_single`` /
+  ``all_gather`` of the process group (NCCL on the cards, or gloo, through
+  pinned host memory when the processes share a card).
 * Each shard folds the layers of its pixel shard in the global (depth,
   owner, local index) order with the pixel mode of the composite kernel
   (``ops.composite.composite_pixels``), one launch per fold, reading the
@@ -29,17 +37,19 @@ process, the counterpart of JAX's single-controller ``shard_map``.
 
 Functions that take a shard's tensors take its device from the mesh;
 none defaults to the CPU.  Results are lists of per-shard pixel shards
-(shard r holds rows ``[r * P / D, (r + 1) * P / D)`` of the frame).
+(shard r holds rows ``[r * P / D, (r + 1) * P / D)`` of the frame; None
+where another process holds the shard); ``gather_frame`` assembles them.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from typing import Any, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..compositor import _composite_sorted_runs, sort_layers
 from ..device import DEFAULT_DEVICE, Device, resolve_device
@@ -49,18 +59,40 @@ from ..ops import slicemarch as sm
 from ..ops import tilemarch as tm
 
 Tensor = torch.Tensor
-Shards = List[Tensor]  # one tensor per shard, on that shard's device
+# one tensor per shard, on that shard's device (None: another process's)
+Shards = List[Optional[Tensor]]
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """The compositing axis: one device per shard, in shard order."""
+    """The compositing axis: one device per shard, in shard order.
 
-    devices: Tuple[torch.device, ...]
+    A mesh of one process holds every shard.  A mesh over several
+    processes (``torch.distributed``) records each shard's process in
+    ``processes``, process-major and the same count per process (the order
+    of the JAX package's flattened ``("dcn", "ranks")`` axes); this
+    process holds the shards whose process is ``rank``, and ``devices``
+    is None at the others."""
+
+    devices: Tuple[Optional[torch.device], ...]
+    processes: Tuple[int, ...] = ()  # empty: every shard in this process
+    rank: int = 0
+    group: Any = None  # the process group (None: the default group)
 
     @property
     def size(self) -> int:
         return len(self.devices)
+
+    @property
+    def num_processes(self) -> int:
+        return max(self.processes) + 1 if self.processes else 1
+
+    @property
+    def local(self) -> List[int]:
+        """The shards this process holds, in shard order."""
+        if not self.processes:
+            return list(range(self.size))
+        return [r for r, p in enumerate(self.processes) if p == self.rank]
 
 
 def _subset_devices(devices: Sequence[torch.device], num_devices: int):
@@ -74,8 +106,25 @@ def make_mesh(num_devices: Optional[int] = None,
               device: Device = DEFAULT_DEVICE) -> Mesh:
     """A mesh of ``num_devices`` shards (default: one per visible device)
     on ``device``'s kind: the CPU, or the visible CUDA cards starting at
-    ``device``'s index."""
+    ``device``'s index.  Under ``torch.distributed`` the mesh spans every
+    process: each holds ``num_devices / world size`` shards on its own
+    device (the one ``driver.maybe_initialize_distributed`` selected),
+    process-major, and the count must divide (as JAX's multi-host
+    ``_subset_devices`` requires)."""
     dev = resolve_device(device)
+    if dist.is_available() and dist.is_initialized():
+        n_hosts, rank = dist.get_world_size(), dist.get_rank()
+        if n_hosts > 1:
+            num = n_hosts if num_devices is None else int(num_devices)
+            if num < 1:
+                raise ValueError("devices must be a positive device count")
+            if num % n_hosts:
+                raise ValueError(
+                    f"num_devices={num} must be a multiple of the "
+                    f"host count {n_hosts} on multi-host launches")
+            processes = tuple(p for p in range(n_hosts) for _ in range(num // n_hosts))
+            return Mesh(tuple(dev if p == rank else None for p in processes),
+                        processes, rank)
     if dev.type == "cpu":
         visible = [dev]
     else:
@@ -118,7 +167,8 @@ def _constant_camera(cam) -> Tensor:
 
 def shard_leading(mesh: Mesh, *arrays) -> Tuple[Shards, ...]:
     """Split each array's leading axis into ``mesh.size`` equal blocks and
-    place block r on shard r's device (NumPy arrays or tensors)."""
+    place block r on shard r's device (NumPy arrays or tensors); a shard
+    of another process gets None."""
     out = []
     for a in arrays:
         t = _as_tensor(a)
@@ -127,21 +177,80 @@ def shard_leading(mesh: Mesh, *arrays) -> Tuple[Shards, ...]:
                 f"leading axis {t.shape[0]} is not divisible by the mesh "
                 f"size {mesh.size}")
         n = t.shape[0] // mesh.size
-        out.append([t[r * n:(r + 1) * n].to(dev).contiguous()
-                    for r, dev in enumerate(mesh.devices)])
+        blocks: Shards = [None] * mesh.size
+        for r in mesh.local:
+            blocks[r] = t[r * n:(r + 1) * n].to(mesh.devices[r]).contiguous()
+        out.append(blocks)
     return tuple(out)
+
+
+def _collective(mesh: Mesh, op, out: Tensor, x: Tensor) -> Tensor:
+    """Run the process-group collective ``op(out, x)``.  A gloo group
+    cannot take CUDA tensors (processes sharing one card): both cross
+    through pinned host memory around the collective."""
+    if x.device.type == "cuda" and dist.get_backend(mesh.group) == "gloo":
+        host_x = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        host_x.copy_(x)
+        host_out = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        op(host_out, host_x)
+        return out.copy_(host_out)
+    op(out, x)
+    return out
 
 
 def all_to_all(mesh: Mesh, chunks: Shards) -> Shards:
     """``chunks[s]`` is shard s's [D, ...] send buffer; returns
-    ``received`` with ``received[r][s] = chunks[s][r]`` on shard r."""
-    return [torch.stack([chunks[s][r].to(dev) for s in range(mesh.size)])
-            for r, dev in enumerate(mesh.devices)]
+    ``received`` with ``received[r][s] = chunks[s][r]`` on shard r.  In
+    one process these are device-to-device copies; across processes one
+    ``all_to_all_single`` moves every local shard's chunks at once."""
+    if mesh.num_processes == 1:
+        return [torch.stack([chunks[s][r].to(dev) for s in range(mesh.size)])
+                for r, dev in enumerate(mesh.devices)]
+    local, n = mesh.local, mesh.num_processes
+    k = len(local)
+    # rows (destination shard r, local sender s): process q's block holds
+    # the rows of its own shards, which are contiguous (process-major)
+    send = torch.stack([chunks[s][r] for r in range(mesh.size) for s in local])
+    recv = _collective(
+        mesh, lambda o, x: dist.all_to_all_single(o, x, group=mesh.group),
+        torch.empty_like(send), send)
+    # [sending process q, receiving local shard, q's local sender]
+    recv = recv.reshape((n, k, k) + tuple(send.shape[1:]))
+    out: Shards = [None] * mesh.size
+    for i, r in enumerate(local):
+        out[r] = recv[:, i].reshape((mesh.size,) + tuple(send.shape[1:]))
+    return out
 
 
 def all_gather(mesh: Mesh, xs: Shards) -> Shards:
     """Every shard's value stacked [D, ...] on every shard."""
-    return [torch.stack([x.to(dev) for x in xs]) for dev in mesh.devices]
+    if mesh.num_processes == 1:
+        return [torch.stack([x.to(dev) for x in xs]) for dev in mesh.devices]
+    stacked = _gather_processes(mesh, torch.stack([xs[r] for r in mesh.local]))
+    return [stacked if r in mesh.local else None for r in range(mesh.size)]
+
+
+def _gather_processes(mesh: Mesh, x: Tensor) -> Tensor:
+    """Every process's ``x`` concatenated on axis 0, in process order."""
+    out = torch.empty((mesh.num_processes * x.shape[0],) + tuple(x.shape[1:]),
+                      dtype=x.dtype, device=x.device)
+    # dist.all_gather into row blocks of one tensor: every backend has it
+    return _collective(
+        mesh, lambda o, y: dist.all_gather(list(o.chunk(mesh.num_processes)), y,
+                                           group=mesh.group),
+        out, x.contiguous())
+
+
+def gather_frame(mesh: Mesh, shards: Shards,
+                 device: Optional[torch.device] = None) -> Tensor:
+    """The pixel shards concatenated in shard order on ``device`` (default:
+    the first local shard's): the whole frame on every process, as JAX's
+    ``process_allgather(frame, tiled=True)`` gives it."""
+    local = [shards[r] for r in mesh.local]
+    device = device or local[0].device
+    if mesh.num_processes == 1:
+        return torch.cat([s.to(device) for s in local])
+    return _gather_processes(mesh, torch.cat(local)).to(device)
 
 
 def _exchange(mesh: Mesh, frames: Shards, transport: str = "float32") -> Shards:
@@ -158,15 +267,18 @@ def _exchange(mesh: Mesh, frames: Shards, transport: str = "float32") -> Shards:
         y = x.reshape(lead + (num, x.shape[-2] // num, x.shape[-1]))
         return y.movedim(len(lead), 0)
 
+    def each(fn, *xs):  # fn on the local shards, None elsewhere
+        return [None if x[0] is None else fn(*x) for x in zip(*xs)]
+
     if transport == "ubyte":
-        rc = all_to_all(mesh, [chunks(color_to_byte_device(f[..., :4]))
-                               for f in frames])
-        rd = all_to_all(mesh, [chunks(f[..., 4:]) for f in frames])
-        return [torch.cat([byte_to_color_device(c), d], dim=-1)
-                for c, d in zip(rc, rd)]
+        rc = all_to_all(mesh, each(lambda f: chunks(color_to_byte_device(f[..., :4])),
+                                   frames))
+        rd = all_to_all(mesh, each(lambda f: chunks(f[..., 4:]), frames))
+        return each(lambda c, d: torch.cat([byte_to_color_device(c), d], dim=-1),
+                    rc, rd)
     if transport != "float32":
         raise ValueError(f"unknown transport {transport!r}")
-    return all_to_all(mesh, [chunks(f) for f in frames])
+    return all_to_all(mesh, each(chunks, frames))
 
 
 def _fold_layers(mesh: Mesh, received: Shards, gathered: Shards) -> Shards:
@@ -176,16 +288,17 @@ def _fold_layers(mesh: Mesh, received: Shards, gathered: Shards) -> Shards:
     they are in (owner, local index) order, so a stable argsort by depth
     gives the exact lexicographic order (DirectSendBase.cpp:329-388);
     owner = shard index.  Returns each shard's [P / D, 5] pixels."""
-    out = []
-    for r, dev in enumerate(mesh.devices):
+    out: Shards = [None] * mesh.size
+    for r in mesh.local:
+        dev = mesh.devices[r]
         with _on(dev):
             num, lmax = received[r].shape[:2]
             all_layers = received[r].reshape(num * lmax, -1, received[r].shape[-1])
             owners = torch.arange(num, dtype=torch.int32,
                                   device=dev).repeat_interleave(lmax)
             order = torch.argsort(gathered[r].reshape(-1), stable=True)
-            out.append(comp.composite_pixels(all_layers, order.to(torch.int32),
-                                             owners[order]))
+            out[r] = comp.composite_pixels(all_layers, order.to(torch.int32),
+                                           owners[order])
     return out
 
 
@@ -209,7 +322,7 @@ def composite_layers_sharded(
     ("float32" exact, "ubyte" = the reference's byte-colour compositing).
     Returns the [P / D, 5] pixel shards."""
     layers_s, hints_s = shard_leading(mesh, layers, hints)
-    if layers_s[0].shape[1] % mesh.size:
+    if layers_s[mesh.local[0]].shape[1] % mesh.size:
         raise ValueError("pixel count is not divisible by the mesh size")
     return _compose_shards(mesh, layers_s, hints_s, transport)
 
@@ -316,15 +429,16 @@ def _fold_runs(mesh: Mesh, received: Shards, perm) -> Shards:
     (``received[r]`` is [D, rmax, P / D, 5]) in the global run order
     ``perm``: every run its own group (owners ``arange(D * rmax)``), so the
     fold is the left-associative chain of the non-pre-blended path."""
-    out = []
+    out: Shards = [None] * mesh.size
     perm = _as_tensor(perm)
-    for r, dev in enumerate(mesh.devices):
+    for r in mesh.local:
+        dev = mesh.devices[r]
         with _on(dev):
             num, rmax = received[r].shape[:2]
             all_runs = received[r].reshape(num * rmax, -1, received[r].shape[-1])
-            out.append(comp.composite_pixels(
+            out[r] = comp.composite_pixels(
                 all_runs, perm.to(dev, torch.int32),
-                torch.arange(num * rmax, dtype=torch.int32, device=dev)))
+                torch.arange(num * rmax, dtype=torch.int32, device=dev))
     return out
 
 
@@ -342,8 +456,9 @@ def _compose_shards_preblend(mesh: Mesh, layers: Shards, local_order,
     layers into runs, O(runs) layers cross the mesh, and each pixel shard
     folds the runs in global order; the same frame bit for bit (float32).
     ``local_order`` / ``run_slot`` are ``preblend_plan``'s [D, Lmax]."""
-    runs = [_preblend_runs(layers[r], local_order[r], run_slot[r], rmax)
-            for r in range(mesh.size)]
+    runs: Shards = [None] * mesh.size
+    for r in mesh.local:
+        runs[r] = _preblend_runs(layers[r], local_order[r], run_slot[r], rmax)
     return _exchange_and_fold_runs(mesh, runs, perm, transport)
 
 
@@ -361,7 +476,7 @@ def composite_layers_sharded_preblend(
     the non-pre-blended path quantises each layer.  Returns the [P / D, 5]
     pixel shards."""
     (layers_s,) = shard_leading(mesh, layers)
-    if layers_s[0].shape[1] % mesh.size:
+    if layers_s[mesh.local[0]].shape[1] % mesh.size:
         raise ValueError("pixel count is not divisible by the mesh size")
     hints = _as_tensor(hints).cpu().numpy().reshape(mesh.size, -1)
     local_order, run_slot, perm, rmax = preblend_plan(hints)
@@ -379,17 +494,19 @@ def compose_flat_sharded(
     each shard folds its D pieces in group order (earlier member on top,
     Compositor.hpp:26-29).  Returns the [P / D, C] pixel shards."""
     (imgs,) = shard_leading(mesh, images)
-    if imgs[0].shape[1] % mesh.size:
+    if imgs[mesh.local[0]].shape[1] % mesh.size:
         raise ValueError("pixel count is not divisible by the mesh size")
     order = [int(g) for g in np.asarray(group_order)]
-    out = []
-    for r, recv in enumerate(_exchange(mesh, [img[0] for img in imgs])):
+    received = _exchange(mesh, [None if img is None else img[0] for img in imgs])
+    out: Shards = [None] * mesh.size
+    for r in mesh.local:
+        recv = received[r]
         with _on(mesh.devices[r]):
             acc = recv[order[0]]
             for g in order[1:]:
                 # acc is on top of the next piece (group order = blend order)
                 acc = acc + recv[g] * (1.0 - acc[:, 3:4])
-            out.append(acc)
+            out[r] = acc
     return out
 
 
@@ -405,11 +522,12 @@ def _fold_partials(mesh: Mesh, received: Shards) -> Shards:
     """Each shard's fold of the D exchanged partials of its pixel shard
     ([D, P / D, 5]) in shard order, which is depth order (see
     ``composite_partials_sharded``): every partial its own run."""
-    out = []
-    for recv, dev in zip(received, mesh.devices):
+    out: Shards = [None] * mesh.size
+    for r in mesh.local:
+        dev = mesh.devices[r]
         with _on(dev):
             keys = torch.arange(mesh.size, dtype=torch.int32, device=dev)
-            out.append(_composite_sorted_runs(recv, keys))
+            out[r] = _composite_sorted_runs(received[r], keys)
     return out
 
 
@@ -453,9 +571,10 @@ def composite_partials_sharded(
     (disjoint AMR bricks; the JAX package's docstring has the argument).
     Returns the [P / D, 5] pixel shards."""
     (parts,) = shard_leading(mesh, partials)
-    if parts[0].shape[1] % mesh.size:
+    if parts[mesh.local[0]].shape[1] % mesh.size:
         raise ValueError("pixel count is not divisible by the mesh size")
-    return _exchange_fold_partials(mesh, [p[0] for p in parts], transport)
+    return _exchange_fold_partials(
+        mesh, [None if p is None else p[0] for p in parts], transport)
 
 
 def pack_depth_contiguous(
@@ -691,16 +810,16 @@ def _render_shards(mesh: Mesh, tables, cam, rect, tiles, width: int,
     (vol, meta, dims, lut, valid, hints) of ``shard_leading``; returns the
     exchange-ready (layers, hints) of every shard."""
     cam = _constant_camera(cam)
-    layers, hints = [], []
-    for r, dev in enumerate(mesh.devices):
+    layers: Shards = [None] * mesh.size
+    hints: Shards = [None] * mesh.size
+    for r in mesh.local:
+        dev = mesh.devices[r]
         vol, meta, dims, lut, valid, hint = (t[r] for t in tables)
         with _on(dev):
             colors, depths = sm.slicemarch_render(
                 vol, meta, dims, lut, cam.to(dev), width=width, height=height, **kw)
-            lay, hin = _shard_layers(colors, depths, valid, hint, rect, tiles,
-                                     width, height)
-        layers.append(lay)
-        hints.append(hin)
+            layers[r], hints[r] = _shard_layers(colors, depths, valid, hint,
+                                                rect, tiles, width, height)
     return layers, hints
 
 
@@ -783,8 +902,10 @@ def render_and_composite_sharded(
         float(np.float32(v)) for v in transform_scalars)
     tables = shard_leading(mesh, data, min_corner, max_corner, cell_dims,
                            color_table, sample_distance, valid, depth_hints)
-    layers, hints = [], []
-    for r, dev in enumerate(mesh.devices):
+    layers: Shards = [None] * mesh.size
+    hints: Shards = [None] * mesh.size
+    for r in mesh.local:
+        dev = mesh.devices[r]
         b_data, b_min, b_max, b_dims, b_lut, b_step, b_valid, b_hints = (
             t[r] for t in tables)
         with _on(dev):
@@ -801,22 +922,23 @@ def render_and_composite_sharded(
                 width=width, height=height, num_steps=num_steps,
                 log_scale=log_scale, normalize=normalize,
                 clip_start=clip_start, apply_clip=apply_clip, fold_camera=True)
-            layers.append(out)
-            hints.append(torch.where(b_valid.to(torch.bool),
-                                     b_hints.to(torch.float32), float("inf")))
+            layers[r] = out
+            hints[r] = torch.where(b_valid.to(torch.bool),
+                                   b_hints.to(torch.float32), float("inf"))
     return _compose_shards(mesh, layers, hints, transport)
 
 
 def _local_precomposite(mesh: Mesh, layers: Shards, hints: Shards) -> Shards:
     """Each shard's front-to-back fold of its own depth run: a stable
     argsort of its hints, every layer its own run."""
-    partials = []
-    for r, dev in enumerate(mesh.devices):
+    partials: Shards = [None] * mesh.size
+    for r in mesh.local:
+        dev = mesh.devices[r]
         with _on(dev):
             order = torch.argsort(hints[r], stable=True)
             keys = torch.arange(layers[r].shape[0], dtype=torch.int32, device=dev)
-            partials.append(comp.composite_pixels(layers[r], order.to(torch.int32),
-                                                  keys))
+            partials[r] = comp.composite_pixels(layers[r], order.to(torch.int32),
+                                                keys)
     return partials
 
 
@@ -893,8 +1015,9 @@ def render_depth_contiguous_tilemarch(
         mesh, vol, meta, dims, tile_offsets, tile_bricks, tile_owners,
         item_bounds)
     lut, cam = _as_tensor(lut), _constant_camera(cam)
-    partials = []
-    for r, dev in enumerate(mesh.devices):
+    partials: Shards = [None] * mesh.size
+    for r in mesh.local:
+        dev = mesh.devices[r]
         with _on(dev):
             out_c, out_d = tm.tilemarch_render(
                 vol_s[r], meta_s[r], dims_s[r], lut.to(dev), cam.to(dev),
@@ -905,6 +1028,6 @@ def render_depth_contiguous_tilemarch(
             )
             c, d = sm.untile(out_c[None], out_d[None], width, height)
             partial = torch.cat([c[0], d[0, :, None]], dim=-1)
-            partials.append(_slice_tiles(_slice_rect(partial, rect, width, height),
-                                         tiles[0] if tiles else None))
+            partials[r] = _slice_tiles(_slice_rect(partial, rect, width, height),
+                                       tiles[0] if tiles else None)
     return _exchange_fold_partials(mesh, partials, transport)

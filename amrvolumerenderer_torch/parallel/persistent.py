@@ -150,7 +150,7 @@ class MultiChipSceneRenderer(FastSceneRenderer):
         the kernel widens a bfloat16 cell exactly), cached per axis."""
         vol = self._placed_cache.get(axis)
         if vol is None:
-            vol = [_repack_for_axis(c, axis, self.cube).float()
+            vol = [None if c is None else _repack_for_axis(c, axis, self.cube).float()
                    for c in self._placed_canonical]
             self._placed_cache[axis] = vol
         return vol
@@ -244,30 +244,34 @@ class MultiChipSceneRenderer(FastSceneRenderer):
 
     def _shard_inputs(self, axis: int, cam, slot_valid, slot_hints):
         """Per shard: (vol, meta, dims, lut, cam, valid, hints) on its
-        device; the tables are the resident ones."""
+        device (None on another process's shards); the tables are the
+        resident ones."""
         meta, dims = self._placed_tables(axis)
         vol, luts = self._placed_vol(axis), self._placed_luts()
         valid = torch.from_numpy(np.asarray(slot_valid, bool))
         hints = torch.from_numpy(np.asarray(slot_hints, np.float32))
         cam = torch.from_numpy(np.asarray(cam, np.float32))
         n = len(valid) // self.num_devices
-        return [(vol[r], meta[r], dims[r], luts[r], cam.to(dev),
-                 valid[r * n:(r + 1) * n].to(dev), hints[r * n:(r + 1) * n].to(dev))
-                for r, dev in enumerate(self.mesh.devices)]
+        out = [None] * self.num_devices
+        for r in self.mesh.local:
+            dev = self.mesh.devices[r]
+            out[r] = (vol[r], meta[r], dims[r], luts[r], cam.to(dev),
+                      valid[r * n:(r + 1) * n].to(dev),
+                      hints[r * n:(r + 1) * n].to(dev))
+        return out
 
     def _render_layers(self, shards):
         """Stack mode: each shard's pieces rendered by one kernel-4 launch,
         invalid slots cleared.  Returns (layers, hints) per shard."""
-        layers, hints = [], []
+        layers = [None] * self.num_devices
+        hints = [None] * self.num_devices
         kw = self._kernel_kw()
-        for (vol, meta, dims, lut, cam, valid, hint), dev in zip(shards,
-                                                                 self.mesh.devices):
-            with ds._on(dev):
+        for r in self.mesh.local:
+            vol, meta, dims, lut, cam, valid, hint = shards[r]
+            with ds._on(self.mesh.devices[r]):
                 colors, depths = sm.slicemarch_render(vol, meta, dims, lut, cam, **kw)
-                lay, hin = ds._shard_layers(colors, depths, valid, hint, None, None,
-                                            self.pad_w, self.pad_h)
-            layers.append(lay)
-            hints.append(hin)
+                layers[r], hints[r] = ds._shard_layers(
+                    colors, depths, valid, hint, None, None, self.pad_w, self.pad_h)
         return layers, hints
 
     def _scan_runs(self, shards, local_order, run_slot, rmax: int):
@@ -278,9 +282,10 @@ class MultiChipSceneRenderer(FastSceneRenderer):
         same order as the stack mode, so the same runs bit for bit."""
         kw = self._kernel_kw()
         step = max(int(self.scan_piece_threshold), 1)
-        runs = []
-        for r, ((vol, meta, dims, lut, cam, valid, _), dev) in enumerate(
-                zip(shards, self.mesh.devices)):
+        runs = [None] * self.num_devices
+        for r in self.mesh.local:
+            vol, meta, dims, lut, cam, valid, _ = shards[r]
+            dev = self.mesh.devices[r]
             order, slots = local_order[r], run_slot[r]
             out = None
             with ds._on(dev):
@@ -293,7 +298,7 @@ class MultiChipSceneRenderer(FastSceneRenderer):
                         layers, torch.arange(len(sel), dtype=torch.int32, device=dev),
                         torch.from_numpy(slots[c0: c0 + step]).to(dev), rmax,
                         out=out, carry=bool(c0 > 0 and slots[c0] == slots[c0 - 1]))
-            runs.append(out)
+            runs[r] = out
         return runs
 
     def _step(self, axis: int, cam, slot_hints, slot_valid, plan=None):
@@ -321,9 +326,9 @@ class MultiChipSceneRenderer(FastSceneRenderer):
 
     def _assemble_shards(self, shards, bytes_out=False) -> torch.Tensor:
         """The pixel shards as the output-resolution frame on the primary
-        device: gathered, cropped, AA-downsampled; byte-coded with
-        ``bytes_out`` (``"rgb"``: alpha dropped)."""
-        frame = torch.cat([s.to(self.device) for s in shards])
+        device (on every process): gathered, cropped, AA-downsampled;
+        byte-coded with ``bytes_out`` (``"rgb"``: alpha dropped)."""
+        frame = ds.gather_frame(self.mesh, shards, self.device)
         frame = frame.reshape(self.pad_h, self.pad_w, 5)
         frame = frame[: self.render_height, : self.render_width].reshape(-1, 5)
         if self.sqrt_aa > 1:

@@ -24,7 +24,7 @@ from . import io as image_io
 from . import native
 from .camera import auto_orbit_camera, camera_basis, safe_normalize
 from .colormap import SOFT_CLIP_TOLERANCE, build_color_table
-from .device import DEFAULT_DEVICE, Device, resolve_device
+from .device import DEFAULT_DEVICE, Device, process_index, resolve_device
 from .image import ImageBuffer, ImageKind
 from .scene import _scalar_stats, build_brick_buckets
 from .types import (
@@ -570,7 +570,10 @@ def render_single_trial(
         )
     elif resolved == "tilemarch":
         composited = render_composited_tilemarch(
-            geometry, parameters, camera, color_map, device=dev
+            geometry, parameters, camera, scalar_range,
+            reference_sample_distance, render_width, render_height,
+            color_map, downsample_block=sqrt_aa, rank_order=rank_order,
+            device=dev,
         )
     else:
         composited = render_composited_slicemarch(
@@ -617,7 +620,7 @@ def render_single_trial(
         )
     render_bounding_box_overlay(tight_bounds, camera, 1, output_image)
 
-    if output_filename:
+    if output_filename and process_index() == 0:
         lower = output_filename.lower()
         ext = lower[lower.rfind("."):] if "." in lower else ""
         if ext and ext not in (".ppm", ".png") and verbose:
@@ -763,4 +766,5 @@ def render_orbit(
             f"Render: {frames} orbit frame(s) took {elapsed:.4f} s "
             f"({elapsed / frames * 1e3:.2f} ms/frame incl. host prep)"
         )
-        print(f"Saved orbit frames to '{output_pattern}'")
+        if process_index() == 0:
+            print(f"Saved orbit frames to '{output_pattern}'")

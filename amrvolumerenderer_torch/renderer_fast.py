@@ -8,9 +8,9 @@ log-LUT; cached on the geometry) and builds the per-frame (piece, tile)
 work list.  ``render_composited_slicemarch`` renders a frame through the
 work-list march kernel and the tile composite kernel (``composited_frame``)
 for scenes of at most ``TILEMARCH_PIECE_THRESHOLD`` pieces, and hands
-larger scenes to ``render_composited_tilemarch``, the fused march +
-composite kernel under ``fast_scene.FastSceneRenderer``, whose memory does
-not grow with the piece count.  ``render_layers_slicemarch`` returns the
+larger scenes to ``render_composited_tilemarch``, one launch of the fused
+march + composite kernel on the same prep, whose memory does not grow with
+the piece count.  ``render_layers_slicemarch`` returns the
 per-piece layers instead (the layered path).  ``render_composited_sharded``
 renders a frame over several shards (``parallel.directsend``).
 """
@@ -26,6 +26,7 @@ from . import native
 from .camera import camera_basis
 from .colormap import SOFT_CLIP_TOLERANCE, build_color_table, saturate_soft_tail_np
 from .device import DEFAULT_DEVICE, Device, resolve_device
+from .ops import tilemarch as tm
 from .ops import worklist as wl
 from .ops.composite import composite_tiles
 from .ops.slicemarch import (
@@ -607,9 +608,8 @@ def render_composited_slicemarch(
     if prep is None:
         return _background((render_width // block) * (render_height // block))
     if prep["vol"].shape[0] > TILEMARCH_PIECE_THRESHOLD:
-        return render_composited_tilemarch(
-            geometry, parameters, camera, color_map, device=dev
-        )
+        return _tilemarch_frame(prep, parameters, camera, render_width,
+                                render_height, block, rank_order, dev)
 
     owner_keys = visibility_owner_keys(prep["owners"], rank_order)
     order = sort_layers(prep["depth_hints"], owner_keys, prep["local_indices"])
@@ -630,11 +630,6 @@ def render_composited_slicemarch(
     if block > 1:
         frame = _device_downsample(frame, render_width, render_height, block)
     return frame.cpu().numpy()
-
-
-def _fetch_global(shards) -> np.ndarray:
-    """The pixel shards of a sharded frame, concatenated on the host."""
-    return np.concatenate([s.cpu().numpy() for s in shards])
 
 
 def render_composited_sharded(
@@ -668,6 +663,7 @@ def render_composited_sharded(
     block), 5] frame."""
     from .compositor import sort_layers
     from .parallel.directsend import (
+        gather_frame,
         make_mesh,
         pack_contiguous,
         pack_depth_contiguous,
@@ -753,7 +749,10 @@ def render_composited_sharded(
                 mesh, p_vol, p_meta, p_dims, p_luts, prep["cam"], valid,
                 p_hints, **kw)
 
-    frame = paste_rect(_fetch_global(frame), rect, prep["pad_w"], prep["pad_h"])
+    # every process assembles the whole frame, as JAX's
+    # process_allgather(frame, tiled=True) does
+    frame = paste_rect(gather_frame(mesh, frame).cpu().numpy(), rect,
+                       prep["pad_w"], prep["pad_h"])
     frame = paste_tiles(frame, tiles, prep["pad_w"], prep["pad_h"])
     frame = frame.reshape(prep["pad_h"], prep["pad_w"], 5)
     frame = frame[:render_height, :render_width].reshape(num_pixels, 5)
@@ -876,16 +875,94 @@ def render_composited_tilemarch(
     geometry: SceneGeometry,
     parameters: RenderParameters,
     camera: CameraParameters,
+    scalar_range: Tuple[float, float],
+    reference_sample_distance: float,
+    render_width: int,
+    render_height: int,
     color_map: Optional[ColorMap],
+    downsample_block: int = 1,
+    rank_order: Optional[np.ndarray] = None,
     device: Device = DEFAULT_DEVICE,
 ) -> np.ndarray:
-    """The output-resolution [width*height, 5] composited frame (before the
-    wireframe overlay) through ``fast_scene.FastSceneRenderer`` and the
-    tile-march kernel.  The scene renderer derives the scalar range and
-    reference sample distance from ``geometry`` as ``render_scene`` does."""
-    from .fast_scene import FastSceneRenderer
+    """The composited frame through the tile-march kernel (one launch over
+    every tile), [(render_width / block) * (render_height / block), 5] on
+    the host.  It works on ``prepare_slicemarch_scene``'s prep, so split
+    pieces fall back to their parent's depth hint where the visibility
+    graph is off, and owners break hint ties in ``rank_order``; its memory
+    does not grow with the piece count (deep-AMR scenes)."""
+    prep = prepare_slicemarch_scene(
+        geometry, parameters, camera, scalar_range, reference_sample_distance,
+        render_width, render_height, color_map,
+    )
+    if prep is None:
+        block = max(downsample_block, 1)
+        return _background((render_width // block) * (render_height // block))
+    return _tilemarch_frame(prep, parameters, camera, render_width,
+                            render_height, downsample_block, rank_order,
+                            resolve_device(device))
 
-    if not geometry.bricks:
-        return _background(parameters.width * parameters.height)
-    renderer = FastSceneRenderer(geometry, parameters, color_map, device=device)
-    return renderer.render(camera, overlay=False)
+
+def _tilemarch_frame(prep: dict, parameters: RenderParameters,
+                     camera: CameraParameters, render_width: int,
+                     render_height: int, downsample_block: int,
+                     rank_order: Optional[np.ndarray],
+                     dev: torch.device) -> np.ndarray:
+    """``render_composited_tilemarch`` on a prep already made."""
+    forward, right, up = camera_basis(camera)
+    eye = np.asarray(camera.eye)
+    # piece boxes in world axis order (the prep's meta is march-permuted)
+    inv = np.argsort(prep["dims"][:, 3:6], axis=1)
+    box_min = np.take_along_axis(prep["meta"][:, 0:3], inv, axis=1).astype(np.float64)
+    box_max = np.take_along_axis(prep["meta"][:, 3:6], inv, axis=1).astype(np.float64)
+    offsets, tbricks, towners = wl.build_tile_worklist(
+        box_min, box_max, prep["depth_hints"],
+        visibility_owner_keys(prep["owners"], rank_order),
+        eye, forward, right, up, camera.fov_y_degrees,
+        prep["pad_w"], prep["pad_h"],
+        logical_width=render_width, logical_height=render_height,
+    )
+    # per-(tile, piece) slice bands, two-sided band splitting and empty-item
+    # culling, as the animation path does (FastSceneRenderer.frame_inputs)
+    wt = np.repeat(np.arange(len(offsets) - 1), np.diff(offsets))
+    band1, band2, march_fwd = wl.compute_item_bands(
+        prep["meta"], prep["dims"][:, 7], wt, tbricks,
+        eye, forward, right, up, camera.fov_y_degrees,
+        list(prep["dims"][0, 3:6]), prep["pad_w"], prep["pad_h"],
+        render_width, render_height,
+        prep["occ_bits"], prep["nq"], prep["split_u"], prep["split_v"],
+        ghost=prep["ghost"], seg_len=2,
+        margin=wl.footprint_margin(prep["ghost"], parameters.sampling),
+    )
+    wt, tbricks, towners, ibounds = wl.expand_bands(
+        wt, tbricks, towners, band1, band2, march_fwd
+    )
+    nonempty = (ibounds >> 16) < (ibounds & 0xFFFF)
+    wt, tbricks, towners, ibounds = (
+        wt[nonempty], tbricks[nonempty], towners[nonempty], ibounds[nonempty]
+    )
+    num_tiles = (prep["pad_w"] // wl.TILE_W) * (prep["pad_h"] // wl.TILE_H)
+    offsets = np.zeros(num_tiles + 1, dtype=np.int32)
+    offsets[1:] = np.cumsum(np.bincount(wt, minlength=num_tiles))
+
+    def on_dev(a, dtype=None):
+        a = np.ascontiguousarray(a if dtype is None else a.astype(dtype))
+        return torch.from_numpy(a).to(dev)
+
+    out_c, out_d = tm.tilemarch_render(
+        on_dev(prep["vol"]), on_dev(prep["meta"]), on_dev(prep["dims"]),
+        on_dev(prep["luts"][0]), on_dev(prep["cam"]), on_dev(offsets),
+        on_dev(tbricks, np.int32), on_dev(towners, np.int32),
+        on_dev(ibounds, np.int32),
+        width=prep["pad_w"], height=prep["pad_h"], max_slices=prep["s_max"],
+        logical_width=render_width, logical_height=render_height,
+        sampling=parameters.sampling, ghost=prep["ghost"],
+        classification=parameters.classification,
+    )
+    c, d = untile(out_c[None], out_d[None], prep["pad_w"], prep["pad_h"])
+    frame = torch.cat([c[0], d[0, :, None]], dim=-1)
+    frame = frame.reshape(prep["pad_h"], prep["pad_w"], 5)
+    frame = frame[:render_height, :render_width].reshape(-1, 5)
+    if downsample_block > 1:
+        frame = _device_downsample(frame, render_width, render_height,
+                                   downsample_block)
+    return frame.cpu().numpy()

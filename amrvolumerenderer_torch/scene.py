@@ -285,12 +285,21 @@ def assign_owners(scene: SceneGeometry, num_ranks: int) -> None:
         b.owner = i % num_ranks
 
 
-def compute_scene_histogram(scene: SceneGeometry, bin_count: int) -> ScalarHistogram:
+def compute_scene_histogram(scene: SceneGeometry, bin_count: int,
+                            device=None) -> ScalarHistogram:
     """Histogram of transformed scalar values (SceneBuilder.cpp:445-577),
     binned by ``device_scene.device_histogram``: NumPy bricks on the host,
-    tensor bricks where they lie."""
+    tensor bricks where they lie; with ``device`` every brick is first
+    placed there."""
     if bin_count <= 0:
         raise ValueError("binCount must be positive")
+    bricks = [brick.data for brick in scene.bricks]
+    if device is not None:
+        from .device import resolve_device
+
+        dev = resolve_device(device)
+        bricks = [torch.as_tensor(np.asarray(b) if not isinstance(b, torch.Tensor)
+                                  else b).to(dev) for b in bricks]
     hist = ScalarHistogram(bin_counts=np.zeros(bin_count, dtype=np.uint64))
     if scene.has_scalar_range:
         hist.normalized_range = scene.scalar_range
@@ -309,7 +318,7 @@ def compute_scene_histogram(scene: SceneGeometry, bin_count: int) -> ScalarHisto
     from .device_scene import device_histogram
 
     counts, total = device_histogram(
-        [brick.data for brick in scene.bricks],
+        bricks,
         scene.scalar_transform,
         bin_count,
         hist.normalized_range,

@@ -96,6 +96,18 @@ launch count read around them (all 0); and both fitting examples with
 their defaults on the card, run together (the loss must fall below half
 its first value, and each example must reach its own goal).
 
+Then the several-process launch and the repaired one-shot tile-march route
+(phase 28): ``renderer_fast.render_composited_tilemarch`` (the JAX
+package's route on the slice-march prep) on the 3-level scene at 1024^2
+with the visibility graph on and off, against the same route on the CPU,
+its one kernel-1 launch replayed against the plain version; then the CLI
+path in two processes on this one card (the JAX package's launch
+variables, a free localhost port, gloo through pinned host memory) over 8
+shards at 1024^2, one-shot in float32 and ubyte transport and a 4-frame
+orbit of the persistent renderer: rank 0's images byte-identical to a
+one-process run's, rank 1 saving nothing, kernel 4 and the pixel or runs
+mode launched on both ranks, each rank's wall time beside one process's.
+
 Phase 1 also logs each kernel instantiation's registers, shared memory and
 spills (and fails on a spill) and counts the SASS instructions of one
 valid sample and of one composite fold step (``ops/csrc/sample_probe.cu``),
@@ -185,24 +197,28 @@ def radial_field(n: int, lo: float, hi: float) -> np.ndarray:
     return f.astype(np.float64)
 
 
-def three_level_geometry():
+def three_level_levels():
     """bench.py:70-93: 64^3 base, 2x refinement over the central half and
-    another over the central quarter, through the port's ingestion."""
-    from amrvolumerenderer_torch import api
+    another over the central quarter: (levels, level geometries, ratios)."""
     from amrvolumerenderer_torch.api import LevelBox, LevelGeometry
 
     n = 64
-    data = api.AmrData(
-        level_data=[
-            [LevelBox(radial_field(n, 0.0, 1.0), np.zeros(3, dtype=int))],
-            [LevelBox(radial_field(n, 0.25, 0.75), np.full(3, 32, dtype=int))],
-            [LevelBox(radial_field(n, 0.375, 0.625), np.full(3, 96, dtype=int))],
-        ],
-        level_geometry=[
-            LevelGeometry(np.zeros(3), np.full(3, 1.0 / (s * n))) for s in (1, 2, 4)
-        ],
-        refinement_ratios=[(2, 2, 2), (2, 2, 2)],
-    )
+    levels = [
+        [LevelBox(radial_field(n, 0.0, 1.0), np.zeros(3, dtype=int))],
+        [LevelBox(radial_field(n, 0.25, 0.75), np.full(3, 32, dtype=int))],
+        [LevelBox(radial_field(n, 0.375, 0.625), np.full(3, 96, dtype=int))],
+    ]
+    geoms = [LevelGeometry(np.zeros(3), np.full(3, 1.0 / (s * n))) for s in (1, 2, 4)]
+    return levels, geoms, [(2, 2, 2), (2, 2, 2)]
+
+
+def three_level_geometry():
+    """bench.py's 3-level scene through the port's ingestion."""
+    from amrvolumerenderer_torch import api
+
+    levels, geoms, ratios = three_level_levels()
+    data = api.AmrData(level_data=levels, level_geometry=geoms,
+                       refinement_ratios=ratios)
     return api.load_amr_geometry(data, 0, -1, 0, False, True, verbose=False)
 
 
@@ -1583,7 +1599,7 @@ def main() -> int:
             sync(); t.append(time.perf_counter())
             out = ds._fold_partials(mesh, received)
         sync(); t.append(time.perf_counter())
-        frame = ds.paste_tiles(ds.paste_rect(rf._fetch_global(out), rect,
+        frame = ds.paste_tiles(ds.paste_rect(ds.gather_frame(mesh, out).cpu().numpy(), rect,
                                              prep["pad_w"], prep["pad_h"]),
                                tiles, prep["pad_w"], prep["pad_h"])
         frame = frame.reshape(prep["pad_h"], prep["pad_w"], 5)[:1024, :1024]
@@ -2171,8 +2187,8 @@ def main() -> int:
         assert same and d == 0.0 and np.isfinite(frame3[:, :4]).all()
         del tile_rec, r3, r3_cpu
     # histograms: the 512 tensors on the card against the CPU tensor route,
-    # and the plotfile's (binned on the host) against the card's binning of
-    # the same bricks
+    # and the plotfile's (binned on the card by default) against the CPU
+    # call's and the card's binning of the same bricks
     t24 = r24.geometry.scalar_transform
     srange24 = r24.geometry.scalar_range
     hist_ms, (counts24, total24) = synced_ms(lambda: dsc.device_histogram(
@@ -2183,16 +2199,19 @@ def main() -> int:
         f"{hist_ms:.3f} ms, {total24} samples, equal to the CPU tensor route "
         f"{bool(np.array_equal(counts24, cpu_counts))}")
     assert np.array_equal(counts24, cpu_counts) and total24 == cpu_total == side ** 3
-    host_ms, hist_dict = synced_ms(
+    card_ms, hist_dict = synced_ms(
         lambda: amrvolumerenderer_torch.compute_histogram(plotfile, bins=256))
+    cpu_ms, cpu_dict = synced_ms(lambda: amrvolumerenderer_torch.compute_histogram(
+        plotfile, bins=256, device="cpu"))
     pgeom = load_plotfile_geometry(plotfile, "", 0, -1, False, verbose=False)
     card_counts, card_total = dsc.device_histogram(
         [torch.from_numpy(np.asarray(b.data)).to(dev) for b in pgeom.bricks],
         pgeom.scalar_transform, 256, pgeom.scalar_range)
-    log(f"phase 24: compute_histogram(plotfile): {host_ms:.3f} ms on the host, "
-        f"{hist_dict['samples']} samples; the same bricks binned on the card "
-        f"give the same counts {hist_dict['counts'] == card_counts.tolist()}")
-    assert hist_dict["counts"] == card_counts.tolist()
+    log(f"phase 24: {smi}: compute_histogram(plotfile): {card_ms:.3f} ms (default, "
+        f"the card), {cpu_ms:.3f} ms with device='cpu', {hist_dict['samples']} "
+        f"samples; equal to the CPU call {hist_dict == cpu_dict} and to the "
+        f"card's device_histogram {hist_dict['counts'] == card_counts.tolist()}")
+    assert hist_dict == cpu_dict and hist_dict["counts"] == card_counts.tolist()
     assert hist_dict["samples"] == card_total == side ** 3
     del on_card, on_cpu, card_bricks, r24, r24_cpu, s_card, s_cpu
     torch.cuda.empty_cache()
@@ -2399,6 +2418,39 @@ def main() -> int:
     # ---- phase 27: the differentiable path ---------------------------------
     diff_phase(torch, dev, smi, reset_counts, counts)
 
+    # ---- phase 28: the one-shot tile-march route; two processes ------------
+    # (i) renderer_fast.render_composited_tilemarch (JAX's route: the
+    # slice-march prep, parent-hint fallback, visibility owner keys) on the
+    # 3-level scene with the graph on and off, against the same route on
+    # the CPU; its one kernel-1 launch replayed against the plain version
+    for graph in (True, False):
+        params = RenderParameters(width=1024, height=1024, use_visibility_graph=graph)
+        camera = auto_orbit_camera(bounds3, params.camera_seed, params.camera_up)
+        route = (geometry3, params, camera, srange3, rsd3, 1024, 1024, None)
+        reset_counts()
+        with recorded(rf, "tm", "tilemarch_render") as tile_rec:
+            route_ms, frame = synced_ms(
+                lambda: rf.render_composited_tilemarch(*route, device=dev))
+        got = counts()
+        t0 = time.perf_counter()
+        cpu_frame = rf.render_composited_tilemarch(*route, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        same, d = max_diff(frame, cpu_frame)
+        covered = float((frame[:, 3] > 0).mean())
+        log(f"phase 28: {smi}: render_composited_tilemarch 3-level 1024x1024, "
+            f"visibility graph {'on' if graph else 'off'}: {route_ms:.3f} ms wall, "
+            f"launches {got}; the CPU's frame ({cpu_s:.3f} s): max |diff| {d:.3g}, "
+            f"non-finite pattern same {same}; alpha > 0 on {covered:.4f}")
+        assert got == {"tilemarch": 1, "slicemarch": 0, "composite": 0,
+                       "composite_pixels": 0}, got
+        assert same and d == 0.0
+        assert ALPHA_FRACTION[0] <= covered <= ALPHA_FRACTION[1], covered
+        hold_calls("tilemarch", tm.tilemarch_render, tm.tilemarch_reference,
+                   f"phase 28: the route's kernel-1 launch (graph "
+                   f"{'on' if graph else 'off'}) replayed", tile_rec, atol=0.0)
+        del tile_rec, frame, cpu_frame
+    two_process_phase(torch, smi)
+
     sources = {
         "tilemarch": ("ops/csrc/tilemarch.cu", "amrvolumerenderer_tpu/ops/tilemarch.py:819"),
         "slicemarch": ("ops/csrc/slicemarch.cu", "amrvolumerenderer_tpu/ops/slicemarch.py:750"),
@@ -2438,6 +2490,151 @@ def main() -> int:
         "count": torch.cuda.device_count(),
     }}))
     return 0
+
+
+# phase 28 (ii): one process of the CLI path over several configurations
+# (``python -c RANK_RUN ROOT CONFIGS``), the JAX-style launch variables
+# from the environment; one line per configuration with its wall time and
+# the kernel launch counts of this process
+RANK_RUN = r"""
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+import torch
+from amrvolumerenderer_torch import driver
+from amrvolumerenderer_torch.device import process_index
+from amrvolumerenderer_torch.ops import composite as comp
+from amrvolumerenderer_torch.ops import slicemarch as sm
+from amrvolumerenderer_torch.ops import tilemarch as tm
+
+counted = {"slicemarch_dense": sm.slicemarch_render,
+           "composite_pixels": comp.composite_pixels,
+           "composite_runs": comp.composite_runs,
+           "tilemarch": tm.tilemarch_render,
+           "slicemarch": sm.slicemarch_render_worklist_raw,
+           "composite": comp.composite_tiles}
+distributed = driver.maybe_initialize_distributed(sys.argv[3])
+sync = torch.cuda.synchronize if sys.argv[3] != "cpu" else (lambda: None)
+for name, transport, argv in json.loads(sys.argv[2]):
+    for attempt in range(2):
+        options = driver.parse_options(argv)
+        options.parameters.multichip_transport = transport
+        for fn in counted.values():
+            fn.launches = 0
+        sync()
+        t0 = time.perf_counter()
+        rc = driver.run_options(options, verbose=False)
+        sync()
+        print("RANK_RUN " + json.dumps({
+            "config": name, "attempt": attempt, "rank": process_index(),
+            "rc": rc, "wall_s": time.perf_counter() - t0,
+            "launches": {k: f.launches for k, f in counted.items()}}), flush=True)
+        assert rc == 0, (name, rc)
+if distributed:
+    torch.distributed.destroy_process_group()
+"""
+
+
+def two_process_phase(torch, smi: str, device: str = "cuda", size: int = 1024) -> None:
+    """Phase 28 (ii): the port's CLI path (``driver.parse_options`` and
+    ``run_options`` after ``maybe_initialize_distributed``) in two
+    processes on ``cuda:0``, joined by the JAX-style variables through a
+    free localhost port, with ``LOCAL_WORLD_SIZE=2`` (both on this host);
+    one card, so the backend is gloo through pinned
+    host memory (``device="cpu"``: gloo on the CPU, to try the phase off
+    the card).  The 3-level scene as a plotfile at ``size``^2 over 8 shards
+    (4 a process): the one-shot slice-march pipeline in float32 and ubyte
+    transport, and the persistent renderer's 4-frame orbit.  Rank 0's
+    images must equal a one-process run's byte for byte, rank 1 saves
+    nothing, and on both ranks kernel 4 and the pixel or runs mode of the
+    composite kernel launch.  Any failing process fails the phase."""
+    import socket
+
+    from amrvolumerenderer_torch.driver import write_plotfile
+
+    import shutil
+
+    base = os.path.join(SCRATCH, "two_process")
+    shutil.rmtree(base, ignore_errors=True)
+    plotfile = os.path.join(base, "plt_3level")
+    levels, geoms, _ = three_level_levels()
+    write_plotfile(plotfile, levels, geoms, ref_ratios=[2, 2])
+    flags = [plotfile, "--width", str(size), "--height", str(size), "--devices", "8",
+             "--render-method", "slicemarch", "--device", device]
+    configs = [
+        ("oneshot-float32", "float32", flags + ["--output", "f32.ppm"]),
+        ("oneshot-ubyte", "ubyte", flags + ["--output", "u8.ppm"]),
+        ("orbit-4", "float32", flags + ["--orbit-frames", "4", "--output", "orbit.ppm"]),
+    ]
+    outputs = {"oneshot-float32": ["f32.ppm"], "oneshot-ubyte": ["u8.ppm"],
+               "orbit-4": [f"orbit_{i:04d}.ppm" for i in range(4)]}
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+
+    def start(tag, env_extra):
+        cwd = os.path.join(base, tag)
+        os.makedirs(cwd)
+        env = dict(os.environ, PYTHONPATH=ROOT)
+        for key in ("AVR_DISTRIBUTED", "LOCAL_RANK", "LOCAL_WORLD_SIZE"):
+            env.pop(key, None)
+        env.update(env_extra)
+        return cwd, subprocess.Popen(
+            [sys.executable, "-c", RANK_RUN, ROOT, json.dumps(configs), device], cwd=cwd,
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def finish(runs):
+        """Wait for every process; fail on any non-zero exit.  Returns each
+        run's (cwd, {(config, attempt): record}, stdout)."""
+        done = []
+        for cwd, proc in runs:
+            out, err = proc.communicate(timeout=600)
+            assert proc.returncode == 0, f"{cwd}: rc {proc.returncode}\n{err[-4000:]}"
+            records = {}
+            for line in out.splitlines():
+                if line.startswith("RANK_RUN "):
+                    rec = json.loads(line[len("RANK_RUN "):])
+                    records[(rec["config"], rec["attempt"])] = rec
+            done.append((cwd, records, out))
+        return done
+
+    t0 = time.perf_counter()
+    ranks = finish([start(f"rank{r}", dict(
+        JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}", JAX_NUM_PROCESSES="2",
+        JAX_PROCESS_ID=str(r), LOCAL_WORLD_SIZE="2", LOCAL_RANK=str(r)))
+        for r in (0, 1)])
+    pair_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (single,) = finish([start("single", {})])
+    single_s = time.perf_counter() - t0
+    up = [line for line in ranks[0][2].splitlines() if "distributed runtime up" in line]
+    log(f"phase 28: two processes on {device}: {up[0] if up else 'no runtime line'}; "
+        f"{pair_s:.3f} s wall for the pair, {single_s:.3f} s for one process "
+        "(process start, CUDA context and scene load included)")
+    shared = 2 if device == "cpu" else 1
+    assert up and f"2 host(s), {shared} device(s), backend gloo" in up[0], up
+    for name, _, _ in configs:
+        for attempt in (0, 1):
+            recs = [r[1][(name, attempt)] for r in ranks]
+            one = single[1][(name, attempt)]
+            log(f"phase 28: {smi}: {name} (run {attempt + 1}): wall rank 0 "
+                f"{recs[0]['wall_s'] * 1e3:.3f} ms, rank 1 {recs[1]['wall_s'] * 1e3:.3f} ms, "
+                f"one process {one['wall_s'] * 1e3:.3f} ms")
+            for rec in recs + [one]:
+                log(f"phase 28: {name} (run {attempt + 1}) "
+                    f"{'rank ' + str(rec['rank']) if rec in recs else 'one process'} "
+                    f"launches {json.dumps(rec['launches'])}")
+            for rec in recs if device != "cpu" else []:  # plain versions count none
+                launched = rec["launches"]
+                assert launched["slicemarch_dense"] > 0, (name, rec)
+                assert launched["composite_pixels"] + launched["composite_runs"] > 0, \
+                    (name, rec)
+        for fname in outputs[name]:
+            got = open(os.path.join(ranks[0][0], fname), "rb").read()
+            want = open(os.path.join(single[0], fname), "rb").read()
+            assert got == want, f"{name}: rank 0's {fname} differs from one process"
+    assert os.listdir(ranks[1][0]) == [], os.listdir(ranks[1][0])
+    log("phase 28: rank 0's images equal the one-process images byte for byte "
+        f"({sum(len(v) for v in outputs.values())} files); rank 1 saved nothing")
 
 
 # phase 27: the differentiable path's gradient tolerance against the CPU

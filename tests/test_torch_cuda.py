@@ -2,9 +2,10 @@
 float32 and bfloat16 volumes), slice-march (work list and dense), the
 composite (tile, pixel and runs modes), the multi-device route over 8
 shards of one card, the persistent multi-device renderer, the raymarch
-oracle and the differentiable path against the same on the CPU (marked
-``cuda``; every test skips itself when ``torch.cuda.is_available()`` is
-false).
+oracle, the differentiable path and the one-shot tile-march route against
+the same on the CPU, and two processes of the CLI sharing the card against
+one process (marked ``cuda``; every test skips itself when
+``torch.cuda.is_available()`` is false).
 
 This file imports neither jax nor the tests' conftest (which does), so it
 runs on a machine that has only PyTorch:
@@ -815,6 +816,39 @@ def test_device_histogram_and_stats_match_cpu(cuda):
 
 
 @pytest.mark.cuda
+def test_compute_histogram_bins_on_the_card_by_default(cuda, tmp_path, monkeypatch):
+    """``compute_histogram(plotfile)`` and ``api.compute_histogram`` with
+    no device bin the bricks as CUDA tensors, with the CPU call's counts."""
+    import amrvolumerenderer_torch
+    from amrvolumerenderer_torch import device_scene
+    from amrvolumerenderer_torch.plotfile import write_plotfile
+
+    data = r2_data()
+    plotfile = str(tmp_path / "plt00000")
+    write_plotfile(plotfile, data.level_data, data.level_geometry)
+    seen = []
+    binned = device_scene.device_histogram
+
+    def spy(arrays, *args, **kw):
+        seen.append([a.device.type if isinstance(a, torch.Tensor) else "numpy"
+                     for a in arrays])
+        return binned(arrays, *args, **kw)
+
+    monkeypatch.setattr(device_scene, "device_histogram", spy)
+    got = amrvolumerenderer_torch.compute_histogram(plotfile, bins=64)
+    assert seen and set(seen[-1]) == {"cuda"}
+    assert got == amrvolumerenderer_torch.compute_histogram(plotfile, bins=64,
+                                                           device="cpu")
+    assert set(seen[-1]) == {"cpu"}
+    hist = api.compute_histogram(data, api.HistogramOptions(bin_count=64))
+    assert set(seen[-1]) == {"cuda"}
+    want = api.compute_histogram(data, api.HistogramOptions(bin_count=64,
+                                                            device="cpu"))
+    np.testing.assert_array_equal(hist.bin_counts, want.bin_counts)
+    assert hist.sample_count == want.sample_count > 0
+
+
+@pytest.mark.cuda
 def test_raymarch_golden_row(cuda, tmp_path):
     """render_method="raymarch" on the card reproduces ``raymarch-1dev``
     and folds its layers with one pixel-mode composite launch."""
@@ -994,3 +1028,82 @@ def test_diff_matches_cpu(cuda, name):
         terms = camera_terms(args, static, w, i)
         assert np.all(terms > 0.0)
         assert np.all(np.abs(g - ref) <= 1e-4 * terms), (i, np.abs(g - ref) / terms)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("graph", [True, False], ids=["graph", "nograph"])
+@pytest.mark.parametrize("sampling", ["nearest", "trilinear"])
+def test_tilemarch_route_matches_cpu(cuda, sampling, graph):
+    """The one-shot tile-march route (``render_composited_tilemarch``, the
+    JAX package's route on the slice-march prep): one kernel-1 launch on
+    the card, and the frame equals the CPU's bit for bit."""
+    from amrvolumerenderer_torch.renderer_fast import render_composited_tilemarch
+
+    geometry = three_level_geometry()
+    params = RenderParameters(width=128, height=96, sampling=sampling,
+                              use_visibility_graph=graph)
+    bounds = compute_global_bounds(geometry)
+    route = (geometry, params, auto_orbit_camera(bounds),
+             compute_global_scalar_range(geometry),
+             compute_reference_sample_distance(geometry, bounds), 128, 96, None)
+    before = tm.tilemarch_render.launches
+    got = render_composited_tilemarch(*route, device=cuda)
+    assert tm.tilemarch_render.launches == before + 1
+    want = render_composited_tilemarch(*route, device="cpu")
+    assert (want[:, 3] > 0).mean() > 0.05
+    finite = np.isfinite(want)
+    np.testing.assert_array_equal(np.isfinite(got), finite)
+    np.testing.assert_array_equal(got[finite], want[finite])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra", [[], ["--orbit-frames", "2"]],
+                         ids=["oneshot", "orbit"])
+def test_two_processes_on_one_card_match_one_process(cuda, tmp_path, extra):
+    """Two processes of the CLI on ``cuda:0`` (gloo through pinned host
+    memory, as NCCL refuses two ranks on one device), ``--devices 8``:
+    rank 0's images equal a one-process render's byte for byte; rank 1
+    saves nothing."""
+    import socket
+    import subprocess
+    import sys
+
+    from amrvolumerenderer_torch.plotfile import write_plotfile
+
+    data = r2_data()
+    plotfile = str(tmp_path / "plt00000")
+    write_plotfile(plotfile, data.level_data, data.level_geometry)
+    argv = [plotfile, "--devices", "8", "--width", "64", "--height", "64",
+            "--render-method", "slicemarch", *extra, "--output", "mh.ppm"]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for tag, launch in (("rank0", {"JAX_PROCESS_ID": "0"}),
+                        ("rank1", {"JAX_PROCESS_ID": "1"}), ("single", None)):
+        os.makedirs(tmp_path / tag)
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith(("JAX_", "LOCAL_")) and k != "AVR_DISTRIBUTED"}
+        env["PYTHONPATH"] = root
+        # one card, whatever the machine has
+        env["CUDA_VISIBLE_DEVICES"] = os.environ.get(
+            "CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+        if launch:
+            env.update(JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                       JAX_NUM_PROCESSES="2", LOCAL_WORLD_SIZE="2",
+                       LOCAL_RANK=launch["JAX_PROCESS_ID"], **launch)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "amrvolumerenderer_torch.driver", *argv],
+            cwd=str(tmp_path / tag), env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    logs = [p.communicate(timeout=300)[0] for p in procs]
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, log[-3000:]
+    assert "2 host(s), 1 device(s), backend gloo" in logs[0]
+    assert os.listdir(tmp_path / "rank1") == []
+    names = sorted(os.listdir(tmp_path / "single"))
+    assert names and sorted(os.listdir(tmp_path / "rank0")) == names
+    for name in names:
+        assert ((tmp_path / "rank0" / name).read_bytes()
+                == (tmp_path / "single" / name).read_bytes()), name

@@ -214,7 +214,7 @@ def test_api_compute_histogram_matches_jax(options):
         for box in levels[0]:
             box.data = box.data + 0.01
     jdata, pdata = amr_data(levels, geoms)
-    got = api.compute_histogram(pdata, api.HistogramOptions(**options))
+    got = api.compute_histogram(pdata, api.HistogramOptions(**options, device="cpu"))
     want = jax_api.compute_histogram(jdata, jax_api.HistogramOptions(**options))
     assert_hist_equal(got, want)
     assert got.sample_count == got.bin_counts.sum() == 32 ** 3
@@ -233,13 +233,13 @@ def test_histogram_component_selection_matches_jax(component):
     jdata, pdata = amr_data([[LevelBox(multi, np.zeros(3, dtype=int))]],
                             [LevelGeometry(np.zeros(3), np.full(3, 1.0 / 8))])
     options = dict(bin_count=8, component=component)
-    got = api.compute_histogram(pdata, api.HistogramOptions(**options))
+    got = api.compute_histogram(pdata, api.HistogramOptions(**options, device="cpu"))
     assert_hist_equal(got, jax_api.compute_histogram(
         jdata, jax_api.HistogramOptions(**options)))
     assert got.sample_count == 512
     assert (got.bin_counts[0] == 512) == (component == 1)
     with pytest.raises(ValueError, match="binCount"):
-        api.compute_histogram(pdata, api.HistogramOptions(bin_count=0))
+        api.compute_histogram(pdata, api.HistogramOptions(bin_count=0, device="cpu"))
 
 
 def test_compute_histogram_dict_matches_jax(tmp_path):
@@ -256,10 +256,10 @@ def test_compute_histogram_dict_matches_jax(tmp_path):
                    [LevelGeometry(np.zeros(3), np.full(3, 1 / 16))],
                    var_names=["density"])
     for kw in (dict(bins=32), dict(bins=17, log_scale=True)):
-        got = amrvolumerenderer_torch.compute_histogram(path, **kw)
+        got = amrvolumerenderer_torch.compute_histogram(path, **kw, device="cpu")
         assert got == amrvolumerenderer_tpu.compute_histogram(path, **kw)
         assert len(got["counts"]) == kw["bins"] and got["samples"] == 16 ** 3
-    result = amrvolumerenderer_torch.compute_histogram(path, bins=32)
+    result = amrvolumerenderer_torch.compute_histogram(path, bins=32, device="cpu")
     assert result["normalized_range"] == [0.0, 1.0]
     assert result["processed_range"] is not None
     assert result["original_range"] is not None

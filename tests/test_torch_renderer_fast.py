@@ -140,16 +140,17 @@ def test_api_render_reproduces_golden_row_through_its_route(monkeypatch, method,
 
 
 def test_more_than_96_pieces_go_to_tilemarch(monkeypatch):
-    """512 bricks of 2^3 cells: the router hands the frame to tile-march,
-    whose frame equals the direct tile-march route's."""
+    """512 bricks of 2^3 cells: the router hands the frame, with the prep
+    it made, to tile-march, whose frame equals the direct tile-march
+    route's."""
     calls = []
-    direct = renderer_fast.render_composited_tilemarch
+    direct = renderer_fast._tilemarch_frame
 
     def counted(*args, **kwargs):
         calls.append(1)
         return direct(*args, **kwargs)
 
-    monkeypatch.setattr(renderer_fast, "render_composited_tilemarch", counted)
+    monkeypatch.setattr(renderer_fast, "_tilemarch_frame", counted)
     data = api.AmrData(*port_levels(*make_r2_scene_data(16, 2)))
     options = dict(width=32, height=32, device="cpu")
     auto, _ = api.render(data, api.RenderOptions(**options), verbose=False)

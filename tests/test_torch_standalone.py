@@ -6,7 +6,8 @@ them), the CLI renders a plotfile through the default (slice-march)
 route, the raymarch oracle, over two shards (``--devices 2``, the
 ``parallel`` package), an orbit through the batched tile-march path and
 an orbit over two shards (the persistent multi-device renderer) on the
-CPU, and the port's transfer-function fitting example runs."""
+CPU, and the port's transfer-function fitting example and its eight client
+examples run."""
 
 import os
 import subprocess
@@ -157,3 +158,69 @@ def test_port_fitting_example_runs_with_jax_and_reference_blocked():
     assert len(summary) == 1, proc.stdout
     first, final = (float(v) for v in summary[0][6:].split(" (")[0].split(" -> "))
     assert final < 0.5 * first, summary
+
+
+BLOCKED_CLIENT_EXAMPLES = BLOCK + """
+import json
+
+for script, argv in json.loads(sys.argv[1]):
+    sys.argv = [script] + argv
+    try:
+        runpy.run_path(script, run_name="__main__")
+    except SystemExit as stop:
+        assert stop.code in (None, 0), (script, stop.code)
+    print("ran", script)
+leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+assert not leaked, leaked
+"""
+
+
+def test_port_client_examples_run_with_jax_and_reference_blocked(tmp_path, plotfile):
+    """The eight client examples (``examples/*_torch.py`` other than the
+    fitting ones) in one interpreter with jax and the JAX package blocked,
+    on the CPU at tests/test_torch_examples.py's sizes; each writes the
+    outputs its JAX original writes."""
+    import json
+
+    ex = os.path.join(REPO, "examples")
+    small = ["--width", "16", "--height", "16", "--device", "cpu"]
+    runs = [
+        ("render_volume_torch.py", [plotfile, *small, "--output",
+                                    str(tmp_path / "ex.ppm")]),
+        ("render_volume_rotate_torch.py", [plotfile, "--frames", "2", *small,
+                                           "--output-dir", str(tmp_path / "orbit")]),
+        ("render_volume_time_torch.py", [os.path.join(os.path.dirname(plotfile),
+                                                      "plt*"), *small,
+                                         "--output-dir", str(tmp_path / "time")]),
+        ("render_galaxy_torch.py", [plotfile, *small, "--min-level", "0",
+                                    "--output", str(tmp_path / "galaxy.png")]),
+        ("compute_histogram_torch.py", [plotfile, "--bins", "16", "--device", "cpu"]),
+        ("render_from_arrays_torch.py", [*small, "--output",
+                                         str(tmp_path / "multifab-render.png")]),
+        ("render_animation_torch.py", [str(tmp_path / "anim"), "--frames", "2",
+                                       "--size", "32", "--device", "cpu"]),
+        ("render_multichip_animation_torch.py", [
+            "--size", "32", "--frames", "2", "--devices", "2",
+            "--output-dir", str(tmp_path / "mesh"), "--device", "cpu"]),
+    ]
+    path = os.environ.get("PYTHONPATH")
+    env = dict(os.environ, PYTHONPATH=REPO + (os.pathsep + path if path else ""),
+               OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-c", BLOCKED_CLIENT_EXAMPLES,
+         json.dumps([(os.path.join(ex, s), argv) for s, argv in runs])],
+        cwd=str(tmp_path), env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    ran = [line[4:] for line in proc.stdout.splitlines() if line.startswith("ran ")]
+    assert ran == [os.path.join(ex, script) for script, _ in runs]
+    assert "samples: " in proc.stdout and "percentiles" in proc.stdout
+    assert (tmp_path / "ex.ppm").read_bytes().startswith(b"P6")
+    assert sorted(os.listdir(tmp_path / "orbit")) == ["frame_0000.png", "frame_0001.png"]
+    assert os.listdir(tmp_path / "time") == ["plt00000.png"]
+    assert (tmp_path / "galaxy.png").exists()
+    assert (tmp_path / "multifab-render.png").exists()
+    assert sorted(os.listdir(tmp_path / "anim")) == [
+        "frame0000.png", "frame0001.png", "orbit0000.png", "orbit0001.png"]
+    assert sorted(os.listdir(tmp_path / "mesh")) == ["multichip_00.ppm",
+                                                     "multichip_01.ppm"]
