@@ -57,6 +57,7 @@ from .ops.march import f32
 from .ops.numerics import fma, log
 from .ops.raymarch import (_HALF_FOV_SCALE, _ray_directions, _slab_intersect,
                            half_fov_tan, max_steps_for_bucket)
+from .parallel import directsend as ds
 from .types import ScalarTransform
 
 Tensor = torch.Tensor
@@ -389,17 +390,90 @@ def default_order(min_corner: Tensor, max_corner: Tensor, eye: Tensor,
 
 
 def render_image_diff(data, min_corner, max_corner, *args, order=None,
-                      **kwargs) -> Tensor:
+                      mesh=None, **kwargs) -> Tensor:
     """Render all bricks and composite them: the one-call differentiable
     pipeline (arguments as ``render_layers_diff``).  ``order`` defaults to
     ``default_order``, the product renderer's hint ordering; pass a
-    visibility permutation for graph-exact order.  Returns ``[H*W, 4]``."""
+    visibility permutation for graph-exact order.  Returns ``[H*W, 4]``.
+
+    ``mesh`` (a ``parallel.directsend.Mesh`` from ``make_mesh``) shards
+    the brick axis over its shards, the counterpart of calling the JAX
+    function on brick-sharded data: the frame is the single call's bit for
+    bit, and so is every gradient up to the order of its sums.  See
+    ``_render_image_sharded``."""
+    if mesh is not None:
+        return _render_image_sharded(mesh, data, min_corner, max_corner, *args,
+                                     order=order, **kwargs)
     colors, _ = render_layers_diff(data, min_corner, max_corner, *args, **kwargs)
     if order is None:
         dev = colors.device
         order = default_order(min_corner.to(dev), max_corner.to(dev),
                               args[3].to(dev), args[4].to(dev))
     return composite_layers_diff(colors, order)
+
+
+def _render_image_sharded(mesh, data, min_corner, max_corner, cell_dims,
+                          color_table, sample_distance, *camera, order=None,
+                          width: int, height: int, **kwargs) -> Tensor:
+    """``render_image_diff`` over the mesh's shards: the brick axis in
+    ``mesh.size`` contiguous blocks, shard r rendering bricks ``[r * B / D,
+    (r + 1) * B / D)`` on its device.
+
+    ``data`` is the whole ``[B, ...]`` tensor or ``Shards`` (one
+    ``[B / D, ...]`` tensor per shard, None for another process's, as
+    ``directsend.shard_leading`` makes them; each receives its own rows of
+    the gradient).  The other per-brick tables and the camera come whole
+    on every process and are sliced per shard; across processes the
+    gradient of each whole input that requires one is summed over the
+    processes (``directsend.replicated``), so every process holds all of
+    it.  The frame follows the repo's DirectSend: each shard's ``[B / D,
+    P, 4]`` layers are exchanged (``all_to_all_autograd``) so that each
+    shard folds all B layers of its ``P / D`` pixels in ``default_order``
+    (the same layers in the same order as the single call), and the pixel
+    shards are gathered (``gather_frame_autograd``) into the whole ``[P,
+    4]`` frame on every process, on the first local shard's device.  The
+    pixel count is padded to a multiple of D with cleared pixels, cropped
+    after the gather.  ``B % D != 0`` raises."""
+    num = mesh.size
+    bricks = min_corner.shape[0]
+    if bricks % num:
+        raise ValueError(f"brick count {bricks} is not divisible by the mesh "
+                         f"size {num}")
+    per = bricks // num
+    sharded = isinstance(data, (list, tuple))
+    if sharded and (len(data) != num or any(
+            data[r] is None or data[r].shape[0] != per for r in mesh.local)):
+        raise ValueError(f"data shards must be {num} blocks of {per} bricks "
+                         "(directsend.shard_leading)")
+    first = mesh.devices[mesh.local[0]]
+    if order is None:
+        order = default_order(min_corner.to(first), max_corner.to(first),
+                              camera[0].to(first), camera[1].to(first))
+    whole = ds.replicated(mesh, min_corner, max_corner, cell_dims, color_table,
+                          sample_distance, *camera, *(() if sharded else (data,)))
+    tables, camera = whole[:5], whole[5:5 + len(camera)]
+    if not sharded:
+        data = whole[-1]
+    pixels = width * height
+    chunk = -(-pixels // num)
+    chunks: list = [None] * num
+    for r in mesh.local:
+        dev = mesh.devices[r]
+        rows = slice(r * per, (r + 1) * per)
+        block = data[r] if sharded else data[rows]
+        colors, _ = render_layers_diff(
+            block.to(dev), *(t[rows].to(dev) for t in tables), *camera,
+            width=width, height=height, **kwargs)
+        colors = torch.nn.functional.pad(colors, (0, 0, 0, chunk * num - pixels))
+        # [B / D, P, 4] -> [D, B / D, P / D, 4]: block s goes to shard s
+        chunks[r] = colors.reshape(per, num, chunk, 4).transpose(0, 1)
+    received = ds.all_to_all_autograd(mesh, chunks)
+    folded: list = [None] * num
+    for r in mesh.local:
+        # [D senders, B / D, ...] flattens to global brick order
+        layers = received[r].reshape(bricks, chunk, 4)
+        folded[r] = composite_layers_diff(layers, order)
+    return ds.gather_frame_autograd(mesh, folded)[:pixels]
 
 
 # The JAX package's jitted entry point.  PyTorch has no jit here: the name

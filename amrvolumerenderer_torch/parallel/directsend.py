@@ -34,6 +34,12 @@ JAX's ``shard_map``.
   folds each shard's same-shard runs of the global order first (the
   composite kernel's runs mode, ``ops.composite.composite_runs``) and
   exchanges runs, not layers.
+* ``all_to_all_autograd``, ``gather_frame_autograd`` and ``replicated``
+  are the collectives the sharded gradient of
+  ``diff.render_image_diff(mesh=...)`` goes through: across processes
+  their backwards exchange the gradients back, hand each shard its rows
+  of the frame's gradient, and sum a whole input's gradient over the
+  processes, one collective a process each.
 
 Functions that take a shard's tensors take its device from the mesh;
 none defaults to the CPU.  Results are lists of per-shard pixel shards
@@ -251,6 +257,113 @@ def gather_frame(mesh: Mesh, shards: Shards,
     if mesh.num_processes == 1:
         return torch.cat([s.to(device) for s in local])
     return _gather_processes(mesh, torch.cat(local)).to(device)
+
+
+# ---------------------------------------------------------------------------
+# Collectives that autograd goes through (the sharded gradient of
+# ``diff.render_image_diff(mesh=...)``).  The exchange and the frame gather
+# are each one ``torch.autograd.Function`` over all local shards, in one
+# process as across processes, so that the backward issues one collective
+# per process, in the same order on every process.  A replicated input is
+# one tensor whose slices autograd sums in one process; across processes
+# its gradient is summed by one ``all_reduce``.
+
+
+def _spread(mesh: Mesh, local) -> Shards:
+    """Local shard values (in ``mesh.local`` order) as a full ``Shards``."""
+    out: Shards = [None] * mesh.size
+    for r, x in zip(mesh.local, local):
+        out[r] = x
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    """``all_to_all`` of all local shards.  Its backward is the same
+    exchange of the gradients: the gradient of ``received[r][s]`` belongs to
+    ``chunks[s][r]``, and the exchange is its own transpose."""
+
+    @staticmethod
+    def forward(ctx, mesh, *local):
+        ctx.mesh = mesh
+        received = all_to_all(mesh, _spread(mesh, local))
+        return tuple(received[r] for r in mesh.local)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        mesh = ctx.mesh
+        sent = all_to_all(mesh, _spread(mesh, grads))
+        return (None, *(sent[r] for r in mesh.local))
+
+
+class _GatherFrame(torch.autograd.Function):
+    """``gather_frame`` of all local shards.  Every process computes the same
+    loss from the whole frame (GSPMD's replicated scalar), so each local
+    shard takes its own rows of the frame's gradient, with no sum over
+    processes (a reduce-scatter would scale it by the process count)."""
+
+    @staticmethod
+    def forward(ctx, mesh, *local):
+        ctx.mesh = mesh
+        ctx.devices = [x.device for x in local]
+        return gather_frame(mesh, _spread(mesh, local))
+
+    @staticmethod
+    def backward(ctx, grad):
+        mesh = ctx.mesh
+        rows = grad.shape[0] // mesh.size
+        return (None, *(grad[r * rows:(r + 1) * rows].to(dev)
+                        for r, dev in zip(mesh.local, ctx.devices)))
+
+
+class _Replicated(torch.autograd.Function):
+    """Inputs every process holds whole: the identity forward, and a sum
+    of the gradients over processes backward (each process's shards
+    contribute only their own bricks' terms).  One ``all_reduce`` of all
+    the inputs' gradients together."""
+
+    @staticmethod
+    def forward(ctx, mesh, *xs):
+        ctx.mesh = mesh
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        mesh = ctx.mesh
+        flat = torch.cat([g.reshape(-1).to(grads[0].device) for g in grads])
+        summed = _collective(
+            mesh, lambda o, y: dist.all_reduce(o.copy_(y), group=mesh.group),
+            torch.empty_like(flat), flat)
+        out, at = [], 0
+        for g in grads:
+            out.append(summed[at:at + g.numel()].reshape(g.shape).to(g.device, g.dtype))
+            at += g.numel()
+        return (None, *out)
+
+
+def all_to_all_autograd(mesh: Mesh, chunks: Shards) -> Shards:
+    """``all_to_all`` whose backward exchanges the gradients back."""
+    return _spread(mesh, _AllToAll.apply(mesh, *(chunks[r] for r in mesh.local)))
+
+
+def gather_frame_autograd(mesh: Mesh, shards: Shards) -> Tensor:
+    """``gather_frame`` (on the first local shard's device) whose
+    backward hands each local shard its rows."""
+    return _GatherFrame.apply(mesh, *(shards[r] for r in mesh.local))
+
+
+def replicated(mesh: Mesh, *xs) -> list:
+    """``xs`` (tensors or other values) as inputs that every process holds
+    whole: across processes, the gradient of each tensor that requires
+    one is summed over the processes in the backward, so every process
+    gets the whole gradient.  The same on every process: each decides
+    from ``requires_grad``, which the same program sets alike."""
+    xs = list(xs)
+    picked = [i for i, x in enumerate(xs) if isinstance(x, Tensor) and x.requires_grad]
+    if mesh.num_processes == 1 or not picked:
+        return xs
+    for i, y in zip(picked, _Replicated.apply(mesh, *(xs[i] for i in picked))):
+        xs[i] = y
+    return xs
 
 
 def _exchange(mesh: Mesh, frames: Shards, transport: str = "float32") -> Shards:

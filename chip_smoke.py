@@ -108,6 +108,24 @@ orbit of the persistent renderer: rank 0's images byte-identical to a
 one-process run's, rank 1 saving nothing, kernel 4 and the pixel or runs
 mode launched on both ranks, each rank's wall time beside one process's.
 
+Then the differentiable path over a sharded brick axis and the two
+benchmark examples (phase 29): ``diff.render_image_diff(mesh=
+make_mesh(8, "cuda"))`` on tests/test_diff.py's 8 bricks of 4^3 and the
+same bricks seen obliquely, at 8x8, against the single call on the card
+and the 8-shard CPU mesh (frames equal, the data gradient at rtol 1e-6 of
+the card's single call); bench_orbit's field at ``--domain 64`` as 8
+bricks of 32^3 at 512^2, forward and ``backward()`` with ``remat=True``
+with respect to data, LUT and eye, as one call and over 8 shards of one
+process, each timed with its peak memory, every kernel's launch count 0;
+the same over two processes on this card (gloo through pinned host
+memory), 4 shards each, each rank's rows of the data gradient against the
+one-process gradient and the eye and LUT gradients equal on both ranks;
+and ``examples/bench_scaling_torch.py`` and ``examples/bench_orbit_torch.py``
+(per frame and ``--batch``) with their defaults, each launching kernel 1,
+and kernel 1 on their own inputs (bench_scaling's 64-brick tables at
+1024^2, bench_orbit's first frame at 2048^2 AA=4 and a 2-frame batched
+chunk) against its plain version at max |diff| 0.
+
 Phase 1 also logs each kernel instantiation's registers, shared memory and
 spills (and fails on a spill) and counts the SASS instructions of one
 valid sample and of one composite fold step (``ops/csrc/sample_probe.cu``),
@@ -129,6 +147,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import runpy
 import subprocess
 import sys
 import time
@@ -447,6 +466,10 @@ def main() -> int:
 
     def counts():
         return {name: fn.launches for name, fn in counters.items()}
+
+    def all_counts():
+        return {**counts(), "tilemarch_batch": batch_fn.launches,
+                "slicemarch_dense": dense_fn.launches, "composite_runs": runs_fn.launches}
 
     # ---- phase 1: build the three kernels, one nvcc each, in parallel -----
     t0 = time.perf_counter()
@@ -2451,6 +2474,45 @@ def main() -> int:
         del tile_rec, frame, cpu_frame
     two_process_phase(torch, smi)
 
+    # ---- phase 29: the sharded gradient; the two benchmark examples --------
+    diff_sharded_phase(torch, dev, smi, reset_counts, all_counts)
+    # (d) in this process: kernel 1 on the examples' own inputs at their
+    # defaults against its plain version (the subprocesses above only run
+    # them): bench_scaling's tables, one bench_orbit frame and a 2-frame
+    # render_batch chunk of its orbit
+    scaling = runpy.run_path(os.path.join(ROOT, "examples", "bench_scaling_torch.py"))
+    scene29 = scaling["build_scene"](128, 1024, 1024)
+    tables = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in scene29["tables"]]
+    t0 = time.perf_counter()
+    hold_calls("tilemarch", tm.tilemarch_render, tm.tilemarch_reference,
+               f"phase 29: (d) bench_scaling's scene ({scene29['num_bricks']} bricks, "
+               f"{tables[6].shape[0]} work items, 1024x1024, max_slices 32): kernel 1",
+               [(tables, dict(width=1024, height=1024, max_slices=scaling["BOX"]))],
+               atol=0.0)
+    log(f"phase 29: (d) bench_scaling's kernel vs plain: "
+        f"{time.perf_counter() - t0:.3f} s")
+    orbit = runpy.run_path(os.path.join(ROOT, "examples", "bench_orbit_torch.py"))
+    fast29 = orbit["prepare_renderer"](128, 2048, 2048, 4, dev)
+    cams29 = orbit["orbit_cameras"](12)
+    with recorded(fast_scene, "tm", "tilemarch_render") as tile_rec:
+        frame29 = fast29.render(cams29[0])
+    with recorded(fast_scene, "tm", "tilemarch_render_batch") as batch_rec:
+        fast29.render_batch(cams29[:2], overlay=False, bytes_out=True)
+    assert len(tile_rec) == 1 and len(batch_rec) == 1, (len(tile_rec), len(batch_rec))
+    assert frame29[:, 3].max() > 0.0
+    t0 = time.perf_counter()
+    hold_calls("tilemarch", tm.tilemarch_render, tm.tilemarch_reference,
+               f"phase 29: (d) bench_orbit's first frame ({fast29.canonical.shape[0]} "
+               f"pieces, 2048x2048 AA=4, a {fast29.pad_w}x{fast29.pad_h} buffer): "
+               "kernel 1", tile_rec, atol=0.0)
+    hold_calls("tilemarch_batch", tm.tilemarch_render_batch,
+               tm.tilemarch_batch_reference,
+               "phase 29: (d) bench_orbit --batch, its first two frames as one "
+               "chunk: the batched kernel 1", batch_rec, atol=0.0)
+    log(f"phase 29: (d) bench_orbit's kernel vs plain: {time.perf_counter() - t0:.3f} s")
+    del tables, fast29, tile_rec, batch_rec, frame29
+    torch.cuda.empty_cache()
+
     sources = {
         "tilemarch": ("ops/csrc/tilemarch.cu", "amrvolumerenderer_tpu/ops/tilemarch.py:819"),
         "slicemarch": ("ops/csrc/slicemarch.cu", "amrvolumerenderer_tpu/ops/slicemarch.py:750"),
@@ -2826,6 +2888,321 @@ def diff_phase(torch, dev, smi: str, reset_counts, counts, full: int = 1024,
         assert final < 0.5 * first, summary
     log(f"phase 27: {smi}: both examples with their defaults, run together: "
         f"{wall:.3f} s wall")
+
+
+# phase 29: the differentiable path over a sharded brick axis
+# (``diff.render_image_diff(mesh=...)``) and the two benchmark examples.
+# One rank of (c): the scene from (b)'s .npz, this process's 4 shards of
+# the data, LUT and eye whole; its frame and gradients saved beside a
+# line with its wall time, peak memory and kernel launch counts
+DIFF_RANK_RUN = r"""
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import torch
+from amrvolumerenderer_torch import diff, driver
+from amrvolumerenderer_torch.ops import composite as comp
+from amrvolumerenderer_torch.ops import slicemarch as sm
+from amrvolumerenderer_torch.ops import tilemarch as tm
+from amrvolumerenderer_torch.parallel import directsend as ds
+
+counted = (sm.slicemarch_render, comp.composite_pixels, comp.composite_runs,
+           tm.tilemarch_render, tm.tilemarch_render_batch,
+           sm.slicemarch_render_worklist_raw, comp.composite_tiles)
+device = sys.argv[4]
+cuda = device == "cuda"
+assert driver.maybe_initialize_distributed(device)
+scene = np.load(sys.argv[2])
+static = json.loads(sys.argv[3])
+rank = torch.distributed.get_rank()
+args = list(diff.args_from_arrays([scene[f"a{i}"] for i in range(16)], device))
+mesh = ds.make_mesh(8, device)
+for i in (4, 6):
+    args[i].requires_grad_(True)
+(data,) = ds.shard_leading(mesh, args[0])
+data = [None if d is None else d.clone().requires_grad_(True) for d in data]
+for fn in counted:
+    fn.launches = 0
+if cuda:
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+t0 = time.perf_counter()
+image = diff.render_image_diff(data, *args[1:], mesh=mesh, remat=True, **static)
+image.mean().backward()
+if cuda:
+    torch.cuda.synchronize()
+wall = time.perf_counter() - t0
+np.savez(f"rank{rank}.npz", local=np.asarray(mesh.local),
+         image=image.detach().cpu().numpy(),
+         data=torch.cat([data[r].grad for r in mesh.local]).cpu().numpy(),
+         lut=args[4].grad.cpu().numpy(), eye=args[6].grad.cpu().numpy())
+print("RANK_DIFF " + json.dumps({
+    "rank": rank, "wall_s": wall,
+    "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else None,
+    "launches": sum(fn.launches for fn in counted)}), flush=True)
+torch.distributed.destroy_process_group()
+"""
+
+# (d): an example script run as ``__main__`` (``python -c EXAMPLE_RUN ROOT
+# SCRIPT ARGS...``), then the tile-march kernel's launch counts
+EXAMPLE_RUN = r"""
+import json, runpy, sys
+sys.path.insert(0, sys.argv[1])
+from amrvolumerenderer_torch.ops import tilemarch as tm
+sys.argv = sys.argv[2:]
+try:
+    runpy.run_path(sys.argv[0], run_name="__main__")
+except SystemExit as stop:
+    assert stop.code in (None, 0), stop.code
+print("LAUNCHES " + json.dumps({"tilemarch": tm.tilemarch_render.launches,
+                                "tilemarch_batch": tm.tilemarch_render_batch.launches}))
+"""
+
+
+BENCH_EXAMPLES = (("bench_scaling_torch.py", []), ("bench_orbit_torch.py", []),
+                  ("bench_orbit_torch.py", ["--batch"]))
+
+
+def diff_sharded_phase(torch, dev, smi: str, reset_counts, all_counts,
+                       size: int = 512, domain: int = 64,
+                       examples=BENCH_EXAMPLES) -> None:
+    """Phase 29.  (a) tests/test_diff.py's sharded scene (8 bricks of 4^3,
+    seed 13, 8x8, eye (0.5, 0.5, 20): its frame is empty, so its
+    gradients are 0) and the same bricks seen obliquely (every brick
+    drawn, tests/test_torch_diff_sharded.py), through
+    ``render_image_diff(mesh=make_mesh(8, "cuda"))`` against the single
+    call on the card and the 8-shard CPU mesh: frames equal, the data
+    gradient at rtol 1e-6 / atol 1e-9 of the card's single call and at
+    DIFF_GRAD_REL of max |g| of the CPU's, LUT at DIFF_GRAD_REL of max |g|
+    and eye at DIFF_GRAD_REL of its terms' sum of both.  (b) bench_orbit's
+    field at ``domain`` as 8 bricks of 32^3 (``diff.prepare_scene``) at
+    ``size``^2: forward and ``backward()`` with ``remat=True`` with respect
+    to data, LUT and eye, single call and D=8 in this process, wall and
+    peak memory, every kernel count 0; frames equal, gradients as (a).
+    (c) the same in two processes on this card (gloo through pinned host
+    memory), 4 shards each: each rank's rows of the data gradient at rtol
+    1e-6 of (b)'s single call, eye and LUT equal on both ranks and within
+    tolerance of one process.  (d) both benchmark examples with their
+    defaults as subprocesses: rc 0, their ms/frame, kernel 1 launched.
+    ``dev`` = the CPU, a smaller ``size`` and ``examples`` with ``--device
+    cpu`` try the phase on a machine without a card."""
+    import shutil
+    import socket
+
+    import torch.autograd.forward_ad as fwAD
+
+    from amrvolumerenderer_torch import diff
+    from amrvolumerenderer_torch.parallel import directsend as ds
+    from amrvolumerenderer_torch.types import CameraParameters
+
+    cpu = torch.device("cpu")
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+
+    def run(args, static, device, mesh, **kw):
+        """Frame and gradients of mean(frame) w.r.t. data, LUT and eye."""
+        targs = list(diff.args_from_arrays(args, device))
+        for i in (0, 4, 6):
+            targs[i].requires_grad_(True)
+        image = diff.render_image_diff(*targs, mesh=mesh, **static, **kw)
+        image.mean().backward()
+        return (image.detach().cpu().numpy(),
+                [targs[i].grad.cpu().numpy() for i in (0, 4, 6)])
+
+    def eye_terms(args, static, device):
+        """Per eye component, the sum over the frame of |d mean(frame) /
+        d eye|'s terms (forward mode, no graph kept)."""
+        targs = list(diff.args_from_arrays(args, device))
+        terms = []
+        with torch.no_grad():
+            for c in range(3):
+                with fwAD.dual_level():
+                    full = list(targs)
+                    full[6] = fwAD.make_dual(targs[6], torch.eye(3, device=device)[c])
+                    column = fwAD.unpack_dual(diff.render_image_diff(
+                        *full, remat=False, **static)).tangent
+                terms.append(float(column.abs().sum()) / column.numel())
+        return np.asarray(terms)
+
+    def rel(got, want):
+        """max |got - want| over max |want| (0 where both are 0)."""
+        scale = float(np.abs(want).max())
+        return float(np.abs(got - want).max()) / scale if scale else 0.0
+
+    def rtol_excess(got, want):
+        """The largest |got - want| / (1e-9 + 1e-6 |want|): at most 1
+        where rtol 1e-6 / atol 1e-9 holds."""
+        return float((np.abs(got - want) / (1e-9 + 1e-6 * np.abs(want))).max())
+
+    def hold(tag, got, want, terms, data_rtol=True):
+        """Assert the sharded tolerances and log the measured errors."""
+        excess = rtol_excess(got[0], want[0])
+        lut, eye = rel(got[1], want[1]), float((np.abs(got[2] - want[2]) / terms).max())
+        data = rel(got[0], want[0])
+        log(f"phase 29: {tag}: data gradient max |diff| over max |g| {data:.3g} "
+            f"(rtol 1e-6 / atol 1e-9 excess {excess:.3g}, <= 1 holds), LUT "
+            f"{lut:.3g}, eye over its terms' sum {eye:.3g}")
+        assert excess <= 1.0 if data_rtol else data <= DIFF_GRAD_REL, (tag, excess, data)
+        assert lut <= DIFF_GRAD_REL and eye <= DIFF_GRAD_REL, (tag, lut, eye)
+
+    # (a) tests/test_diff.py's scene and its oblique view at 8x8
+    rng = np.random.default_rng(13)
+    bricks = [(rng.uniform(0.1, 0.9, size=(4, 4, 4)).astype(np.float32),
+               (0.0, 0.0, float(b)), (1.0, 1.0, float(b) + 1.0)) for b in range(8)]
+    views = {"test_diff": dict(eye=(0.5, 0.5, 20.0), look_at=(0.5, 0.5, 4.0)),
+             "oblique": dict(eye=(2.0, 1.5, 14.0), look_at=(0.5, 0.5, 4.0),
+                             fov_y_degrees=12.0)}
+    mesh_card, mesh_cpu = ds.make_mesh(8, dev), ds.make_mesh(8, "cpu")
+    assert mesh_card.devices == (dev,) * 8, mesh_card.devices
+    for name, view in views.items():
+        targs, static = diff.prepare_scene(
+            bricks, CameraParameters(up=(0.0, 1.0, 0.0), **view), width=8, height=8,
+            device="cpu")
+        args = tuple(a.numpy() for a in targs)
+        image, got = run(args, static, dev, mesh_card)
+        single_image, single = run(args, static, dev, None)
+        again_image, again = run(args, static, dev, None)
+        cpu_image, cpu_got = run(args, static, cpu, mesh_cpu)
+        terms = np.maximum(eye_terms(args, static, cpu), 1e-30)
+        covered = float(single_image[:, 3].max())
+        log(f"phase 29: (a) {name} 8 bricks of 4^3 at 8x8: alpha max {covered:.9g}; "
+            f"frame over 8 card shards == single call {np.array_equal(image, single_image)}, "
+            f"== 8 CPU shards {np.array_equal(image, cpu_image)}; the single call "
+            f"twice: data gradient rtol excess {rtol_excess(again[0], single[0]):.3g}")
+        assert np.array_equal(image, single_image) and np.array_equal(image, cpu_image)
+        assert np.array_equal(again_image, single_image)
+        assert (covered > 0.0) == (name == "oblique"), covered
+        hold(f"(a) {name}, 8 card shards vs the card's single call", got, single, terms)
+        hold(f"(a) {name}, 8 card shards vs 8 CPU shards", got, cpu_got, terms,
+             data_rtol=False)
+
+    # (b) full width: bench_orbit's field, 8 bricks of 32^3, at size^2
+    bench = runpy.run_path(os.path.join(ROOT, "examples", "bench_orbit_torch.py"))
+    field = bench["turbulence_field"](domain)
+    camera = bench["orbit_cameras"](12)[0]
+    box = 32
+    bricks = [(field[i:i + box, j:j + box, k:k + box],
+               np.array([i, j, k]) / domain, np.array([i + box, j + box, k + box]) / domain)
+              for i in range(0, domain, box) for j in range(0, domain, box)
+              for k in range(0, domain, box)]
+    targs, static = diff.prepare_scene(bricks, camera, width=size, height=size,
+                                       device="cpu")
+    args = tuple(a.numpy() for a in targs)
+    num = len(bricks)
+    held = static["num_steps"] * num * size * size * 4 * 4
+    log(f"phase 29: (b) bench_orbit's field at --domain {domain}: {num} bricks of "
+        f"{box}^3 at {size}x{size}, {static['num_steps']} march steps; the "
+        f"checkpoints hold {static['num_steps']} [{num}, {size * size}, 4] float32 "
+        f"accumulators = {held / 1e9:.3f} GB")
+    results = {}
+    reset_counts()  # counted run: the sharded gradient at full width
+    for mode, mesh in (("single call", None), ("8 shards, one process", mesh_card)):
+        sync()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        held_before = torch.cuda.memory_allocated() if on_card else 0
+        t0 = time.perf_counter()
+        results[mode] = run(args, static, dev, mesh, remat=True)
+        sync()
+        wall = (time.perf_counter() - t0) * 1e3
+        peak = ((torch.cuda.max_memory_allocated() - held_before) / 2 ** 30
+                if on_card else float("nan"))
+        log(f"phase 29: {smi}: (b) forward + backward() w.r.t. data, LUT and eye, "
+            f"{size}x{size}, remat=True, {mode}: {wall:.3f} ms wall (host clock, "
+            f"synchronised; includes the readback of the frame and gradients), "
+            f"peak device memory {peak:.3f} GiB above the "
+            f"{held_before / 2 ** 30:.3f} GiB earlier phases still hold")
+        results[mode + " wall"] = wall
+    got = all_counts()
+    log(f"phase 29: (b) launches of the hand-written kernels: {got}")
+    assert not any(got.values()), got
+    (image, sharded), (single_image, single) = (results["8 shards, one process"],
+                                                results["single call"])
+    covered = float((single_image[:, 3] > 0).mean())
+    log(f"phase 29: (b) frame over 8 shards == single call "
+        f"{np.array_equal(image, single_image)}, max |diff| "
+        f"{float(np.abs(image - single_image).max()):.3g}; covered share {covered:.4f}")
+    assert np.array_equal(image, single_image)
+    assert ALPHA_FRACTION[0] < covered < ALPHA_FRACTION[1], covered
+    t0 = time.perf_counter()
+    terms = eye_terms(args, static, dev)
+    log(f"phase 29: (b) eye terms' sums {terms} (forward mode on the card, "
+        f"{time.perf_counter() - t0:.3f} s)")
+    assert np.all(terms > 0.0), terms
+    assert all(np.abs(g).max() > 0.0 for g in single)
+    hold("(b) 8 shards vs the single call", sharded, single, terms)
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # (c) two processes on this card, 4 shards each
+    base = os.path.join(SCRATCH, "two_process_diff")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    scene = os.path.join(base, "scene.npz")
+    np.savez(scene, **{f"a{i}": a for i, a in enumerate(args)})
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = []
+    for r in (0, 1):
+        cwd = os.path.join(base, f"rank{r}")
+        os.makedirs(cwd)
+        env = dict(os.environ, PYTHONPATH=ROOT, JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                   JAX_NUM_PROCESSES="2", JAX_PROCESS_ID=str(r), LOCAL_WORLD_SIZE="2",
+                   LOCAL_RANK=str(r))
+        env.pop("AVR_DISTRIBUTED", None)
+        procs.append((cwd, subprocess.Popen(
+            [sys.executable, "-c", DIFF_RANK_RUN, ROOT, scene, json.dumps(static),
+             dev.type],
+            cwd=cwd, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    ranks = []
+    for cwd, proc in procs:
+        out, err = proc.communicate(timeout=600)
+        assert proc.returncode == 0, f"{cwd}: rc {proc.returncode}\n{err[-4000:]}"
+        (line,) = [x for x in out.splitlines() if x.startswith("RANK_DIFF ")]
+        ranks.append((json.loads(line[len("RANK_DIFF "):]),
+                      np.load(os.path.join(cwd, f"rank{len(ranks)}.npz"))))
+    pair_s = time.perf_counter() - t0
+    for rec, saved in ranks:
+        r = rec["rank"]
+        rows = slice(4 * r, 4 * r + 4)
+        log(f"phase 29: {smi}: (c) rank {r} of two processes on {dev} (gloo), "
+            f"shards {saved['local'].tolist()}: forward + backward() "
+            f"{rec['wall_s'] * 1e3:.3f} ms wall, peak device memory "
+            f"{rec['peak_gib']} GiB, hand-written kernel launches {rec['launches']}")
+        assert list(saved["local"]) == list(range(4 * r, 4 * r + 4))
+        assert rec["launches"] == 0, rec
+        assert np.array_equal(saved["image"], single_image), r
+        hold(f"(c) rank {r}'s rows vs (b)'s single call",
+             [saved["data"], saved["lut"], saved["eye"]],
+             [single[0][rows], single[1], single[2]], terms)
+    for key in ("lut", "eye"):
+        assert np.array_equal(ranks[0][1][key], ranks[1][1][key]), key
+    log(f"phase 29: (c) eye and LUT gradients equal on both ranks; eye "
+        f"{ranks[0][1]['eye']} against one process's {single[2]}; {pair_s:.3f} s "
+        "wall for the pair (process start, CUDA context, gloo rendezvous included)")
+
+    # (d) the two benchmark examples with their defaults
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    for script, argv in examples:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", EXAMPLE_RUN, ROOT,
+             os.path.join(ROOT, "examples", script), *argv],
+            cwd=SCRATCH, env=env, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        lines = proc.stdout.splitlines()
+        launched = [json.loads(x[len("LAUNCHES "):]) for x in lines
+                    if x.startswith("LAUNCHES ")]
+        printed = [x for x in lines if not x.startswith("LAUNCHES ")]
+        log(f"phase 29: {smi}: (d) examples/{script} {' '.join(argv) or '(defaults)'} "
+            f"rc {proc.returncode} in {wall:.3f} s: {' | '.join(printed)}; kernel 1 "
+            f"launches {launched}")
+        assert proc.returncode == 0 and launched, proc.stderr[-3000:]
+        kind = "tilemarch_batch" if "--batch" in argv else "tilemarch"
+        assert launched[0][kind] > 0 or not on_card, launched
+        assert any("ms/frame" in x for x in printed), printed
 
 
 def ptxas_report(build_log: str):

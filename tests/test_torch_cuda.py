@@ -3,8 +3,11 @@ float32 and bfloat16 volumes), slice-march (work list and dense), the
 composite (tile, pixel and runs modes), the multi-device route over 8
 shards of one card, the persistent multi-device renderer, the raymarch
 oracle, the differentiable path and the one-shot tile-march route against
-the same on the CPU, and two processes of the CLI sharing the card against
-one process (marked ``cuda``; every test skips itself when
+the same on the CPU, two processes of the CLI sharing the card against
+one process, and the differentiable path over a sharded brick axis
+(``diff.render_image_diff(mesh=make_mesh(N, "cuda"))``, whole data and
+data as shards) against the single call on the card and the same mesh on
+the CPU (marked ``cuda``; every test skips itself when
 ``torch.cuda.is_available()`` is false).
 
 This file imports neither jax nor the tests' conftest (which does), so it
@@ -1107,3 +1110,70 @@ def test_two_processes_on_one_card_match_one_process(cuda, tmp_path, extra):
     for name in names:
         assert ((tmp_path / "rank0" / name).read_bytes()
                 == (tmp_path / "single" / name).read_bytes()), name
+
+
+def sharded_diff_scene(device):
+    """tests/test_diff.py's 8 bricks of 4^3 (seed 13) seen obliquely at 8x8
+    (tests/test_torch_diff_sharded.py's "oblique" scene) on ``device``."""
+    from amrvolumerenderer_torch import diff
+
+    rng = np.random.default_rng(13)
+    bricks = [(rng.uniform(0.1, 0.9, size=(4, 4, 4)).astype(np.float32),
+               (0.0, 0.0, float(b)), (1.0, 1.0, float(b) + 1.0)) for b in range(8)]
+    camera = CameraParameters(eye=(2.0, 1.5, 14.0), look_at=(0.5, 0.5, 4.0),
+                              up=(0.0, 1.0, 0.0), fov_y_degrees=12.0)
+    return diff.prepare_scene(bricks, camera, width=8, height=8, device=device)
+
+
+def sharded_diff_run(device, mesh, shards=False):
+    """The frame and the gradients of ``mean(frame)`` with respect to data,
+    LUT and eye of ``sharded_diff_scene`` over ``mesh`` (None: the single
+    call); ``shards`` passes the data as ``shard_leading`` blocks."""
+    from amrvolumerenderer_torch import diff
+    from amrvolumerenderer_torch.parallel import directsend as ds
+
+    args, static = sharded_diff_scene(device)
+    args = list(args)
+    for i in (4, 6):
+        args[i].requires_grad_(True)
+    if shards:
+        data = [d.clone().requires_grad_(True) for d in ds.shard_leading(mesh, args[0])[0]]
+    else:
+        data = args[0].requires_grad_(True)
+    image = diff.render_image_diff(data, *args[1:], mesh=mesh, **static)
+    image.mean().backward()
+    g_data = torch.cat([d.grad for d in data]) if shards else data.grad
+    return image.detach().cpu(), [g.cpu().numpy() for g in
+                                  (g_data, args[4].grad, args[6].grad)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num", [2, 8])
+@pytest.mark.parametrize("shards", [False, True], ids=["whole", "shards"])
+def test_sharded_diff_matches_cpu_mesh(cuda, num, shards):
+    """``diff.render_image_diff(mesh=make_mesh(num, "cuda"))`` (every shard
+    on ``cuda:0``): the frame equals the single call on the card and the
+    same mesh on the CPU; the data gradient is the card's single call's at
+    rtol 1e-6 / atol 1e-9; data and LUT gradients are within 1e-4 of max
+    |g| of the CPU mesh's (the card's scatter-add order, as
+    test_diff_matches_cpu), the LUT's of the single call's too; the eye
+    gradient within 1e-4 of its terms' sum (``camera_terms``) of both."""
+    from amrvolumerenderer_torch.parallel import directsend as ds
+
+    mesh = ds.make_mesh(num, "cuda")
+    assert all(d == cuda for d in mesh.devices)
+    image, got = sharded_diff_run(cuda, mesh, shards)
+    single_image, single = sharded_diff_run(cuda, None)
+    cpu_image, cpu = sharded_diff_run("cpu", ds.make_mesh(num, "cpu"), shards)
+    assert float(single_image[:, 3].max()) > 0.0
+    assert torch.equal(image, single_image)
+    assert torch.equal(image, cpu_image)
+    np.testing.assert_allclose(got[0], single[0], rtol=1e-6, atol=1e-9)
+    for g, ref in zip(got[:2], cpu[:2]):
+        assert np.abs(g - ref).max() <= 1e-4 * np.abs(ref).max()
+    assert np.abs(got[1] - single[1]).max() <= 1e-4 * np.abs(single[1]).max()
+    args, static = sharded_diff_scene("cpu")
+    w = np.full((64, 4), 1.0 / 256, np.float32)
+    terms = camera_terms(tuple(a.numpy() for a in args), static, w, 6)
+    for ref in (cpu[2], single[2]):
+        assert np.all(np.abs(got[2] - ref) <= 1e-4 * terms), (got[2], ref, terms)

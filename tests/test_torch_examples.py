@@ -1,8 +1,11 @@
 """The port's client examples (``examples/*_torch.py``) on the CPU: each
 case of tests/test_examples.py, at the same small sizes, with
-``--device cpu``.  The examples run in this process (``main(argv)``), as
-there; tests/test_torch_standalone.py runs them again with jax and the
-JAX package blocked."""
+``--device cpu``, and the two benchmark examples (``bench_orbit_torch.py``
+per frame and batched, ``bench_scaling_torch.py``, whose frame is held
+against the JAX package's tile march in interpret mode on the same
+inputs).  The examples run in this process (``main(argv)``), as there;
+tests/test_torch_standalone.py runs them again with jax and the JAX
+package blocked."""
 
 import importlib.util
 import os
@@ -108,3 +111,50 @@ def test_render_multichip_animation_example(tmp_path):
     assert rc == 0
     assert sorted(os.listdir(tmp_path / "mesh")) == [
         "multichip_00.ppm", "multichip_01.ppm"]
+
+
+@pytest.mark.parametrize("flags,line", [
+    ([], "orbit: 2 frames at 32x32 AA=1; "),
+    (["--batch", "--rgb"], "orbit (batched): 2 frames at 32x32 AA=1; "),
+], ids=["per-frame", "batch-rgb"])
+def test_bench_orbit_example(tmp_path, capsys, flags, line):
+    out = tmp_path / "first.png"
+    mod = load_example("bench_orbit_torch.py")
+    assert mod.main(["--domain", "32", "--width", "32", "--height", "32",
+                     "--antialiasing", "1", "--frames", "2", "--save-first",
+                     str(out), *flags, *CPU]) == 0
+    printed = capsys.readouterr().out
+    assert "scene prepared (1 pieces)" in printed
+    assert line in printed and " ms/frame (" in printed
+    assert out.read_bytes().startswith(b"\x89PNG")
+
+
+def test_bench_scaling_example(capsys):
+    mod = load_example("bench_scaling_torch.py")
+    assert mod.main(["--domain", "64", "--width", "64", "--height", "64",
+                     "--frames", "1", *CPU]) == 0
+    printed = capsys.readouterr().out
+    assert "8 bricks, " in printed and "checksum (one frame): " in printed
+    assert " ms/frame at 64x64 with 8 bricks" in printed
+
+
+def test_bench_scaling_frame_matches_jax_interpret():
+    """bench_scaling's inputs (8 bricks at 64x64) through the port's plain
+    tile march and the JAX package's ``tilemarch_render(interpret=True)``:
+    equal bit for bit, colour and depth."""
+    import jax.numpy as jnp
+    import torch
+
+    from amrvolumerenderer_tpu.ops import tilemarch as jtm
+    from amrvolumerenderer_torch.ops import tilemarch as tm
+
+    mod = load_example("bench_scaling_torch.py")
+    tables = mod.build_scene(64, 64, 64)["tables"]
+    kw = dict(width=64, height=64, max_slices=mod.BOX)
+    want = jtm.tilemarch_render(*(jnp.asarray(a) for a in tables),
+                                interpret=True, **kw)
+    got = tm.tilemarch_render(*(torch.from_numpy(np.ascontiguousarray(a))
+                                for a in tables), **kw)
+    assert float(np.asarray(want[0])[:, 3].max()) > 0.0
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))

@@ -6,8 +6,8 @@ them), the CLI renders a plotfile through the default (slice-march)
 route, the raymarch oracle, over two shards (``--devices 2``, the
 ``parallel`` package), an orbit through the batched tile-march path and
 an orbit over two shards (the persistent multi-device renderer) on the
-CPU, and the port's transfer-function fitting example and its eight client
-examples run."""
+CPU, and the port's transfer-function fitting example, its eight client
+examples and its two benchmark examples run."""
 
 import os
 import subprocess
@@ -224,3 +224,35 @@ def test_port_client_examples_run_with_jax_and_reference_blocked(tmp_path, plotf
         "frame0000.png", "frame0001.png", "orbit0000.png", "orbit0001.png"]
     assert sorted(os.listdir(tmp_path / "mesh")) == ["multichip_00.ppm",
                                                      "multichip_01.ppm"]
+
+
+def test_port_bench_examples_run_with_jax_and_reference_blocked(tmp_path):
+    """The two benchmark examples (``examples/bench_orbit_torch.py`` per
+    frame and batched, ``examples/bench_scaling_torch.py``) in one
+    interpreter with jax and the JAX package blocked, on the CPU at
+    tests/test_torch_examples.py's sizes."""
+    import json
+
+    ex = os.path.join(REPO, "examples")
+    orbit = ["--domain", "32", "--width", "32", "--height", "32",
+             "--antialiasing", "1", "--frames", "2", "--device", "cpu"]
+    runs = [
+        ("bench_orbit_torch.py", orbit),
+        ("bench_orbit_torch.py", [*orbit, "--batch", "--rgb"]),
+        ("bench_scaling_torch.py", ["--domain", "64", "--width", "64", "--height",
+                                    "64", "--frames", "1", "--device", "cpu"]),
+    ]
+    path = os.environ.get("PYTHONPATH")
+    env = dict(os.environ, PYTHONPATH=REPO + (os.pathsep + path if path else ""),
+               OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-c", BLOCKED_CLIENT_EXAMPLES,
+         json.dumps([(os.path.join(ex, s), argv) for s, argv in runs])],
+        cwd=str(tmp_path), env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    ran = [line[4:] for line in proc.stdout.splitlines() if line.startswith("ran ")]
+    assert ran == [os.path.join(ex, script) for script, _ in runs]
+    assert "orbit: 2 frames at 32x32 AA=1; " in proc.stdout
+    assert "orbit (batched): 2 frames at 32x32 AA=1; " in proc.stdout
+    assert " ms/frame at 64x64 with 8 bricks" in proc.stdout
