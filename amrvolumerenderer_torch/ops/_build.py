@@ -47,6 +47,7 @@ _SIGNATURES = {
                   "avr_composite_pixels_launch": [_P] * 4 + [_I, _I, _L, _P],
                   "avr_composite_runs_launch":
                   [_P] * 4 + [_I, _I, _I, _L, _I, _I, _P]},
+    "raymarch": {"avr_raymarch_launch": [_P] * 13 + [_I] * 7 + [_P]},
 }
 KERNELS = tuple(_SIGNATURES)
 

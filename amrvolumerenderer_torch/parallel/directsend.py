@@ -61,6 +61,7 @@ from ..compositor import _composite_sorted_runs, sort_layers
 from ..device import DEFAULT_DEVICE, Device, resolve_device
 from ..image import byte_to_color_device, color_to_byte_device
 from ..ops import composite as comp
+from ..ops import raymarch as rm
 from ..ops import slicemarch as sm
 from ..ops import tilemarch as tm
 
@@ -999,7 +1000,7 @@ def render_and_composite_sharded(
 ) -> Shards:
     """The raymarch-based multi-device frame: each shard marches its block
     of the brick table with the raymarch oracle (``ops.raymarch``; its
-    padding slots stay cleared, colour 0 and depth +inf), then the
+    padding slots take background, colour 0 and depth +inf), then the
     exchange and the pixel-mode fold in global (hint, owner, local) order
     (``_compose_shards``).  ``transport`` selects the exchange payload
     ("float32" exact, "ubyte" the reference's byte colours); the JAX
@@ -1007,8 +1008,6 @@ def render_and_composite_sharded(
     XLA folds it; the march rounds the ray as that program does
     (``fold_camera``).  Returns the [width * height / D, 5] pixel
     shards."""
-    from ..ops.raymarch import render_bucket_into
-
     if (width * height) % mesh.size:
         raise ValueError("width * height must be divisible by the mesh size")
     positive_floor, normalization_min, inverse_normalization_span = (
@@ -1022,11 +1021,15 @@ def render_and_composite_sharded(
         b_data, b_min, b_max, b_dims, b_lut, b_step, b_valid, b_hints = (
             t[r] for t in tables)
         with _on(dev):
-            out = torch.zeros((b_data.shape[0], width * height, 5),
+            # the march writes its slots' rows whole; padding slots take
+            # background here
+            out = torch.empty((b_data.shape[0], width * height, 5),
                               dtype=torch.float32, device=dev)
-            out[..., 4] = float("inf")
-            slots = torch.nonzero(b_valid.to(torch.bool), as_tuple=True)[0]
-            render_bucket_into(
+            valid = b_valid.to(torch.bool)
+            out[~valid] = torch.tensor([0.0, 0.0, 0.0, 0.0, float("inf")],
+                                       device=dev)
+            slots = torch.nonzero(valid, as_tuple=True)[0]
+            rm.render_bucket_into(
                 out, slots, b_data[slots], b_min[slots], b_max[slots],
                 b_dims[slots], b_lut[slots], b_step[slots], *camera_arrays,
                 float(fov_y_degrees), float(np.float32(range_min)),

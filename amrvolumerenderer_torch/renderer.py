@@ -26,6 +26,7 @@ from .camera import auto_orbit_camera, camera_basis, safe_normalize
 from .colormap import SOFT_CLIP_TOLERANCE, build_color_table
 from .device import DEFAULT_DEVICE, Device, process_index, resolve_device
 from .image import ImageBuffer, ImageKind
+from .ops import raymarch
 from .scene import _scalar_stats, build_brick_buckets
 from .types import (
     CameraParameters,
@@ -360,15 +361,15 @@ def _render_layers_raymarch(
     """The raymarch oracle's layers: every brick marched into a
     full-frame RGBA + depth layer of a ``[L, P, 5]`` stack on ``device``
     (one ``ops.raymarch`` call per bucket of same-shape bricks), with the
-    layer order keys, owners and local indices on the host."""
-    from .ops.raymarch import max_steps_for_bucket, render_bucket_into
+    layer order keys, owners and local indices on the host.  Every brick
+    lies in one bucket and each call writes its bricks' rows whole, so the
+    stack needs no clear."""
     from .visibility import order_keys_or_hints
 
     bricks = geometry.bricks
     num_bricks = len(bricks)
-    layers = torch.zeros((num_bricks, render_width * render_height, 5),
+    layers = torch.empty((num_bricks, render_width * render_height, 5),
                          dtype=torch.float32, device=device)
-    layers[..., 4] = float("inf")
 
     alpha_scale = float(np.clip(1.0 - parameters.box_transparency, 0.0, 1.0))
     clip_start = float(np.clip(scalar_range[1], 0.0, 1.0))
@@ -407,7 +408,7 @@ def _render_layers_raymarch(
                     size=parameters.lut_size,
                 )
             luts[slot] = lut_cache[key]
-        render_bucket_into(
+        raymarch.render_bucket_into(
             layers, bucket.brick_indices.astype(np.int64), bucket.data,
             bucket.min_corner, bucket.max_corner, bucket.cell_dims, luts,
             sample_distances, eye, fwd, right, up, camera.fov_y_degrees,
@@ -416,8 +417,8 @@ def _render_layers_raymarch(
             float(np.float32(t.normalization_min)),
             float(np.float32(t.inverse_normalization_span)),
             width=render_width, height=render_height,
-            num_steps=max_steps_for_bucket(bucket.min_corner, bucket.max_corner,
-                                           sample_distances),
+            num_steps=raymarch.max_steps_for_bucket(
+                bucket.min_corner, bucket.max_corner, sample_distances),
             log_scale=bool(t.log_scale_input),
             normalize=bool(t.normalize_to_unit_range),
             clip_start=clip_start, apply_clip=bool(apply_clip),

@@ -5,9 +5,9 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the port's three CUDA kernel libraries (tile-march, slice-march,
-composite with its tile, pixel and runs modes) from the checkout's sources, all
-at once, holds each against
+It builds the port's four CUDA kernel libraries (tile-march, slice-march,
+composite with its tile, pixel and runs modes, and the raymarch oracle's
+march) from the checkout's sources, all at once, holds each against
 the golden rows and against its plain PyTorch version on the card, drives
 both one-shot main paths through the entry points a user calls: a
 512-brick 256^3 plotfile at 1024x1024 through
@@ -74,13 +74,18 @@ against the same bricks binned on the card, exactly; the golden row
 ``raymarch-1dev`` through ``api.render(render_method="raymarch")``; the
 3-level scene's raymarch frame at 1024^2 against the CPU's, bit for bit;
 the 512-brick plotfile at 1024^2 through ``render(plotfile,
-render_method="raymarch")`` (the slice's counted run) and the CLI, with
-the PNGs equal to each other and to the frame, the wall split into march,
-fold and readback, the peak memory, and the 512-layer pixel-mode fold
-replayed against its plain version and timed against its byte bound; and
-``render_and_composite_sharded`` over 8 shards of the card in both
-transports against the one-device layers folded in the same order, every
-fold launch replayed.
+render_method="raymarch")`` (the counted run of the raymarch path: one
+march kernel launch, one fold) and the CLI, with the PNGs equal to each
+other and to the frame, the wall split into march (bucket build, upload,
+stack allocation, set-up and classification, kernel), fold and readback, the peak
+memory, the march kernel timed on its own launch against its bound, and
+the 512-layer pixel-mode fold replayed against its plain version and
+timed against its byte bound; and ``render_and_composite_sharded`` over 8
+shards of the card in both transports against the one-device layers
+folded in the same order, every fold launch replayed.  Every march of
+these frames (``ops.raymarch.render_bucket_into``, one kernel launch a
+bucket or shard) is replayed into fresh rows against the plain version
+on the card at max |diff| 0.
 
 Then the differentiable path (phase 27, ``amrvolumerenderer_torch.diff``,
 plain PyTorch with autograd and no kernel of its own): the 6^3 scene of
@@ -177,6 +182,11 @@ F32_FLOPS = 67e12
 SAMPLE_FLOPS = {("nearest", "post"): 63, ("trilinear", "post"): 88,
                 ("trilinear", "pre"): 118}
 BLEND_FLOPS = 12  # composite: one depth-sorted blend per covered pixel layer
+# float32 operations per valid sample of raymarch.cu's loop, counted by hand
+# (an FMA counts 2, a compare 1): both distances, the tested and the sampled
+# position, the box test, the cell index (subtract, divide, floor, clamp)
+# and the fold
+RAY_SAMPLE_FLOPS = 48
 SPIN_CYCLES = 20_000_000  # about 10 ms at the H100's 1.98 GHz
 
 
@@ -410,6 +420,7 @@ def main() -> int:
     from amrvolumerenderer_torch.types import color_map_from_tuples
     from amrvolumerenderer_torch.ops import _build
     from amrvolumerenderer_torch.ops import composite as comp
+    from amrvolumerenderer_torch.ops import raymarch as rm
     from amrvolumerenderer_torch.ops import slicemarch as sm
     from amrvolumerenderer_torch.ops import tilemarch as tm
     from amrvolumerenderer_torch.renderer import (
@@ -424,7 +435,7 @@ def main() -> int:
     assert "jax" not in sys.modules, "the port imported jax"
     assert "amrvolumerenderer_tpu" not in sys.modules, \
         "the port imported the JAX package"
-    libraries = ("tilemarch", "slicemarch", "composite")
+    libraries = ("tilemarch", "slicemarch", "composite", "raymarch")
     counters = {"tilemarch": tm.tilemarch_render,
                 "slicemarch": sm.slicemarch_render_worklist_raw,
                 "composite": comp.composite_tiles,  # tile mode
@@ -432,6 +443,7 @@ def main() -> int:
     batch_fn = tm.tilemarch_render_batch  # its launches count both batch entries
     dense_fn = sm.slicemarch_render  # kernel 4, in the slicemarch library
     runs_fn = comp.composite_runs  # the run pre-blend, in the composite library
+    ray_fn = rm.render_bucket_into  # the raymarch oracle's march
 
     def reset_counts():
         for fn in counters.values():
@@ -439,6 +451,7 @@ def main() -> int:
         batch_fn.launches = 0
         dense_fn.launches = 0
         runs_fn.launches = 0
+        ray_fn.launches = 0
 
     @contextlib.contextmanager
     def recorded(holder, attr, fn_name):
@@ -469,9 +482,10 @@ def main() -> int:
 
     def all_counts():
         return {**counts(), "tilemarch_batch": batch_fn.launches,
-                "slicemarch_dense": dense_fn.launches, "composite_runs": runs_fn.launches}
+                "slicemarch_dense": dense_fn.launches, "composite_runs": runs_fn.launches,
+                "raymarch": ray_fn.launches}
 
-    # ---- phase 1: build the three kernels, one nvcc each, in parallel -----
+    # ---- phase 1: build the four kernels, one nvcc each, in parallel ------
     t0 = time.perf_counter()
     _build.build_all(libraries)
     for name in libraries:
@@ -2112,7 +2126,6 @@ def main() -> int:
     from amrvolumerenderer_torch.camera import compute_box_depth_hint
     from amrvolumerenderer_torch.colormap import build_color_table
     from amrvolumerenderer_torch.image import ImageBuffer, ImageKind
-    from amrvolumerenderer_torch.ops import raymarch as rm
     from amrvolumerenderer_torch.scene import assign_owners, build_brick_buckets
 
     cpu = torch.device("cpu")
@@ -2239,47 +2252,122 @@ def main() -> int:
     del on_card, on_cpu, card_bricks, r24, r24_cpu, s_card, s_cpu
     torch.cuda.empty_cache()
 
-    # phase 25: the raymarch oracle
+    # phase 25: the raymarch oracle.  Every march (``render_bucket_into``:
+    # one launch of the march kernel a bucket) is recorded, less the stack
+    # it writes into, and replayed into fresh rows against the plain
+    # version on the card.
+    @contextlib.contextmanager
+    def recorded_marches(holder, attr):
+        """The arguments of every march ``holder`` makes through
+        ``holder.<attr>``, less the stack (which stays free to go)."""
+        with recorded(holder, attr, "render_bucket_into") as seen:
+            marches = []
+            yield marches
+        marches += [(args[1:], kw) for args, kw in seen]
+
+    def device_diff(a, b, chunk=16):
+        """max_diff on the card, a chunk of rows at a time: (same
+        non-finite pattern, max |diff| of the finite entries)."""
+        same, worst_d = True, 0.0
+        for i in range(0, a.shape[0], chunk):
+            x, y = a[i:i + chunk], b[i:i + chunk]
+            fx, fy = torch.isfinite(x), torch.isfinite(y)
+            same = same and torch.equal(fx, fy)
+            both = fx & fy
+            if bool(both.any()):
+                worst_d = max(worst_d, float((x - y).abs()[both].max()))
+        return same, worst_d
+
+    def replay_marches(label, marches, timed=False):
+        """Each recorded march again into fresh rows: the kernel (through
+        the counted wrapper) against the plain version, max |diff| 0.
+        Returns, per march, (the kernel's launch inputs and stack, the
+        plain version's valid samples, its wall ms); ``timed`` keeps the
+        kernel's stack for timing."""
+        out = []
+        for args, kw in marches:
+            rows = torch.arange(len(args[0]))
+            shape = (len(rows), kw["width"] * kw["height"], 5)
+            k_rows, p_rows = (torch.full(shape, float("nan"), device=dev)
+                              for _ in range(2))
+            launched, inner = [], rm.march_bucket
+            rm.march_bucket = lambda *a: (launched.append(a), inner(*a))[1]
+            try:
+                rm.render_bucket_into(k_rows, rows, *args[1:], **kw)
+            finally:
+                rm.march_bucket = inner
+            # an untimed run counts the valid samples of the bound and warms
+            # the allocator; the timed run then rewrites the same rows
+            samples = rm.render_bucket_into_reference(p_rows, rows, *args[1:],
+                                                      count_samples=True, **kw)
+            plain_ms, _ = synced_ms(lambda: rm.render_bucket_into_reference(
+                p_rows, rows, *args[1:], **kw))
+            same, d = device_diff(k_rows, p_rows)
+            worst["raymarch"] = max(worst.get("raymarch", 0.0), d)
+            log(f"{label}: {shape[0]} bricks x {shape[1]} pixels, {kw['num_steps']} "
+                f"steps, {int(samples)} valid samples: kernel vs plain max |diff| "
+                f"{d:.3g}, non-finite pattern same {same}; plain {plain_ms:.3f} ms")
+            assert same and d == 0.0, label
+            assert len(launched) == 1, len(launched)
+            del p_rows
+            out.append((launched[0] if timed else None, int(samples), plain_ms))
+            del launched, k_rows
+        return out
+
     reset_counts()
-    image, _ = api.render(r2, api.RenderOptions(
-        width=48, height=48, render_method="raymarch", device="cuda",
-        output_filename=os.path.join(SCRATCH, "golden-raymarch.ppm")),
-        verbose=False)
+    with recorded_marches(rnd, "raymarch") as march_rec:
+        image, _ = api.render(r2, api.RenderOptions(
+            width=48, height=48, render_method="raymarch", device="cuda",
+            output_filename=os.path.join(SCRATCH, "golden-raymarch.ppm")),
+            verbose=False)
     same, diff = max_diff(image.pixels, golden["raymarch-1dev"])
     log(f"phase 25: raymarch vs raymarch-1dev: non-finite pattern same {same}, "
-        f"max |diff| {diff:.3g} (atol {ATOL:g}); launches {counts()}")
+        f"max |diff| {diff:.3g} (atol {ATOL:g}); launches {counts()}, march "
+        f"{ray_fn.launches}")
     assert counts()["composite_pixels"] == 1 and same and diff <= ATOL
+    assert ray_fn.launches == len(march_rec) == 1, (ray_fn.launches, len(march_rec))
+    replay_marches("phase 25: raymarch-1dev's march replayed", march_rec)
     # the 3-level scene, card against CPU (the CPU march at 1024^2 takes
     # about 15 s)
     p25 = RenderParameters(width=full, height=full)
-    ms_card, (img_card, _) = synced_ms(lambda: render_scene(
-        "", p25, geometry3, verbose=False, method="raymarch", device=dev))
+    ray_fn.launches = 0
+    with recorded_marches(rnd, "raymarch") as march_rec:
+        ms_card, (img_card, _) = synced_ms(lambda: render_scene(
+            "", p25, geometry3, verbose=False, method="raymarch", device=dev))
+    assert ray_fn.launches == len(march_rec) == len(
+        build_brick_buckets(geometry3.bricks)), ray_fn.launches
     t0 = time.perf_counter()
     img_cpu, _ = render_scene("", p25, geometry3, verbose=False, method="raymarch",
                               device=cpu)
     same, d = max_diff(img_card.pixels, img_cpu.pixels)
     log(f"phase 25: render_scene(method='raymarch') 3-level {full}x{full} "
-        f"({len(geometry3.bricks)} bricks): card {ms_card:.3f} ms wall, CPU "
-        f"{time.perf_counter() - t0:.3f} s; max |diff| {d:.3g}, non-finite "
-        f"pattern same {same}")
+        f"({len(geometry3.bricks)} bricks, {len(march_rec)} march launches): card "
+        f"{ms_card:.3f} ms wall, CPU {time.perf_counter() - t0:.3f} s; max |diff| "
+        f"{d:.3g}, non-finite pattern same {same}")
     assert same and d == 0.0
+    replay_marches("phase 25: the 3-level frame's march replayed", march_rec)
     # the 512-brick plotfile at 1024^2 through render() and the CLI
     png_ray = os.path.join(SCRATCH, "radial_raymarch.png")
     png_ray_cli = os.path.join(SCRATCH, "radial_raymarch_cli.png")
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2 ** 30  # what earlier phases hold
     reset_counts()  # counted run: the raymarch route's main path
-    with recorded_folds() as fold_rec:
+    with recorded_folds() as fold_rec, recorded_marches(rnd, "raymarch") as march_rec:
         wall_ms, rc = synced_ms(lambda: amrvolumerenderer_torch.render(
             plotfile, width=full, height=full, output=png_ray,
             render_method="raymarch"))
     got = counts()
+    launches["raymarch"] = ray_fn.launches
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     launches["composite_pixels_raymarch"] = got["composite_pixels"]
     log(f"phase 25: {smi}: render(plotfile, render_method='raymarch') {n_bricks} bricks "
         f"at {full}x{full}: rc {rc}, {wall_ms:.3f} ms wall (scene build included), "
-        f"launches {got}, peak device memory {peak:.3f} GiB")
+        f"launches {got}, march {ray_fn.launches}, peak device memory {peak:.3f} GiB, "
+        f"{peak - held:.3f} GiB above the {held:.3f} GiB earlier phases hold")
     assert rc == 0 and got == {"tilemarch": 0, "slicemarch": 0, "composite": 0,
                                "composite_pixels": 1}, got
+    assert ray_fn.launches == len(march_rec) == 1, ray_fn.launches
     cli = subprocess.run(
         [sys.executable, "-m", "amrvolumerenderer_torch.driver", "--width", str(full),
          "--height", str(full), "--render-method", "raymarch", "--output",
@@ -2290,22 +2378,62 @@ def main() -> int:
     log(f"phase 25: the CLI's --render-method raymarch PNG equals render()'s "
         f"{bool(np.array_equal(ray_api, ray_cli))}")
     assert np.array_equal(ray_api, ray_cli)
-    # the wall split of one frame: march, fold, readback
+    # the counted run's march replayed against the plain version, then the
+    # kernel timed on its own launch inputs, against its bound
+    torch.cuda.empty_cache()
+    ((launch, samples, plain_ms),) = replay_marches(
+        f"phase 25: the {n_bricks}-brick frame's march replayed", march_rec,
+        timed=True)
+    k_out, k_bucket, k_index, k_steps = launch
+    kernel_ms = min(event_ms(lambda: rm.march_bucket(*launch)) for _ in range(3))
+    num_b, num_p = k_index.shape[0], k_bucket.directions.shape[0]
+    nbytes = (num_b * num_p * 20 + k_index.numel() * 4 + k_bucket.luts.numel() * 4
+              + num_p * 12)
+    times["raymarch"] = (kernel_ms, plain_ms)
+    bounds_ms["raymarch"] = bound(nbytes, samples * RAY_SAMPLE_FLOPS)
+    b_ms, by = bounds_ms["raymarch"]
+    log(f"phase 25: {smi}: the march kernel, {num_b} bricks x {num_p} pixels, "
+        f"{k_steps} steps, {samples} valid samples: {kernel_ms:.4f} ms "
+        f"(CUDA events, best of 3), plain {plain_ms:.3f} ms; bound {b_ms:.5f} ms "
+        f"({by}: {nbytes} B, "
+        f"{samples * RAY_SAMPLE_FLOPS} operations), kernel at {b_ms / kernel_ms:.4f} "
+        "of its bound")
+    # the stack clear the kernel made unnecessary, timed on the same rows
+    old_clear_ms = event_ms(lambda: (k_out.zero_(), k_out[..., 4].fill_(float("inf"))))
+    del launch, k_out, k_bucket, k_index, march_rec
+    torch.cuda.empty_cache()
+    # the wall split of one frame: march (bucket build, upload, set-up and
+    # classification, kernel, order keys), fold, readback
     bounds_p = compute_global_bounds(pgeom)
     srange_p = pgeom.scalar_range
     rsd_p = compute_reference_sample_distance(pgeom, bounds_p)
     cam_p = auto_orbit_camera(bounds_p)
-    march_ms, (layers, hints, owners, local) = synced_ms(
-        lambda: rnd._render_layers_raymarch(pgeom, p25, cam_p, bounds_p, srange_p,
-                                            rsd_p, full, full, None, dev))
+    with recorded_marches(rnd, "raymarch") as march_rec:
+        march_ms, (layers, hints, owners, local) = synced_ms(
+            lambda: rnd._render_layers_raymarch(pgeom, p25, cam_p, bounds_p, srange_p,
+                                                rsd_p, full, full, None, dev))
     fold_ms, folded = synced_ms(lambda: compositor.composite_layers_device(
         layers, hints, owners, local))
     read_ms, frame_p = synced_ms(lambda: folded.cpu().numpy())
     covered = float((frame_p[:, 3] > 0).mean())
+    (args_p, kw_p), = march_rec
+    build_ms, (bucket_p,) = synced_ms(lambda: build_brick_buckets(pgeom.bricks))
+    upload_ms, data_p = synced_ms(lambda: torch.from_numpy(bucket_p.data).to(dev))
+    alloc_ms, _ = synced_ms(lambda: torch.empty(layers.shape, device=dev))
+    wrapper_ms, _ = synced_ms(lambda: rm.render_bucket_into(
+        layers, args_p[0], data_p, *args_p[2:], **kw_p))
     log(f"phase 25: {smi}: one {n_bricks}-brick raymarch frame at {full}x{full}: march "
-        f"{march_ms:.3f} ms, fold {fold_ms:.3f} ms, readback {read_ms:.3f} ms "
-        f"(wall, synchronised); stack {tuple(layers.shape)} "
+        f"{march_ms:.3f} ms, fold {fold_ms:.3f} ms, readback "
+        f"{read_ms:.3f} ms (wall, synchronised); stack {tuple(layers.shape)} "
         f"({layers.numel() * 4 / 2 ** 30:.3f} GiB), alpha > 0 on {covered:.4f}")
+    log(f"phase 25: {smi}: the march stage split: bucket build (host) {build_ms:.3f} "
+        f"ms, upload of the bucket ({bucket_p.data.nbytes} B, pageable) "
+        f"{upload_ms:.3f} ms, stack allocation {alloc_ms:.3f} ms (torch.empty "
+        f"from an emptied cache, and no clear: the kernel writes every row; the "
+        f"zeros + inf clear it replaced: {old_clear_ms:.3f} ms), set-up + "
+        "classification + kernel "
+        f"{wrapper_ms:.3f} ms of which the kernel {kernel_ms:.4f} ms")
+    del data_p, bucket_p, march_rec, args_p
     assert np.isfinite(frame_p[:, :4]).all()
     assert ALPHA_FRACTION[0] <= covered <= ALPHA_FRACTION[1], covered
     # the frame with the bounds wireframe drawn over it, byte coded, is the
@@ -2384,20 +2512,28 @@ def main() -> int:
     def unfolded_raymarch():
         """The sharded raymarch with the camera rounded as the one-device
         program rounds it (``fold_camera=False``)."""
-        folded = rm.render_bucket_into
-        rm.render_bucket_into = lambda *a, **k: folded(*a, **dict(k, fold_camera=False))
+        class Unfolded:
+            def __getattr__(self, name):
+                return getattr(rm, name)
+
+            @staticmethod
+            def render_bucket_into(*a, **k):
+                return rm.render_bucket_into(*a, **dict(k, fold_camera=False))
+
+        ds.rm = Unfolded()
         try:
             yield
         finally:
-            rm.render_bucket_into = folded
+            ds.rm = rm
 
     frames26 = {}
     for transport in ("float32", "ubyte"):
         reset_counts()
-        with recorded_folds() as fold_rec:
+        with recorded_folds() as fold_rec, recorded_marches(ds, "rm") as march_rec:
             ms26, shards = synced_ms(lambda tr=transport: ds.render_and_composite_sharded(
                 mesh8, *tables, *args26, transport=tr, **kw26))
         got = counts()
+        marched = ray_fn.launches
         frame26 = frames26[transport] = torch.cat(shards).cpu().numpy()
         same, d = max_diff(frame26, one26)
         with np.errstate(invalid="ignore"):  # inf - inf where both are +inf
@@ -2406,10 +2542,11 @@ def main() -> int:
         beyond = int((diff > 1e-5).sum())
         log(f"phase 26: {smi}: render_and_composite_sharded D=8 {transport}, "
             f"{n_bricks} bricks at {full}x{full}: {ms26:.3f} ms wall, launches "
-            f"{got}; vs the one-device layers folded in the same order: max "
-            f"|diff| {d:.3g}, {beyond} of {len(diff)} pixels beyond 1e-5, "
+            f"{got}, march {marched}; vs the one-device layers folded in the same "
+            f"order: max |diff| {d:.3g}, {beyond} of {len(diff)} pixels beyond 1e-5, "
             f"non-finite pattern same {same}")
         assert got["composite_pixels"] == 8 and got["tilemarch"] == 0, got
+        assert marched == len(march_rec) == 8, marched  # one march a shard
         assert same
         if transport == "float32":
             # JAX's program folds the camera: an ulp of ray direction flips
@@ -2435,6 +2572,8 @@ def main() -> int:
                    f"phase 26: {transport}: {len(fold_rec)} fold launches replayed",
                    fold_rec, atol=0.0)
         del fold_rec, shards
+        replay_marches(f"phase 26: {transport}: a shard's march replayed", march_rec)
+        del march_rec
     del tables
     torch.cuda.empty_cache()
 
@@ -2529,6 +2668,8 @@ def main() -> int:
                            "amrvolumerenderer_tpu/parallel/directsend.py:300"),
         "composite_pixels_raymarch": ("ops/csrc/composite.cu",
                                       "amrvolumerenderer_tpu/compositor.py:81"),
+        "raymarch": ("ops/csrc/raymarch.cu",
+                     "amrvolumerenderer_tpu/ops/raymarch.py:78"),
     }
     for prec, name in batch_name.items():
         times[name] = batch_times[prec][:2]

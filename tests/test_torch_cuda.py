@@ -39,6 +39,7 @@ from amrvolumerenderer_torch.camera import (
 from amrvolumerenderer_torch.compositor import sort_layers
 from amrvolumerenderer_torch.fast_scene import FastSceneRenderer, pack_batch_tables
 from amrvolumerenderer_torch.ops import composite as comp
+from amrvolumerenderer_torch.ops import raymarch as rm
 from amrvolumerenderer_torch.ops import slicemarch as sm
 from amrvolumerenderer_torch.ops import tilemarch as tm
 from amrvolumerenderer_torch.ops.worklist import choose_march_axis
@@ -52,7 +53,7 @@ from amrvolumerenderer_torch.renderer_fast import (
     prepare_slicemarch_scene,
     slicemarch_device_inputs,
 )
-from amrvolumerenderer_torch.scene import LevelBox, LevelGeometry
+from amrvolumerenderer_torch.scene import LevelBox, LevelGeometry, build_brick_buckets
 from amrvolumerenderer_torch.types import CameraParameters, RenderParameters
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden",
@@ -853,13 +854,16 @@ def test_compute_histogram_bins_on_the_card_by_default(cuda, tmp_path, monkeypat
 
 @pytest.mark.cuda
 def test_raymarch_golden_row(cuda, tmp_path):
-    """render_method="raymarch" on the card reproduces ``raymarch-1dev``
-    and folds its layers with one pixel-mode composite launch."""
+    """render_method="raymarch" on the card reproduces ``raymarch-1dev``,
+    marching its one bucket with one launch of the march kernel and
+    folding its layers with one pixel-mode composite launch."""
     before = comp.composite_pixels.launches
+    marched = rm.render_bucket_into.launches
     image, _ = api.render(r2_data(), api.RenderOptions(
         width=48, height=48, render_method="raymarch", device=cuda,
         output_filename=str(tmp_path / "ray.ppm")), verbose=False)
     assert comp.composite_pixels.launches == before + 1
+    assert rm.render_bucket_into.launches == marched + 1  # one bucket
     ref = np.load(GOLDEN)["raymarch-1dev"]
     finite = np.isfinite(ref)
     np.testing.assert_array_equal(np.isfinite(image.pixels), finite)
@@ -869,12 +873,16 @@ def test_raymarch_golden_row(cuda, tmp_path):
 @pytest.mark.cuda
 @pytest.mark.parametrize("aa", [1, 4])
 def test_raymarch_matches_cpu(cuda, aa):
-    """The 3-level scene through the raymarch route on the card equals the
-    same call on the CPU, bit for bit."""
+    """The 3-level scene through the raymarch route on the card (one march
+    kernel launch a bucket) equals the same call on the CPU, bit for
+    bit."""
     geometry = three_level_geometry()
     params = RenderParameters(width=96, height=80, antialiasing=aa)
+    marched = rm.render_bucket_into.launches
     got, _ = render_scene("", params, geometry, verbose=False,
                           method="raymarch", device=cuda)
+    buckets = len(build_brick_buckets(geometry.bricks))
+    assert rm.render_bucket_into.launches == marched + buckets
     want, _ = render_scene("", params, geometry, verbose=False,
                            method="raymarch", device="cpu")
     assert (want.pixels[:, 3] > 0).mean() > 0.1
@@ -885,7 +893,8 @@ def test_raymarch_matches_cpu(cuda, aa):
 @pytest.mark.parametrize("transport", ["float32", "ubyte"])
 def test_sharded_raymarch_matches_cpu(cuda, transport):
     """render_and_composite_sharded over 8 shards of the card equals the
-    CPU mesh's frame; each shard's fold is a pixel-mode launch."""
+    CPU mesh's frame; each shard's march is one launch of the march
+    kernel and its fold a pixel-mode launch."""
     from amrvolumerenderer_torch.camera import compute_box_depth_hint
     from amrvolumerenderer_torch.colormap import build_color_table
     from amrvolumerenderer_torch.ops.raymarch import max_steps_for_bucket
@@ -916,12 +925,117 @@ def test_sharded_raymarch_matches_cpu(cuda, transport):
               log_scale=t.log_scale_input, normalize=t.normalize_to_unit_range,
               clip_start=1.0, apply_clip=False)
     before = comp.composite_pixels.launches
+    marched = rm.render_bucket_into.launches
     got = ds.render_and_composite_sharded(ds.make_mesh(8, cuda), *tables, *args, **kw)
     assert comp.composite_pixels.launches == before + 8
+    assert rm.render_bucket_into.launches == marched + 8  # one a shard
     want = ds.render_and_composite_sharded(ds.make_mesh(8, "cpu"), *tables, *args, **kw)
     assert (torch.cat(want)[:, 3] > 0).float().mean() > 0.1
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+
+
+def raymarch_bucket(case):
+    """(positional, keyword) arguments of ``render_bucket_into`` after
+    ``out`` for one kernel-vs-plain case: the golden r^2 scene's bucket,
+    or 4 seeded bricks (tests/test_torch_raymarch.py's generator: cropped
+    cell counts, non-finite cells, per-brick LUTs and steps) seen
+    obliquely (also on a 33x17 frame, whose rows are not 16-byte
+    aligned), along an axis on a one-pixel-wide frame (rays parallel to
+    the x axis: the slab test's guard), or from inside a box."""
+    from amrvolumerenderer_torch.colormap import build_color_table
+    from amrvolumerenderer_torch.ops.raymarch import max_steps_for_bucket
+
+    name, lut_size, flags, fold = case
+    camera = CameraParameters(eye=(1.6, 1.2, 1.9), look_at=(0.5, 0.5, 0.5),
+                              up=(0, 1, 0), fov_y_degrees=41.0)
+    width, height = 64, 48
+    scalars = (0.0, 1.3, 0.05, -1.0, 0.7)
+    if name == "r2":
+        geometry = api.load_amr_geometry(r2_data(), 0, -1, 0, False, True,
+                                         verbose=False)
+        (bucket,) = build_brick_buckets(geometry.bricks)
+        bounds = compute_global_bounds(geometry)
+        rsd = compute_reference_sample_distance(geometry, bounds)
+        srange = geometry.scalar_range
+        step = np.array([max(b.min_spacing() * 0.5, 1e-5) for b in geometry.bricks],
+                        np.float32)
+        lut = np.stack([build_color_table(1.0, s / rsd, srange, None, size=lut_size)
+                        for s in step])
+        data, bmin, bmax, dims = (bucket.data, bucket.min_corner, bucket.max_corner,
+                                  bucket.cell_dims)
+        camera = auto_orbit_camera(bounds)
+        scalars = (srange[0], 1.0 / (srange[1] - srange[0]), 0.0, 0.0, 1.0)
+    else:
+        rng = np.random.default_rng(len(name) + lut_size)
+        nb, shape = 4, (12, 10, 9)
+        data = (rng.random((nb,) + shape) * 2.0 + 0.01).astype(np.float32)
+        data[0, 0, 0, 0] = np.nan
+        data[1, 1, 1, 1] = -np.inf
+        bmin = rng.uniform(-0.2, 0.6, (nb, 3)).astype(np.float32)
+        bmax = (bmin + rng.uniform(0.25, 0.7, (nb, 3))).astype(np.float32)
+        dims = np.array([[12 - rng.integers(0, 3), 10, 9 - rng.integers(0, 2)]
+                         for _ in range(nb)], np.int32)
+        lut = rng.random((nb, lut_size, 4)).astype(np.float32)
+        lut[..., 3] *= 0.3
+        step = rng.uniform(0.01, 0.04, nb).astype(np.float32)
+        center = (0.5 * (bmin[0] + bmax[0])).tolist()
+        if name == "axis":
+            camera = CameraParameters(eye=(center[0], center[1], 3.0),
+                                      look_at=(center[0], center[1], 0.5),
+                                      up=(0, 1, 0), fov_y_degrees=45.0)
+            width, height = 1, 96
+        elif name == "odd":  # rows of 561 pixels: no 16-byte row alignment
+            width, height = 33, 17
+        elif name == "inside":
+            camera = CameraParameters(eye=tuple(center), look_at=(0.5, 0.5, -1.0),
+                                      up=(0, 1, 0), fov_y_degrees=60.0)
+    forward, right, up = camera_basis(camera)
+    args = (np.arange(len(data))[::-1].copy(), data, bmin, bmax, dims, lut, step,
+            *(np.asarray(v, np.float32) for v in (camera.eye, forward, right, up)),
+            camera.fov_y_degrees, *(float(np.float32(v)) for v in scalars))
+    log_scale, normalize, apply_clip = flags
+    kw = dict(width=width, height=height,
+              num_steps=max_steps_for_bucket(bmin, bmax, step), log_scale=log_scale,
+              normalize=normalize, clip_start=0.8, apply_clip=apply_clip,
+              fold_camera=fold)
+    return args, kw
+
+
+# (scene, LUT entries, (log scale, normalize, soft clip), fold_camera)
+RAYMARCH_CASES = [("r2", 256, (False, False, False), False),
+                  ("r2", 128, (False, False, False), True),
+                  ("seeded", 256, (True, True, True), False),
+                  ("seeded", 128, (True, False, True), False),
+                  ("seeded-flat", 256, (False, True, False), True),
+                  ("axis", 256, (True, True, True), False),
+                  ("odd", 128, (True, True, False), False),
+                  ("inside", 256, (False, True, True), False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", RAYMARCH_CASES,
+                         ids=lambda c: f"{c[0]}-{c[1]}{'-fold' if c[3] else ''}")
+def test_raymarch_kernel_matches_plain(cuda, case):
+    """One launch of the march kernel against its plain version on the
+    card, max |diff| 0 with the same non-finite pattern; both write their
+    rows whole (a NaN-filled stack keeps only its spare row)."""
+    args, kw = raymarch_bucket(case)
+    rows, pixels = len(args[0]), kw["width"] * kw["height"]
+    got = torch.full((rows + 1, pixels, 5), float("nan"), device=cuda)
+    want = torch.full((rows + 1, pixels, 5), float("nan"), device=cuda)
+    before = rm.render_bucket_into.launches
+    rm.render_bucket_into(got, *args, **kw)
+    assert rm.render_bucket_into.launches == before + 1
+    samples = rm.render_bucket_into_reference(want, *args, count_samples=True, **kw)
+    torch.cuda.synchronize()
+    assert rm.render_bucket_into.launches == before + 1
+    assert torch.isnan(got[rows]).all() and not torch.isnan(got[:rows]).any()
+    assert (want[:rows, :, 3] > 0).any() and int(samples) > 0
+    got, want = got[:rows].cpu().numpy(), want[:rows].cpu().numpy()
+    finite = np.isfinite(want)
+    np.testing.assert_array_equal(np.isfinite(got), finite)
+    np.testing.assert_array_equal(got[finite], want[finite])
 
 
 def diff_scene(name):
