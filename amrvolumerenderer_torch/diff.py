@@ -4,8 +4,12 @@ The port of the JAX package's ``diff.py``: a smooth twin of the raymarch
 oracle (``ops/raymarch.py``) whose gradients with respect to the volume
 data, the transfer function and the camera come from autograd.  The
 reference renderer (``Common/VolumePainter.cpp:735-922``) is forward-only;
-the JAX module is plain XLA, so this one is plain PyTorch on the tensors'
-device, with no hand-written kernel.
+the JAX module is one XLA program that ``jax.grad`` and ``jax.jvp``
+differentiate.  Here the ray set-up and what follows the march are plain
+PyTorch under autograd, and the march itself is one autograd node,
+``ops.diffmarch.march``: on the card a hand-written forward kernel, a
+backward kernel and a tangent kernel (``ops/csrc/diffmarch.cu``), on the
+CPU their plain versions.
 
 What makes it smooth, as in JAX:
 
@@ -22,7 +26,9 @@ What the port adds to keep JAX's gradients, not only its values:
 
   * ``_clip`` is ``jnp.clip``: ``minimum(maximum(x, lo), hi)``, whose
     gradient at a bound is half (``torch.clamp`` gives all of it).  A
-    saturated pixel's colour sits exactly on 1.0, so the rule shows.
+    saturated pixel's colour sits exactly on 1.0, so the rule shows.  The
+    march's hand-derived backward and tangent keep the same rule at every
+    clip and at the positive floor's ``maximum``.
   * ``ops.numerics.rsqrt`` and ``log`` go through integer bit views to
     round as XLA:CPU does; they are autograd functions with JAX's
     derivative rules, and so is the field of view's ``tan`` here.
@@ -33,11 +39,11 @@ What the port adds to keep JAX's gradients, not only its values:
     fusions, so frames agree within 2e-6, not bit for bit; on the card
     they equal the CPU's.
 
-``remat=True`` checkpoints each march step (``torch.utils.checkpoint``),
-the counterpart of ``jax.checkpoint`` inside ``lax.scan``: the backward
-recomputes a step's activations and stores only its ``[B, H*W, 4]``
-accumulator.  The bricks render as one batch, the counterpart of
-``jax.vmap``.
+``remat`` is kept for JAX's signature and changes nothing: the march node
+stores no step's activations on either device (its backward recomputes
+them; on the card from opacity checkpoints every 16 steps), so gradient
+memory and results are the same with it on or off.  The bricks render as
+one batch, the counterpart of ``jax.vmap``.
 """
 
 from __future__ import annotations
@@ -48,39 +54,20 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 import torch.autograd.forward_ad as fwAD
-from torch.utils.checkpoint import checkpoint
 
 from .camera import camera_basis
 from .colormap import SOFT_CLIP_TOLERANCE, build_color_table
 from .device import DEFAULT_DEVICE, Device, resolve_device
+from .ops import diffmarch as dm
+from .ops.diffmarch import _clip, _constant  # noqa: F401  (_constant: its cache)
 from .ops.march import f32
-from .ops.numerics import fma, log
+from .ops.numerics import fma
 from .ops.raymarch import (_HALF_FOV_SCALE, _ray_directions, _slab_intersect,
                            half_fov_tan, max_steps_for_bucket)
 from .parallel import directsend as ds
 from .types import ScalarTransform
 
 Tensor = torch.Tensor
-
-
-def _clip(x: Tensor, lo, hi) -> Tensor:
-    """``jnp.clip``: half the gradient goes to ``x`` at a tie with a bound,
-    as ``torch.maximum`` and ``torch.minimum`` split it."""
-    return torch.minimum(torch.maximum(x, _like(lo, x)), _like(hi, x))
-
-
-def _like(v, x: Tensor) -> Tensor:
-    """``v`` as a 0-d tensor of ``x``'s dtype on its device."""
-    return v if isinstance(v, Tensor) else _constant(v, x.dtype, x.device)
-
-
-@functools.lru_cache(maxsize=256)
-def _constant(v, dtype, device) -> Tensor:
-    """A 0-d constant, made once per (value, dtype, device): the march
-    takes a dozen a step, and each would be a launch.  Never written; made
-    outside inference mode, so a later call with autograd can save it."""
-    with torch.inference_mode(False):
-        return torch.full((), v, dtype=dtype, device=device)
 
 
 def _scalar(v, dev) -> Tensor:
@@ -125,32 +112,15 @@ def _scalar_transform(raw: Tensor, log_scale: bool, normalize: bool,
                       inverse_normalization_span: Tensor) -> Tensor:
     """``transforms.apply_scalar_transform`` with ``jnp.maximum`` and
     ``jnp.clip``'s gradients at ties."""
-    value = torch.where(torch.isfinite(raw), raw, 0.0)
-    if log_scale:
-        value = torch.where(value > 0.0, torch.maximum(value, positive_floor),
-                            positive_floor)
-        value = log(value)
-    if normalize:
-        value = _clip((value - normalization_min) * inverse_normalization_span,
-                      0.0, 1.0)
-    return value
+    return dm.transform_terms(raw, log_scale, normalize, positive_floor,
+                              normalization_min, inverse_normalization_span).value
 
 
 def _soft_tail(value: Tensor, clip_start: float) -> Tensor:
     """``transforms.saturate_soft_tail(value, clip_start, 1)`` rounded as
     ``raymarch._soft_tail`` (a multiply by the span's float32 reciprocal,
     two FMAs), with ``jnp.clip``'s gradient."""
-    end = max(clip_start, 1.0)
-    clamped = _clip(value, 0.0, f32(end))
-    if not (end > clip_start + SOFT_CLIP_TOLERANCE):
-        return clamped
-    start, span = f32(clip_start), f32(end - clip_start)
-    m = (clamped - start) * float(np.float32(1.0) / np.float32(span))
-    m2 = m * m
-    smooth = fma(-m, m2, m + m2)  # FMA: (m + m^2) - m * m^2
-    soft = fma(smooth, span, start)  # FMA: start + span * smooth
-    inside = (clamped > start) & (clamped < f32(end))
-    return torch.where(inside, soft, clamped)
+    return dm.soft_tail_terms(value, clip_start).scalar
 
 
 def trilinear_sample(
@@ -168,48 +138,11 @@ def trilinear_sample(
     dimensions are a batch of bricks (none: JAX's signature).  Returns
     ``[..., N]`` float32, differentiable in ``brick`` (a gather through
     a flat index, whose backward is a scatter-add) and ``pos``."""
-    return _trilinear(brick, dims, bmin, cell_size)(pos)
-
-
-def _trilinear(brick, dims, bmin, cell_size):
-    """``trilinear_sample`` as a function of the positions alone, its
-    per-brick terms computed once (the march calls it every step)."""
     dims = dims.long()
     zero = torch.zeros((), dtype=dims.dtype, device=dims.device)
-    top = torch.maximum(dims - 1, zero)[..., None, :]
-    top_f = top.to(torch.float32)
-    low = torch.maximum(dims - 2, zero)[..., None, :]
-    origin, cell = bmin[..., None, :], cell_size[..., None, :]
-    pad_ny, pad_nz = brick.shape[-2], brick.shape[-1]
-    flat = brick.reshape(*brick.shape[:-3], -1)
-
-    def sample(pos: Tensor) -> Tensor:
-        f = _clip((pos - origin) / cell - 0.5, 0.0, top_f)
-        i0 = _clip(torch.floor(f).long(), zero, low)
-        w = _clip(f - i0.to(torch.float32), 0.0, 1.0)
-        i1 = torch.minimum(i0 + 1, top)
-        # the 8 corners in one gather, [..., N, z, y, x]
-        x0, y0, z0 = i0.unbind(-1)
-        dx, dy, dz = (i1 - i0).unbind(-1)
-        base = (x0 * pad_ny + y0) * pad_nz + z0
-        zeros = torch.zeros_like(base)
-        ox = torch.stack([zeros, dx * (pad_ny * pad_nz)], dim=-1)
-        oy = torch.stack([zeros, dy * pad_nz], dim=-1)
-        oz = torch.stack([zeros, dz], dim=-1)
-        offset = (base[..., None, None, None] + oz[..., :, None, None]
-                  + oy[..., None, :, None] + ox[..., None, None, :])
-        corners = torch.gather(flat, -1, offset.flatten(-4)).reshape(offset.shape)
-        wx, wy, wz = w.unbind(-1)
-        c = _lerp(corners[..., 0], corners[..., 1], wx[..., None, None])
-        c = _lerp(c[..., 0], c[..., 1], wy[..., None])
-        return _lerp(c[..., 0], c[..., 1], wz)
-
-    return sample
-
-
-def _lerp(a: Tensor, b: Tensor, w: Tensor) -> Tensor:
-    """``a * (1 - w) + b * w``."""
-    return fma(a, 1.0 - w, b * w)  # FMA
+    return dm.trilinear_terms(brick, torch.maximum(dims - 1, zero)[..., None, :],
+                              torch.maximum(dims - 2, zero)[..., None, :],
+                              bmin[..., None, :], cell_size[..., None, :], pos).raw
 
 
 def lut_lookup_linear(lut: Tensor, normalized: Tensor) -> Tensor:
@@ -219,15 +152,7 @@ def lut_lookup_linear(lut: Tensor, normalized: Tensor) -> Tensor:
     (no leading dimensions: JAX's signature).  Within half a bin of the
     forward oracle's floored index (VolumePainter.cpp:858-866) and
     differentiable in both arguments."""
-    table_max = lut.shape[-2] - 1
-    u = _clip(normalized, 0.0, 1.0) * float(table_max)
-    j0 = _clip(torch.floor(u).long(), 0, max(table_max - 1, 0))
-    w = _clip(u - j0.to(torch.float32), 0.0, 1.0)[..., None]
-    pair = torch.stack([j0, torch.minimum(j0 + 1, _like(table_max, j0))], dim=-1)
-    rows = torch.gather(lut, -2, pair.flatten(-2)[..., None].expand(
-        *pair.shape[:-2], 2 * pair.shape[-2], lut.shape[-1]))
-    rows = rows.reshape(*pair.shape, lut.shape[-1])  # [..., N, 2, 4]
-    return _lerp(rows[..., 0, :], rows[..., 1, :], w)
+    return dm.lut_terms(lut, normalized).s
 
 
 def render_layers_diff(
@@ -261,11 +186,12 @@ def render_layers_diff(
 
     The JAX function's argument layout; front-to-back over-compositing
     (VolumePainter.cpp:837-900) with trilinear samples and lerped LUT
-    lookups.  Runs on ``data``'s device.  Returns ``(colors [B, H*W, 4],
-    depths [B, H*W])``; the depths carry no gradient (they are box-entry
-    hints for ordering).  ``remat=True`` checkpoints each march step:
-    gradient memory is one accumulator a step instead of every step's
-    activations.  Forward-only calls are unaffected."""
+    lookups.  Runs on ``data``'s device: the ray set-up here, the march
+    through ``ops.diffmarch.march`` (one forward launch, and one backward
+    launch under reverse mode, on the card).  Returns ``(colors [B, H*W,
+    4], depths [B, H*W])``; the depths carry no gradient (they are
+    box-entry hints for ordering).  ``remat`` changes nothing (JAX's
+    argument: the march stores no step's activations either way)."""
     dev = data.device
     f = torch.float32
     bmin, bmax = min_corner.to(dev, f), max_corner.to(dev, f)
@@ -274,12 +200,6 @@ def render_layers_diff(
     eye = eye.to(dev, f)
     basis = tuple(v.to(dev, f) for v in (basis_forward, basis_right, basis_up))
     fov = _scalar(fov_y_degrees, dev)
-    rmin, rinv = _scalar(range_min, dev), _scalar(inverse_range, dev)
-    transform = dict(
-        log_scale=log_scale, normalize=normalize,
-        positive_floor=_scalar(positive_floor, dev),
-        normalization_min=_scalar(normalization_min, dev),
-        inverse_normalization_span=_scalar(inverse_normalization_span, dev))
 
     aspect = f32(f32(width) / f32(max(height, 1)))
     # a number reads no device value: a call with the field of view as a
@@ -303,39 +223,20 @@ def render_layers_diff(
     d0 = torch.where(d0 < 0.0, mesh_eps, d0)
     cell = torch.where(dims > 0, extent / torch.maximum(
         dims.to(f), torch.ones((), dtype=f, device=dev)), 1.0)
-    step = steps[:, None]
-    lo, hi = bmin[:, None, :], bmax[:, None, :]
-    sample_at = _trilinear(data, dims, bmin, cell)
-    dirs64, eye64 = directions.double(), eye.double()
-
-    def body(accum: Tensor, k: float) -> Tensor:
-        dist = d0 + step * k
-        # FMA: the sample position, eye + direction * distance (as ``fma``)
-        pos = (dirs64 * dist.double()[..., None] + eye64).float()
-        inside = ((pos >= lo) & (pos <= hi)).all(dim=-1)
-        active = hit & (dist < tmax) & inside & (accum[..., 3] < 1.0)
-        scalar = _scalar_transform(sample_at(pos), **transform)
-        if apply_clip:
-            scalar = _soft_tail(scalar, clip_start)
-        sample = lut_lookup_linear(color_table, _clip((scalar - rmin) * rinv,
-                                                      0.0, 1.0))
-        alpha = torch.where(active, sample[..., 3] * (1.0 - accum[..., 3]), 0.0)
-        return torch.cat([fma(sample[..., :3], alpha[..., None],  # FMA
-                              accum[..., :3]),
-                          (accum[..., 3] + alpha)[..., None]], dim=-1)
-
-    accum = torch.zeros((*hit.shape, 4), dtype=f, device=dev)
-    # checkpoint only what reverse mode will differentiate (forward mode
-    # alone needs no saved steps)
-    store = remat and torch.is_grad_enabled() and any(
-        t.requires_grad for t in (data, color_table, bmin, bmax, steps, eye, *basis,
-                                  fov, rmin, rinv, *transform.values())
-        if isinstance(t, Tensor))
-    for k in range(num_steps):
-        if store:
-            accum = checkpoint(body, accum, float(k), use_reentrant=False)
-        else:
-            accum = body(accum, float(k))
+    scalars = torch.stack([_scalar(v, dev) for v in (
+        range_min, inverse_range, positive_floor, normalization_min,
+        inverse_normalization_span)])
+    zero = torch.zeros((), dtype=dims.dtype, device=dev)
+    inputs = dm.MarchInputs(
+        data=data.to(f).contiguous(), luts=color_table.to(dev, f).contiguous(),
+        d0=d0.contiguous(), directions=directions.contiguous(), eye=eye,
+        steps=steps.contiguous(), bmin=bmin.contiguous(), cell=cell.contiguous(),
+        scalars=scalars, tmax=tmax.detach().contiguous(), hit=hit.contiguous(),
+        bmax=bmax.detach().contiguous(),
+        top=torch.maximum(dims - 1, zero).to(torch.int32).contiguous(),
+        low=torch.maximum(dims - 2, zero).to(torch.int32).contiguous())
+    accum = dm.march(inputs, dm.MarchConfig(num_steps, log_scale, normalize,
+                                            apply_clip, clip_start))
     accum = _clip(accum, 0.0, 1.0)
 
     with torch.no_grad():

@@ -1,0 +1,612 @@
+"""The differentiable path's march: a forward, a backward and a tangent
+kernel, and their plain PyTorch versions, behind one autograd Function.
+
+The JAX package's ``diff.render_layers_diff`` (its ``lax.scan`` over a
+``jax.checkpoint``ed step, vmapped over the bricks) is one XLA program that
+``jax.grad`` and ``jax.jvp`` differentiate.  Here the ray set-up stays in
+PyTorch under autograd (``diff.render_layers_diff``) and the march is
+``march``: a ``torch.autograd.Function`` over the raw ``[B, P, 4]``
+accumulator of every (brick, pixel) pair.
+
+* On the card its forward is ``diffmarch_forward`` (``csrc/diffmarch.cu``,
+  one thread a pair, stopping at the first step that can never be active
+  again), its backward ``diffmarch_backward`` (the exact reverse mode of
+  the march, replayed from opacity checkpoints the forward keeps every
+  ``CHECKPOINT_EVERY`` steps) and its forward-mode rule ``diffmarch_tangent``
+  (the forward kernel carrying a tangent beside each value).  A failed
+  build or launch raises: no input routes the card to the plain versions.
+* On the CPU the same Function runs ``march_forward_reference`` (the step
+  the eager loop ran, op for op), ``march_backward_reference`` (the same
+  reverse recurrence as the backward kernel, vectorised over the pairs,
+  walking the steps backwards over a saved per-step opacity) and
+  ``march_tangent_reference`` (torch's forward mode through the plain
+  forward).
+
+Both devices therefore keep one ``[B, P, 4]`` accumulator (and, on the
+card, the checkpoints) whatever ``remat`` says: the step's activations are
+recomputed in the backward, never stored.
+
+The gradients follow JAX's rules: ``jnp.clip`` and ``jnp.maximum`` give
+half a gradient at a tie (``_clip_grad``), ``log`` gives ``g / x``.  No
+gradient flows through the gate (hit, distance below the box exit, inside
+the box, opacity below 1), and the backward never divides by a
+transmittance: it replays each step's opacity exactly, so every gate
+decision is the forward's own.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import functools
+import math
+from types import SimpleNamespace
+from typing import List, NamedTuple, Optional, Sequence
+
+import numpy as np
+import torch
+import torch.autograd.forward_ad as fwAD
+from torch.autograd.function import once_differentiable
+
+from ..colormap import SOFT_CLIP_TOLERANCE
+from .march import f32, require
+from .numerics import fma, fma_once, log
+
+Tensor = torch.Tensor
+
+# steps between two opacity checkpoints of the forward kernel (the backward
+# kernel's kSegment)
+CHECKPOINT_EVERY = 16
+# per-block sums the backward kernel writes: the step, the trilinear origin
+# (3), the cell size (3), the eye (3) and the five transform scalars
+PARTIALS = 15
+_THREADS = 256  # pixels per block of both kernels
+_SHARED_BYTES = 232448  # what one block may use on Hopper
+
+
+def _clip(x: Tensor, lo, hi) -> Tensor:
+    """``jnp.clip``: half the gradient goes to ``x`` at a tie with a bound,
+    as ``torch.maximum`` and ``torch.minimum`` split it."""
+    return torch.minimum(torch.maximum(x, _like(lo, x)), _like(hi, x))
+
+
+def _like(v, x: Tensor) -> Tensor:
+    """``v`` as a 0-d tensor of ``x``'s dtype on its device."""
+    return v if isinstance(v, Tensor) else _constant(v, x.dtype, x.device)
+
+
+@functools.lru_cache(maxsize=256)
+def _constant(v, dtype, device) -> Tensor:
+    """A 0-d constant, made once per (value, dtype, device): the march
+    takes a dozen a step, and each would be a launch.  Never written; made
+    outside inference mode, so a later call with autograd can save it."""
+    with torch.inference_mode(False):
+        return torch.full((), v, dtype=dtype, device=device)
+
+
+def _lerp(a: Tensor, b: Tensor, w: Tensor) -> Tensor:
+    """``a * (1 - w) + b * w``."""
+    return fma(a, 1.0 - w, b * w)  # FMA
+
+
+def _clip_grad(x: Tensor, lo, hi) -> Tensor:
+    """d ``_clip(x, lo, hi)`` / dx under ``torch.maximum`` and
+    ``torch.minimum``'s rules (``jnp.clip``'s): 1 inside, half at a tie
+    with a bound, 0 beyond it (1 for NaN, as those rules give)."""
+    lo_t, hi_t = _like(lo, x), _like(hi, x)
+    up = torch.where(x < lo_t, 0.0, torch.where(x == lo_t, 0.5, 1.0))
+    y = torch.maximum(x, lo_t)
+    return up * torch.where(y > hi_t, 0.0, torch.where(y == hi_t, 0.5, 1.0))
+
+
+class MarchInputs(NamedTuple):
+    """What the march reads, on one device.  The first ``DIFFERENTIABLE``
+    fields carry gradients; the rest are gates and integer tables."""
+    data: Tensor  # [B, nx, ny, nz] float32 padded raw values
+    luts: Tensor  # [B, size, 4] float32 per-brick transfer function
+    d0: Tensor  # [B, P] float32 first sample distance
+    directions: Tensor  # [P, 3] float32 unit ray directions
+    eye: Tensor  # [3] float32
+    steps: Tensor  # [B] float32 per-brick step
+    bmin: Tensor  # [B, 3] float32 trilinear origin (and the box's low corner)
+    cell: Tensor  # [B, 3] float32 cell size
+    scalars: Tensor  # [5] float32 range_min, inverse_range, positive_floor,
+    #                  normalization_min, inverse_normalization_span
+    tmax: Tensor  # [B, P] float32 box exit distance
+    hit: Tensor  # [B, P] bool: the ray meets the box
+    bmax: Tensor  # [B, 3] float32 the box's high corner
+    top: Tensor  # [B, 3] int32 last valid cell index, max(dims - 1, 0)
+    low: Tensor  # [B, 3] int32 last lerp start, max(dims - 2, 0)
+
+
+DIFFERENTIABLE = 9
+
+
+class MarchConfig(NamedTuple):
+    """The march's static arguments (``render_layers_diff``'s)."""
+    num_steps: int
+    log_scale: bool
+    normalize: bool
+    apply_clip: bool
+    clip_start: float
+
+
+def _soft(clip_start: float):
+    """The soft tail's float32 constants ``(start, span, 1 / span, end)``,
+    or None where the tail is a plain clamp."""
+    end = max(clip_start, 1.0)
+    if not (end > clip_start + SOFT_CLIP_TOLERANCE):
+        return None
+    return (f32(clip_start), f32(end - clip_start),
+            float(np.float32(1.0) / np.float32(f32(end - clip_start))), f32(end))
+
+
+def trilinear_terms(data: Tensor, top: Tensor, low: Tensor, origin: Tensor,
+                    cell: Tensor, pos: Tensor) -> SimpleNamespace:
+    """``diff.trilinear_sample`` with its intermediates: ``data`` ``[...,
+    nx, ny, nz]``; ``top`` and ``low`` (int64: the last cell index and the
+    last lerp start), ``origin`` and ``cell`` ``[..., 1, 3]``; ``pos``
+    ``[..., N, 3]``.  ``.raw`` is the sample."""
+    t = SimpleNamespace(top_f=top.to(torch.float32))
+    t.rel = pos - origin
+    t.h = t.rel / cell - 0.5
+    t.f = _clip(t.h, 0.0, t.top_f)
+    t.i0 = _clip(torch.floor(t.f).long(), 0, low)
+    t.w = _clip(t.f - t.i0.to(torch.float32), 0.0, 1.0)
+    i1 = torch.minimum(t.i0 + 1, top)
+    pad_ny, pad_nz = data.shape[-2], data.shape[-1]
+    x0, y0, z0 = t.i0.unbind(-1)
+    dx, dy, dz = (i1 - t.i0).unbind(-1)
+    base = (x0 * pad_ny + y0) * pad_nz + z0
+    zeros = torch.zeros_like(base)
+    ox = torch.stack([zeros, dx * (pad_ny * pad_nz)], dim=-1)
+    oy = torch.stack([zeros, dy * pad_nz], dim=-1)
+    oz = torch.stack([zeros, dz], dim=-1)
+    # the 8 corners in one gather, [..., N, z, y, x]
+    t.offset = (base[..., None, None, None] + oz[..., :, None, None]
+                + oy[..., None, :, None] + ox[..., None, None, :])
+    flat = data.reshape(*data.shape[:-3], -1)
+    t.corners = torch.gather(flat, -1, t.offset.flatten(-4)).reshape(t.offset.shape)
+    wx, wy, wz = t.w.unbind(-1)
+    t.cx = _lerp(t.corners[..., 0], t.corners[..., 1], wx[..., None, None])
+    t.cy = _lerp(t.cx[..., 0], t.cx[..., 1], wy[..., None])
+    t.raw = _lerp(t.cy[..., 0], t.cy[..., 1], wz)
+    return t
+
+
+def transform_terms(raw: Tensor, log_scale: bool, normalize: bool, positive_floor,
+                    normalization_min, inverse_normalization_span) -> SimpleNamespace:
+    """``diff._scalar_transform`` with its intermediates; ``.value`` is the
+    transformed value."""
+    t = SimpleNamespace(finite=torch.isfinite(raw))
+    t.value0 = torch.where(t.finite, raw, 0.0)
+    value = t.value0
+    if log_scale:
+        t.positive = t.value0 > 0.0
+        t.v1 = torch.where(t.positive, torch.maximum(t.value0, positive_floor),
+                           positive_floor)
+        value = log(t.v1)
+    t.lv = value
+    if normalize:
+        t.q2 = (value - normalization_min) * inverse_normalization_span
+        value = _clip(t.q2, 0.0, 1.0)
+    t.value = value
+    return t
+
+
+def soft_tail_terms(value: Tensor, clip_start: float) -> SimpleNamespace:
+    """``diff._soft_tail`` with its intermediates: ``.soft`` the tail's
+    constants (None: a plain clamp), ``.scalar`` the result."""
+    t = SimpleNamespace(soft=_soft(clip_start))
+    clamped = _clip(value, 0.0, f32(max(clip_start, 1.0)))
+    t.scalar = clamped
+    if t.soft is not None:
+        start, span, rspan, end = t.soft
+        t.m = (clamped - start) * rspan
+        m2 = t.m * t.m
+        smooth = fma(-t.m, m2, t.m + m2)  # FMA: (m + m^2) - m * m^2
+        soft = fma(smooth, span, start)  # FMA: start + span * smooth
+        t.ins = (clamped > start) & (clamped < end)
+        t.scalar = torch.where(t.ins, soft, clamped)
+    return t
+
+
+def lut_terms(lut: Tensor, normalized: Tensor) -> SimpleNamespace:
+    """``diff.lut_lookup_linear`` with its intermediates: ``lut`` ``[...,
+    size, 4]``, ``normalized`` ``[..., N]``.  ``.s`` is the sample."""
+    t = SimpleNamespace(table_max=lut.shape[-2] - 1)
+    t.u = _clip(normalized, 0.0, 1.0) * float(t.table_max)
+    t.j0 = _clip(torch.floor(t.u).long(), 0, max(t.table_max - 1, 0))
+    t.wl = _clip(t.u - t.j0.to(torch.float32), 0.0, 1.0)
+    t.j1 = torch.minimum(t.j0 + 1, _like(t.table_max, t.j0))
+    t.row0, t.row1 = (torch.gather(lut, -2, j[..., None].expand(*j.shape, lut.shape[-1]))
+                      for j in (t.j0, t.j1))
+    t.s = _lerp(t.row0, t.row1, t.wl[..., None])
+    return t
+
+
+def _step(m: MarchInputs, cfg: MarchConfig, k: float) -> SimpleNamespace:
+    """Step ``k`` at every (brick, pixel) pair: the sample and the gate
+    (less the opacity test), with every intermediate its derivatives read
+    (the fields of ``trilinear_terms``, ``transform_terms``,
+    ``soft_tail_terms`` and ``lut_terms``)."""
+    st = SimpleNamespace()
+    st.dist = m.d0 + m.steps[:, None] * k
+    # FMA: eye + direction * distance, rounded once as the kernel's
+    st.pos = fma_once(m.directions, st.dist[..., None], m.eye)
+    lo, hi = m.bmin[:, None, :], m.bmax[:, None, :]
+    st.gate = m.hit & (st.dist < m.tmax) & ((st.pos >= lo) & (st.pos <= hi)).all(dim=-1)
+    vars(st).update(vars(trilinear_terms(m.data, m.top.long()[:, None, :],
+                                         m.low.long()[:, None, :], lo,
+                                         m.cell[:, None, :], st.pos)))
+    rmin, rinv, floor, nmin, ninv = m.scalars.unbind()
+    vars(st).update(vars(transform_terms(st.raw, cfg.log_scale, cfg.normalize, floor,
+                                         nmin, ninv)))
+    st.scalar, st.soft = st.value, None
+    if cfg.apply_clip:
+        vars(st).update(vars(soft_tail_terms(st.value, cfg.clip_start)))
+    st.q = (st.scalar - rmin) * rinv
+    st.n = _clip(st.q, 0.0, 1.0)
+    vars(st).update(vars(lut_terms(m.luts, st.n)))
+    return st
+
+
+def march_forward_reference(m: MarchInputs, cfg: MarchConfig, trace: bool = False,
+                            count_samples: bool = False):
+    """The plain march: every step at every pair, gated, front to back
+    (VolumePainter.cpp:837-900).  Returns the raw accumulator ``[B, P,
+    4]``; with ``trace`` also the opacity before each step (a list of
+    ``[B, P]``), with ``count_samples`` also the number of active steps (a
+    0-d tensor: the valid samples)."""
+    accum = torch.zeros((*m.d0.shape, 4), dtype=torch.float32, device=m.d0.device)
+    before, samples = [], torch.zeros((), dtype=torch.int64, device=m.d0.device)
+    for k in range(cfg.num_steps):
+        st = _step(m, cfg, float(k))
+        if trace:
+            before.append(accum[..., 3])
+        active = st.gate & (accum[..., 3] < 1.0)
+        if count_samples:
+            samples += active.sum()
+        alpha = torch.where(active, st.s[..., 3] * (1.0 - accum[..., 3]), 0.0)
+        accum = torch.cat([fma(st.s[..., :3], alpha[..., None],  # FMA
+                               accum[..., :3]),
+                           (accum[..., 3] + alpha)[..., None]], dim=-1)
+    out = (accum,) + ((before,) if trace else ()) + ((samples,) if count_samples else ())
+    return out if len(out) > 1 else accum
+
+
+def march_backward_reference(m: MarchInputs, cfg: MarchConfig, grad: Tensor,
+                             needs: Sequence[bool] = (True,) * DIFFERENTIABLE
+                             ) -> List[Tensor]:
+    """The reverse mode of the march, as the backward kernel computes it:
+    the cotangent ``grad`` of the raw accumulator walked back over the
+    steps, each step's opacity read from a forward sweep.  Returns the
+    gradients of ``MarchInputs``' differentiable fields, in order (the data
+    and LUT ones zero unless ``needs`` asks for them).
+
+    For an active step, ``alpha = s.a (1 - A.a)``, ``A'.rgb = s.rgb alpha
+    + A.rgb`` and ``A'.a = A.a + alpha``: the colour cotangent stays
+    ``grad.rgb`` along the ray, ``g_alpha = lam.rgb . s.rgb + lam.a``,
+    ``lam.a -= s.a g_alpha``, ``g_s.rgb = lam.rgb alpha`` and ``g_s.a =
+    g_alpha (1 - A.a)``; ``g_s`` then goes back through the LUT lerp, the
+    clips, the transform, the trilinear weights and corners, the position
+    and the distance.  Inactive steps add nothing."""
+    f, f64 = torch.float32, torch.float64
+    _, before = march_forward_reference(m, cfg, trace=True)
+    num_bricks, num_pixels = m.d0.shape
+    rmin, rinv, floor, nmin, ninv = m.scalars.unbind()
+    lam_rgb, lam_a = grad[..., :3], grad[..., 3]
+    # float64 totals: a LUT entry takes millions of float32 terms at full
+    # size, beyond what a float32 sum holds to 1e-4
+    g_data = torch.zeros((num_bricks, m.data[0].numel()), dtype=f64, device=m.d0.device)
+    g_luts = torch.zeros(m.luts.shape, dtype=f64, device=m.d0.device)
+    g_d0, g_dirs, g_eye, g_steps, g_bmin, g_cell = (
+        torch.zeros(t.shape, dtype=f64, device=m.d0.device)
+        for t in (m.d0, m.directions, m.eye, m.steps, m.bmin, m.cell))
+    g_sc = [torch.zeros((), dtype=f64, device=m.d0.device) for _ in range(5)]
+    cell = m.cell[:, None, :]
+    for k in reversed(range(cfg.num_steps)):
+        st = _step(m, cfg, float(k))
+        one_minus = 1.0 - before[k]
+        active = st.gate & (before[k] < 1.0)
+
+        def msum(x):
+            return torch.where(active, x, 0.0).sum(dtype=f64)
+
+        s = st.s
+        alpha = s[..., 3] * one_minus
+        g_alpha = (lam_rgb * s[..., :3]).sum(-1) + lam_a
+        g_s = torch.where(active[..., None], torch.cat(
+            [lam_rgb * alpha[..., None], (g_alpha * one_minus)[..., None]], dim=-1), 0.0)
+        lam_a = torch.where(active, lam_a - s[..., 3] * g_alpha, lam_a)
+        # the LUT lerp
+        wl = st.wl[..., None]
+        if needs[1]:
+            g_luts.scatter_add_(1, st.j0[..., None].expand(-1, -1, 4),
+                                (g_s * (1.0 - wl)).double())
+            g_luts.scatter_add_(1, st.j1[..., None].expand(-1, -1, 4), (g_s * wl).double())
+        g = (g_s * (st.row1 - st.row0)).sum(-1)
+        g = g * _clip_grad(st.u - st.j0.to(f), 0.0, 1.0)
+        g = g * float(st.table_max) * _clip_grad(st.n, 0.0, 1.0)
+        g = g * _clip_grad(st.q, 0.0, 1.0)  # d / d((scalar - rmin) * rinv)
+        g_sc[0] += msum(-(g * rinv))
+        g_sc[1] += msum(g * (st.scalar - rmin))
+        g = g * rinv
+        if st.soft is not None:
+            _, span, rspan, _ = st.soft
+            g_sm = g * span
+            g_m = g_sm * (1.0 - st.m * st.m) + g_sm * (1.0 - st.m) * (2.0 * st.m)
+            g = torch.where(st.ins, g_m * rspan, g)
+        if cfg.apply_clip:
+            g = g * _clip_grad(st.value, 0.0, f32(max(cfg.clip_start, 1.0)))
+        if cfg.normalize:
+            g = g * _clip_grad(st.q2, 0.0, 1.0)
+            g_sc[3] += msum(-(g * ninv))
+            g_sc[4] += msum(g * (st.lv - nmin))
+            g = g * ninv
+        if cfg.log_scale:
+            g = g / st.v1  # log's rule
+            share = torch.where(st.value0 < floor, 0.0,
+                                torch.where(st.value0 == floor, 0.5, 1.0))
+            g_sc[2] += msum(torch.where(st.positive, g * (1.0 - share), g))
+            g = torch.where(st.positive, g * share, 0.0)
+        g = torch.where(st.finite & active, g, 0.0)
+        # the trilinear weights and corners
+        wx, wy, wz = st.w.unbind(-1)
+        g_cy = torch.stack([g * (1.0 - wz), g * wz], dim=-1)
+        g_wz = g * (st.cy[..., 1] - st.cy[..., 0])
+        g_cx = g_cy[..., None] * torch.stack([1.0 - wy, wy], dim=-1)[..., None, :]
+        g_wy = (g_cy * (st.cx[..., 1] - st.cx[..., 0])).sum(-1)
+        if needs[0]:
+            g_corner = g_cx[..., None] * torch.stack([1.0 - wx, wx], dim=-1)[..., None, None, :]
+            g_data.scatter_add_(1, st.offset.flatten(1), g_corner.flatten(1).double())
+        g_wx = (g_cx * (st.corners[..., 1] - st.corners[..., 0])).sum((-2, -1))
+        g_h = torch.stack([g_wx, g_wy, g_wz], dim=-1)
+        g_h = g_h * _clip_grad(st.f - st.i0.to(f), 0.0, 1.0)
+        g_h = torch.where(active[..., None], g_h * _clip_grad(st.h, 0.0, st.top_f), 0.0)
+        # h = (pos - bmin) / cell - 0.5, pos = fma(direction, dist, eye)
+        g_pos = g_h / cell
+        g_cell += (-(g_h * (st.rel / cell)) / cell).sum(1)
+        g_bmin -= g_pos.sum(1)
+        g_eye += g_pos.sum((0, 1))
+        g_dirs += (g_pos * st.dist[..., None]).sum(0)
+        g_dist = (g_pos * m.directions).sum(-1)
+        g_d0 += g_dist
+        g_steps += (g_dist * float(k)).sum(1)
+    return [g.to(f) for g in (g_data.reshape(m.data.shape), g_luts, g_d0, g_dirs, g_eye,
+                              g_steps, g_bmin, g_cell, torch.stack(g_sc))]
+
+
+def march_tangent_reference(m: MarchInputs, cfg: MarchConfig,
+                            tangents: Sequence[Tensor]) -> Tensor:
+    """Forward mode of the march (``jax.jvp``'s counterpart): the tangent
+    of the raw accumulator for ``tangents`` of ``MarchInputs``'
+    differentiable fields, by torch's forward mode through
+    ``march_forward_reference``.  Inside the Function's ``jvp`` a dual
+    level is already open (with forward gradients off), and this one runs
+    in it."""
+    open_level = fwAD._current_level >= 0
+    with (contextlib.nullcontext() if open_level else fwAD.dual_level()), \
+            fwAD._set_fwd_grad_enabled(True):
+        duals = [fwAD.make_dual(t.detach(), d.to(t.device, t.dtype))
+                 for t, d in zip(m[:DIFFERENTIABLE], tangents)]
+        out = march_forward_reference(MarchInputs(*duals, *m[DIFFERENTIABLE:]), cfg)
+        tangent = fwAD.unpack_dual(out).tangent
+    return torch.zeros_like(out) if tangent is None else tangent
+
+
+# ---- the kernels -----------------------------------------------------------
+
+
+def _check(m: MarchInputs) -> None:
+    """Raise unless ``m`` is what the kernels take: contiguous tensors of
+    the right types and shapes on one CUDA device."""
+    dev = m.data.device
+    if m.data.dim() != 4 or m.luts.dim() != 3:
+        raise ValueError("data must be [B, nx, ny, nz] and luts [B, size, 4]")
+    num_bricks, num_pixels = m.d0.shape
+    size = m.luts.shape[1]
+    f, i = torch.float32, torch.int32
+    for name, dtype, shape in (
+            ("data", f, (num_bricks,) + tuple(m.data.shape[1:])),
+            ("luts", f, (num_bricks, size, 4)), ("d0", f, (num_bricks, num_pixels)),
+            ("directions", f, (num_pixels, 3)), ("eye", f, (3,)),
+            ("steps", f, (num_bricks,)), ("bmin", f, (num_bricks, 3)),
+            ("cell", f, (num_bricks, 3)), ("scalars", f, (5,)),
+            ("tmax", f, (num_bricks, num_pixels)),
+            ("hit", torch.bool, (num_bricks, num_pixels)),
+            ("bmax", f, (num_bricks, 3)), ("top", i, (num_bricks, 3)),
+            ("low", i, (num_bricks, 3))):
+        require(getattr(m, name), name, dtype, shape, dev)
+    if size < 1 or m.luts.data_ptr() % 16:
+        raise ValueError("luts must hold an entry and be 16-byte aligned (float4 reads)")
+    if math.prod(m.data.shape[1:]) >= 2 ** 31:
+        raise ValueError(f"a brick of {tuple(m.data.shape[1:])} cells needs 64-bit "
+                         "cell offsets")
+    if num_bricks > 65535:
+        raise ValueError(f"{num_bricks} bricks exceed the grid's 65535 rows")
+    if size * 32 > _SHARED_BYTES:  # the backward's float64 LUT gradient
+        raise ValueError(f"a {size}-entry LUT's gradient does not fit in shared memory")
+
+
+def _launch_args(m: MarchInputs, cfg: MarchConfig) -> tuple:
+    """The C entry points' common arguments after the pointers."""
+    soft = _soft(cfg.clip_start) if cfg.apply_clip else None
+    flags = (int(cfg.log_scale) | int(cfg.normalize) << 1 | int(cfg.apply_clip) << 2
+             | int(soft is not None) << 3)
+    start, span, rspan, _ = soft if soft is not None else (0.0, 1.0, 1.0, 0.0)
+    end = f32(max(cfg.clip_start, 1.0))  # the clamp's bound, with or without the tail
+    return (m.d0.shape[0], m.d0.shape[1], *m.data.shape[1:], m.luts.shape[1],
+            cfg.num_steps, flags, start, span, rspan, end)
+
+
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _raise(rc: int, which: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"diffmarch {which} kernel launch failed: CUDA error {rc}")
+
+
+def checkpoint_count(cfg: MarchConfig) -> int:
+    """Opacity checkpoints the forward kernel keeps a pair."""
+    return -(-cfg.num_steps // CHECKPOINT_EVERY)
+
+
+def diffmarch_forward(m: MarchInputs, cfg: MarchConfig, keep: bool = False):
+    """The raw accumulator ``[B, P, 4]`` of the march, and with ``keep``
+    on the card the opacity checkpoints ``[C, B, P]`` the backward kernel
+    replays from (None otherwise).  A CUDA ``m`` launches the forward
+    kernel (``csrc/diffmarch.cu``) on the current stream, counted in
+    ``diffmarch_forward.launches``; a CPU ``m`` runs
+    ``march_forward_reference``."""
+    dev = m.data.device
+    if dev.type == "cpu":
+        return march_forward_reference(m, cfg), None
+    if dev.type != "cuda":
+        raise ValueError(f"diffmarch_forward has no kernel for {dev}")
+    _check(m)
+    num_bricks, num_pixels = m.d0.shape
+    accum = torch.empty((num_bricks, num_pixels, 4), dtype=torch.float32, device=dev)
+    ckpt = (torch.empty((checkpoint_count(cfg), num_bricks, num_pixels),
+                        dtype=torch.float32, device=dev) if keep else None)
+    if accum.numel() == 0:
+        return accum, ckpt
+    from . import _build
+
+    lib = _build.load("diffmarch")
+    _raise(lib.avr_diffmarch_forward_launch(
+        *(t.data_ptr() for t in m), accum.data_ptr(),
+        None if ckpt is None else ckpt.data_ptr(), *_launch_args(m, cfg), _stream(dev)),
+        "forward")
+    diffmarch_forward.launches += 1
+    return accum, ckpt
+
+
+diffmarch_forward.launches = 0
+
+
+def diffmarch_tangent(m: MarchInputs, cfg: MarchConfig,
+                      tangents: Sequence[Tensor]) -> Tensor:
+    """The tangent ``[B, P, 4]`` of the raw accumulator for ``tangents``
+    (one a differentiable field of ``MarchInputs``).  A CUDA ``m``
+    launches the forward kernel's tangent instantiation, counted in
+    ``diffmarch_tangent.launches``; a CPU ``m`` runs
+    ``march_tangent_reference``."""
+    dev = m.data.device
+    if dev.type == "cpu":
+        return march_tangent_reference(m, cfg, tangents)
+    if dev.type != "cuda":
+        raise ValueError(f"diffmarch_tangent has no kernel for {dev}")
+    _check(m)
+    tangents = [t.to(dev, torch.float32).contiguous() for t in tangents]
+    for name, t, ref in zip(MarchInputs._fields, tangents, m):
+        require(t, f"{name} tangent", torch.float32, tuple(ref.shape), dev)
+    if tangents[1].data_ptr() % 16:
+        raise ValueError("the LUT tangent must be 16-byte aligned (float4 reads)")
+    out_t = torch.empty((*m.d0.shape, 4), dtype=torch.float32, device=dev)
+    if out_t.numel() == 0:
+        return out_t
+    from . import _build
+
+    lib = _build.load("diffmarch")
+    _raise(lib.avr_diffmarch_tangent_launch(
+        *(t.data_ptr() for t in m), *(t.data_ptr() for t in tangents), None,
+        out_t.data_ptr(), *_launch_args(m, cfg), _stream(dev)), "tangent")
+    diffmarch_tangent.launches += 1
+    return out_t
+
+
+diffmarch_tangent.launches = 0
+
+
+def diffmarch_backward(m: MarchInputs, cfg: MarchConfig, grad: Tensor,
+                       checkpoints: Optional[Tensor],
+                       needs: Sequence[bool] = (True,) * DIFFERENTIABLE) -> List[Tensor]:
+    """The gradients of ``MarchInputs``' differentiable fields for the
+    cotangent ``grad`` ``[B, P, 4]`` of the raw accumulator (the data and
+    LUT ones zero unless ``needs`` asks for them).  A CUDA ``m`` launches
+    the backward kernel on the current stream, replaying from the
+    forward's ``checkpoints``, counted in ``diffmarch_backward.launches``:
+    data and LUT gradients by atomic adds, each block's per-brick sums
+    written apart and added here, allocations through the caching
+    allocator and no read of a device value (a CUDA graph can capture it).
+    A CPU ``m`` runs ``march_backward_reference``."""
+    dev = m.data.device
+    if dev.type == "cpu":
+        return march_backward_reference(m, cfg, grad, needs)
+    if dev.type != "cuda":
+        raise ValueError(f"diffmarch_backward has no kernel for {dev}")
+    _check(m)
+    num_bricks, num_pixels = m.d0.shape
+    grad = grad.to(dev, torch.float32).contiguous()
+    require(grad, "grad", torch.float32, (num_bricks, num_pixels, 4), dev)
+    if checkpoints is None:
+        raise ValueError("the backward kernel needs the forward's checkpoints "
+                         "(diffmarch_forward(..., keep=True))")
+    require(checkpoints, "checkpoints", torch.float32,
+            (checkpoint_count(cfg), num_bricks, num_pixels), dev)
+    f = torch.float32
+    blocks = -(-num_pixels // _THREADS)
+    g_data = torch.zeros_like(m.data)
+    g_luts = torch.zeros(m.luts.shape, dtype=torch.float64, device=dev)
+    g_d0 = torch.empty_like(m.d0)
+    g_dirs = torch.zeros_like(m.directions)
+    partial = torch.zeros((num_bricks, blocks, PARTIALS), dtype=f, device=dev)
+    if g_d0.numel():
+        from . import _build
+
+        lib = _build.load("diffmarch")
+        _raise(lib.avr_diffmarch_backward_launch(
+            *(t.data_ptr() for t in m), grad.data_ptr(), checkpoints.data_ptr(),
+            g_data.data_ptr() if needs[0] else None,
+            g_luts.data_ptr() if needs[1] else None, g_d0.data_ptr(), g_dirs.data_ptr(),
+            partial.data_ptr(), *_launch_args(m, cfg), _stream(dev)), "backward")
+        diffmarch_backward.launches += 1
+    part = partial.sum(1)
+    return [g_data, g_luts.float(), g_d0, g_dirs, part[:, 7:10].sum(0), part[:, 0],
+            part[:, 1:4], part[:, 4:7], part[:, 10:15].sum(0)]
+
+
+diffmarch_backward.launches = 0
+
+
+class _March(torch.autograd.Function):
+    """The march as one autograd node: forward, backward and jvp each a
+    kernel on the card and a plain version on the CPU."""
+
+    @staticmethod
+    def forward(ctx, cfg, keep, *tensors):
+        m = MarchInputs(*tensors)
+        accum, ckpt = diffmarch_forward(m, cfg, keep)
+        ctx.cfg = cfg
+        ctx.save_for_backward(*m, *(() if ckpt is None else (ckpt,)))
+        ctx.save_for_forward(*m)
+        return accum
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        saved = ctx.saved_tensors
+        m = MarchInputs(*saved[:len(MarchInputs._fields)])
+        ckpt = saved[len(MarchInputs._fields)] if len(saved) > len(MarchInputs._fields) \
+            else None
+        needs = ctx.needs_input_grad[2:2 + DIFFERENTIABLE]
+        grads = diffmarch_backward(m, ctx.cfg, grad, ckpt, needs)
+        return (None, None, *(g if need else None for g, need in zip(grads, needs)),
+                *(None,) * (len(MarchInputs._fields) - DIFFERENTIABLE))
+
+    @staticmethod
+    def jvp(ctx, _cfg, _keep, *tangents):
+        # autograd hands zeros for a float input that carries no tangent
+        return diffmarch_tangent(MarchInputs(*ctx.saved_tensors), ctx.cfg,
+                                 tangents[:DIFFERENTIABLE])
+
+
+def march(m: MarchInputs, cfg: MarchConfig) -> Tensor:
+    """The raw accumulator ``[B, P, 4]`` of the march, differentiable in
+    reverse and forward mode in ``m``'s first ``DIFFERENTIABLE`` fields.
+    The forward keeps the backward kernel's checkpoints only when reverse
+    mode will differentiate it."""
+    keep = torch.is_grad_enabled() and any(t.requires_grad for t in m[:DIFFERENTIABLE])
+    return _March.apply(cfg, keep, *m)

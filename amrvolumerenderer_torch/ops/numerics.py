@@ -150,6 +150,26 @@ def fma(a, b, c) -> Tensor:
     return (_f64(a) * _f64(b) + _f64(c)).float()
 
 
+def fma_once(a: Tensor, b: Tensor, c: Tensor) -> Tensor:
+    """float32 ``a * b + c`` rounded once, as ``__fmaf_rn`` and XLA's
+    contracted FMA round it, where ``fma`` rounds twice: at a float64 sum
+    exactly halfway between two float32 values whose exact sum is not, it
+    is moved one float64 ulp towards the exact sum (TwoSum's error term)
+    before the cast.  Derivatives are ``fma``'s; the correction carries
+    none."""
+    y = fma(a, b, c)
+    p = a.detach().double() * b.detach().double()  # exact
+    c64 = c.detach().double()
+    s = p + c64
+    back = s - p
+    err = (p - (s - back)) + (c64 - back)  # p + c == s + err exactly
+    r = y.detach()
+    other = torch.nextafter(r, torch.where(s > r.double(), torch.inf, -torch.inf).float())
+    tie = (s == (r.double() + other.double()) * 0.5) & (err != 0.0)
+    nudged = torch.nextafter(s, torch.where(err > 0.0, torch.inf, -torch.inf).double())
+    return y + torch.where(tie, nudged.float() - r, 0.0)
+
+
 def exp(x: Tensor) -> Tensor:
     """XLA's float32 ``exp``, operation for operation."""
     x = torch.clamp(x, EXP_LO, EXP_HI)

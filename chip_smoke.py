@@ -5,9 +5,10 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the port's four CUDA kernel libraries (tile-march, slice-march,
-composite with its tile, pixel and runs modes, and the raymarch oracle's
-march) from the checkout's sources, all at once, holds each against
+It builds the port's five CUDA kernel libraries (tile-march, slice-march,
+composite with its tile, pixel and runs modes, the raymarch oracle's
+march, and the differentiable path's march with its forward, tangent and
+backward kernels) from the checkout's sources, all at once, holds each against
 the golden rows and against its plain PyTorch version on the card, drives
 both one-shot main paths through the entry points a user calls: a
 512-brick 256^3 plotfile at 1024x1024 through
@@ -87,19 +88,26 @@ these frames (``ops.raymarch.render_bucket_into``, one kernel launch a
 bucket or shard) is replayed into fresh rows against the plain version
 on the card at max |diff| 0.
 
-Then the differentiable path (phase 27, ``amrvolumerenderer_torch.diff``,
-plain PyTorch with autograd and no kernel of its own): the 6^3 scene of
-tests/test_diff.py and the golden r^2 scene on the card against the CPU
-(the image at 2e-6 with the same non-finite depth pattern; gradients with
-respect to data and LUT at 1e-4 of the largest, with respect to eye,
-basis and field of view at 1e-4 of the sum of their terms' magnitudes);
-bench.py's 3-level scene through ``diff.prepare_geometry`` (13 bricks
-padded to 64^3, 224 steps), the forward at 1024^2 under ``no_grad`` and
-``loss.backward()`` with respect to data and LUT at 512^2 with
-``remat=True``, each timed with its peak memory, with every kernel's
-launch count read around them (all 0); and both fitting examples with
-their defaults on the card, run together (the loss must fall below half
-its first value, and each example must reach its own goal).
+Then the differentiable path (phase 27, ``amrvolumerenderer_torch.diff``:
+the ray set-up in PyTorch, the march one autograd node whose forward,
+backward and tangent are the kernels of ``ops/csrc/diffmarch.cu``): the
+6^3 scene of tests/test_diff.py and the golden r^2 scene on the card
+against the CPU (the image at 2e-6 with the same non-finite depth
+pattern; gradients with respect to data and LUT at 1e-4 of the largest,
+with respect to eye, basis and field of view at 1e-4 of the sum of their
+terms' magnitudes), and on each scene's march the three kernels against
+their plain versions on the card and on the CPU (forward max |diff| 0,
+backward and tangent at 1e-4 of their scale); bench.py's 3-level scene
+through ``diff.prepare_geometry`` (13 bricks padded to 64^3, 224 steps),
+the forward at 1024^2 under ``no_grad`` and ``loss.backward()`` with
+respect to data and LUT at 512^2 with ``remat=True``, each timed with its
+peak memory, with the launch counts read around each call (one forward
+launch, and one backward launch with the gradient, no other kernel),
+each launch held once against its plain version and the kernels timed
+against their bounds; and both fitting examples with their defaults on
+the card, run together, each replaying its step as a CUDA graph (the loss
+must fall below half its first value, and each example must reach its own
+goal).
 
 Then the several-process launch and the repaired one-shot tile-march route
 (phase 28): ``renderer_fast.render_composited_tilemarch`` (the JAX
@@ -121,10 +129,15 @@ and the 8-shard CPU mesh (frames equal, the data gradient at rtol 1e-6 of
 the card's single call); bench_orbit's field at ``--domain 64`` as 8
 bricks of 32^3 at 512^2, forward and ``backward()`` with ``remat=True``
 with respect to data, LUT and eye, as one call and over 8 shards of one
-process, each timed with its peak memory, every kernel's launch count 0;
-the same over two processes on this card (gloo through pinned host
-memory), 4 shards each, each rank's rows of the data gradient against the
-one-process gradient and the eye and LUT gradients equal on both ranks;
+process, each timed with its peak memory, one forward and one backward
+launch of the march a call or a shard and no other kernel (each forward
+launch held against its plain version), and the eye's forward-mode terms
+through the tangent kernel (three launches, each held against its plain
+version at 1e-4 of its scale, the first timed against its bound); the same over two
+processes on this card (gloo through pinned host memory), 4 shards each
+(four forward and four backward launches a rank), each rank's rows of
+the data gradient against the one-process gradient and the eye and LUT
+gradients equal on both ranks;
 and ``examples/bench_scaling_torch.py`` and ``examples/bench_orbit_torch.py``
 (per frame and ``--batch``) with their defaults, each launching kernel 1,
 and kernel 1 on their own inputs (bench_scaling's 64-brick tables at
@@ -374,6 +387,19 @@ def valid_samples(torch, meta, dims, cam, bricks, tiles, bounds, tiles_x,
     return total
 
 
+def event_ms(torch, fn) -> float:
+    """Device ms of ``fn``'s launches by CUDA events, a ~10 ms spin kernel
+    queued first so the host's work stays outside the window."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
 def bound(byte_count: float, flop_count: float):
     """(bound_ms, bound_by): the larger of bytes over HBM bandwidth and
     float32 operations over the float32 peak."""
@@ -420,6 +446,7 @@ def main() -> int:
     from amrvolumerenderer_torch.types import color_map_from_tuples
     from amrvolumerenderer_torch.ops import _build
     from amrvolumerenderer_torch.ops import composite as comp
+    from amrvolumerenderer_torch.ops import diffmarch as dmk
     from amrvolumerenderer_torch.ops import raymarch as rm
     from amrvolumerenderer_torch.ops import slicemarch as sm
     from amrvolumerenderer_torch.ops import tilemarch as tm
@@ -435,7 +462,7 @@ def main() -> int:
     assert "jax" not in sys.modules, "the port imported jax"
     assert "amrvolumerenderer_tpu" not in sys.modules, \
         "the port imported the JAX package"
-    libraries = ("tilemarch", "slicemarch", "composite", "raymarch")
+    libraries = ("tilemarch", "slicemarch", "composite", "raymarch", "diffmarch")
     counters = {"tilemarch": tm.tilemarch_render,
                 "slicemarch": sm.slicemarch_render_worklist_raw,
                 "composite": comp.composite_tiles,  # tile mode
@@ -444,6 +471,10 @@ def main() -> int:
     dense_fn = sm.slicemarch_render  # kernel 4, in the slicemarch library
     runs_fn = comp.composite_runs  # the run pre-blend, in the composite library
     ray_fn = rm.render_bucket_into  # the raymarch oracle's march
+    # the differentiable path's march: forward, backward and tangent
+    diff_fns = {"diffmarch_forward": dmk.diffmarch_forward,
+                "diffmarch_backward": dmk.diffmarch_backward,
+                "diffmarch_tangent": dmk.diffmarch_tangent}
 
     def reset_counts():
         for fn in counters.values():
@@ -452,6 +483,11 @@ def main() -> int:
         dense_fn.launches = 0
         runs_fn.launches = 0
         ray_fn.launches = 0
+        for fn in diff_fns.values():
+            fn.launches = 0
+
+    def diff_counts():
+        return {name: fn.launches for name, fn in diff_fns.items()}
 
     @contextlib.contextmanager
     def recorded(holder, attr, fn_name):
@@ -485,7 +521,7 @@ def main() -> int:
                 "slicemarch_dense": dense_fn.launches, "composite_runs": runs_fn.launches,
                 "raymarch": ray_fn.launches}
 
-    # ---- phase 1: build the four kernels, one nvcc each, in parallel ------
+    # ---- phase 1: build the five libraries, one nvcc each, in parallel ----
     t0 = time.perf_counter()
     _build.build_all(libraries)
     for name in libraries:
@@ -2577,8 +2613,15 @@ def main() -> int:
     del tables
     torch.cuda.empty_cache()
 
+    def take(records):
+        """Enter a diff phase's kernel records in the ``kernels`` line."""
+        for name, rec in records.items():
+            launches[name], worst[name] = rec["launches"], rec["max_abs_err"]
+            times[name] = (rec["ms"], rec["plain_ms"])
+            bounds_ms[name] = (rec["bound_ms"], rec["bound_by"])
+
     # ---- phase 27: the differentiable path ---------------------------------
-    diff_phase(torch, dev, smi, reset_counts, counts)
+    take(diff_phase(torch, dev, smi, reset_counts, counts, diff_counts))
 
     # ---- phase 28: the one-shot tile-march route; two processes ------------
     # (i) renderer_fast.render_composited_tilemarch (JAX's route: the
@@ -2614,7 +2657,7 @@ def main() -> int:
     two_process_phase(torch, smi)
 
     # ---- phase 29: the sharded gradient; the two benchmark examples --------
-    diff_sharded_phase(torch, dev, smi, reset_counts, all_counts)
+    take(diff_sharded_phase(torch, dev, smi, reset_counts, all_counts, diff_counts))
     # (d) in this process: kernel 1 on the examples' own inputs at their
     # defaults against its plain version (the subprocesses above only run
     # them): bench_scaling's tables, one bench_orbit frame and a 2-frame
@@ -2670,6 +2713,12 @@ def main() -> int:
                                       "amrvolumerenderer_tpu/compositor.py:81"),
         "raymarch": ("ops/csrc/raymarch.cu",
                      "amrvolumerenderer_tpu/ops/raymarch.py:78"),
+        "diffmarch_forward": ("ops/csrc/diffmarch.cu",
+                              "amrvolumerenderer_tpu/diff.py:113"),
+        "diffmarch_backward": ("ops/csrc/diffmarch.cu",
+                               "amrvolumerenderer_tpu/diff.py:113"),
+        "diffmarch_tangent": ("ops/csrc/diffmarch.cu",
+                              "amrvolumerenderer_tpu/diff.py:113"),
     }
     for prec, name in batch_name.items():
         times[name] = batch_times[prec][:2]
@@ -2884,22 +2933,73 @@ def diff_scenes(torch):
     return scenes
 
 
-def diff_phase(torch, dev, smi: str, reset_counts, counts, full: int = 1024,
-               grad_size: int = 512, example_args=()) -> None:
-    """Phase 27, the differentiable path (``amrvolumerenderer_torch.diff``,
-    plain PyTorch with autograd, no kernel of its own): (a) each scene of
-    ``diff_scenes`` on the card against the CPU; (b) bench.py's 3-level
-    scene through ``diff.prepare_geometry`` (13 bricks padded to 64^3),
-    the forward at ``full``^2 under ``no_grad`` and ``loss.backward()``
-    with respect to data and LUT at ``grad_size``^2 with ``remat=True``,
-    timed with their peak memory, driven with the kernels' launch counts
-    set to 0 just before and read just after (the path is plain PyTorch:
-    every count must stay 0); (c) both fitting examples, run together with
-    their defaults on the card.  Every check asserts."""
+def diff_sample_flops(cfg) -> int:
+    """float32 operations of one valid sample of diffmarch.cu's forward,
+    counted by hand (an FMA counts 2, a compare 1): the distance, the
+    position and the gate (16), per axis the cell coordinate, its clips,
+    floor and weight (36), the seven lerps (28), the finite test (1), the
+    range, the LUT coordinate and its weight (11), the LUT lerp (13) and
+    the over step (9); the normalisation adds 4, XLA's log 30 and the soft
+    tail 13."""
+    flops = 114 + (4 if cfg.normalize else 0) + (30 if cfg.log_scale else 0)
+    return flops + (13 if cfg.apply_clip else 0)
+
+
+def diff_tangent_flops(cfg) -> int:
+    """float32 operations of one valid sample of diffmarch.cu's tangent
+    instantiation: the forward's sample (``diff_sample_flops``) and its
+    tangent, counted by hand (an FMA counts 2, a compare 1): the distance
+    (2), per axis the position, the cell coordinate and the weight with its
+    two clip rules (78), the seven lerps (49), the range (5), the LUT
+    coordinate and weight with their clip rules (26), the LUT lerp (28) and
+    the dual over step (17); the normalisation adds 13, the log 8 and the
+    soft tail 18."""
+    flops = diff_sample_flops(cfg) + 205 + (13 if cfg.normalize else 0)
+    return flops + (8 if cfg.log_scale else 0) + (18 if cfg.apply_clip else 0)
+
+
+# the backward's adjoint of one valid sample beyond the forward sample it
+# differentiates, counted by hand: the over step's
+# adjoint (15), the LUT lerp's with its eight shared adds (18), the LUT
+# weight (12), the clips and scalars (24), the trilinear weights and
+# corners with their eight adds (52), the cell coordinates and the position
+# (54) and the distance (3).  The backward's bound counts one forward sample
+# and this adjoint a valid sample: the kernel's two recomputes of the sample
+# (the segment's replay and the walk back) are the overhead of its design,
+# not work the function needs
+DIFF_ADJOINT_FLOPS = 178
+
+
+def diff_phase(torch, dev, smi: str, reset_counts, counts, diff_counts,
+               full: int = 1024, grad_size: int = 512, example_args=()) -> dict:
+    """Phase 27, the differentiable path (``amrvolumerenderer_torch.diff``:
+    the ray set-up in PyTorch, the march one autograd node whose forward,
+    backward and tangent are ``ops/csrc/diffmarch.cu`` on the card).
+    (a) each scene of ``diff_scenes`` on the card against the CPU, and its
+    march's three kernels against their plain versions on the card and on
+    the CPU: forward at max |diff| 0 with the same non-finite pattern,
+    backward and tangent at DIFF_GRAD_REL of each output's scale; (b)
+    bench.py's 3-level scene through ``diff.prepare_geometry`` (13 bricks
+    padded to 64^3, 224 steps), the forward at ``full``^2 under
+    ``no_grad`` and ``loss.backward()`` with respect to data and LUT at
+    ``grad_size``^2 with ``remat=True``, each timed with its peak memory,
+    driven with the launch counts set to 0 just before and read just after
+    (one forward launch a call, one backward launch with the gradient, no
+    other kernel); each march launch of those runs held once against its
+    plain version (untimed, with the valid-sample count), then the kernels
+    timed by CUDA events and the plain versions by wall clock, beside
+    their bounds; (c) both fitting examples, run together with their
+    defaults.  Returns the kernels' records for the ``kernels`` line.
+    Every check asserts."""
     from amrvolumerenderer_torch import diff
+    from amrvolumerenderer_torch.ops import diffmarch as dm
     from amrvolumerenderer_torch.renderer import auto_orbit_camera, compute_global_bounds
 
     cpu = torch.device("cpu")
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    records = {name: dict(launches=0, max_abs_err=0.0)
+               for name in ("diffmarch_forward", "diffmarch_backward")}
 
     def run(args, static, weights, argnums, device):
         targs = list(diff.args_from_arrays(args, device))
@@ -2931,14 +3031,129 @@ def diff_phase(torch, dev, smi: str, reset_counts, counts, full: int = 1024,
             terms.append(float((column * torch.from_numpy(weights)).abs().sum()))
         return np.asarray(terms).reshape(base.shape)
 
+    @contextlib.contextmanager
+    def recorded_marches():
+        """``[m, cfg, cotangent]`` of every march the diff path makes inside
+        the block (``diff.py`` looks ``dm.march`` up when it calls it); the
+        cotangent is what the march's output receives backward, or None."""
+        inner, seen = dm.march, []
+
+        def record(m, cfg):
+            out = inner(m, cfg)
+            entry = [m, cfg, None]
+            seen.append(entry)
+            if out.requires_grad:
+                out.register_hook(lambda g: entry.__setitem__(2, g))
+            return out
+
+        dm.march = record
+        try:
+            yield seen
+        finally:
+            dm.march = inner
+
+    def device_diff(a, b):
+        """(same non-finite pattern, max |diff| of the finite entries)."""
+        fa, fb = torch.isfinite(a), torch.isfinite(b.to(a.device))
+        both = fa & fb
+        d = float((a - b.to(a.device)).abs()[both].max()) if bool(both.any()) else 0.0
+        return bool(torch.equal(fa, fb)), d
+
+    def rel_errors(got, want):
+        """Per output, max |got - want| over max |want| (0 where both are
+        0), and the largest max |got - want|."""
+        rel, worst_abs = [], 0.0
+        for g, w in zip(got, want):
+            err = float((g - w.to(g.device)).abs().max()) if g.numel() else 0.0
+            scale = float(w.abs().max()) if w.numel() else 0.0
+            rel.append(err / scale if scale else err)
+            worst_abs = max(worst_abs, err)
+        return rel, worst_abs
+
+    @torch.no_grad()
+    def hold_forward(label, m, cfg, plain_cpu=True):
+        """The forward kernel (this call's launch) against the plain
+        version on the card (and on the CPU): max |diff| 0, same non-finite
+        pattern.  Returns (kernel output, checkpoints, valid samples)."""
+        out, ckpt = dm.diffmarch_forward(m, cfg, keep=True)
+        plain, samples = dm.march_forward_reference(m, cfg, count_samples=True)
+        same, d = device_diff(out, plain)
+        msg = f"{label}: forward kernel vs plain on {dev}: max |diff| {d:.3g}, " \
+              f"non-finite pattern same {same}"
+        checks, d_c = [same and d == 0.0], 0.0
+        if plain_cpu:
+            same_c, d_c = device_diff(out, dm.march_forward_reference(
+                dm.MarchInputs(*(t.detach().cpu() for t in m)), cfg))
+            msg += f"; vs plain on the CPU: max |diff| {d_c:.3g}, same {same_c}"
+            checks.append(same_c and d_c == 0.0)
+        log(msg + f"; {int(samples)} valid samples")
+        records["diffmarch_forward"]["max_abs_err"] = max(
+            records["diffmarch_forward"]["max_abs_err"], d, d_c)
+        assert all(checks), label
+        return out, ckpt, int(samples)
+
+    @torch.no_grad()
+    def hold_backward(label, m, cfg, grad, ckpt, needs=(True,) * dm.DIFFERENTIABLE,
+                      plain_cpu=True):
+        """The backward kernel against the plain version on the card (and
+        on the CPU) at DIFF_GRAD_REL of each gradient's scale."""
+        got = dm.diffmarch_backward(m, cfg, grad, ckpt, needs)
+        fields = [f for f, n in zip(dm.MarchInputs._fields, needs) if n]
+        got = [g for g, n in zip(got, needs) if n]
+        want = [g for g, n in zip(dm.march_backward_reference(m, cfg, grad, needs), needs)
+                if n]
+        rel, worst_abs = rel_errors(got, want)
+        msg = (f"{label}: backward kernel vs plain on {dev}, max |diff| over max |g| ("
+               + ", ".join(f"{f} {r:.3g}" for f, r in zip(fields, rel)) + ")")
+        if plain_cpu:
+            mc = dm.MarchInputs(*(t.detach().cpu() for t in m))
+            want_c = [g for g, n in zip(dm.march_backward_reference(
+                mc, cfg, grad.cpu(), needs), needs) if n]
+            rel_c, abs_c = rel_errors([g.cpu() for g in got], want_c)
+            msg += ", vs plain on the CPU (" + ", ".join(f"{r:.3g}" for r in rel_c) + ")"
+            rel, worst_abs = rel + rel_c, max(worst_abs, abs_c)
+        log(msg)
+        records["diffmarch_backward"]["max_abs_err"] = max(
+            records["diffmarch_backward"]["max_abs_err"], worst_abs)
+        assert max(rel) <= DIFF_GRAD_REL, (label, rel)
+        return got
+
+    @torch.no_grad()
+    def hold_tangent(label, m, cfg):
+        """The tangent kernel against the plain version on the card and on
+        the CPU at DIFF_GRAD_REL of the tangent's scale; seeded tangents in
+        every differentiable input."""
+        rng = np.random.default_rng(23)
+        tangents = [torch.from_numpy(rng.standard_normal(tuple(t.shape)).astype(
+            np.float32)).to(t.device) for t in m[:dm.DIFFERENTIABLE]]
+        got = dm.diffmarch_tangent(m, cfg, tangents)
+        (rel,), _ = rel_errors([got], [dm.march_tangent_reference(m, cfg, tangents)])
+        (rel_c,), _ = rel_errors([got.cpu()], [dm.march_tangent_reference(
+            dm.MarchInputs(*(t.detach().cpu() for t in m)), cfg,
+            [t.cpu() for t in tangents])])
+        log(f"{label}: tangent kernel vs plain, max |diff| over max |t|: on {dev} "
+            f"{rel:.3g}, on the CPU {rel_c:.3g}")
+        assert max(rel, rel_c) <= DIFF_GRAD_REL, (label, rel, rel_c)
+
+    def expect(label, forward, backward):
+        got, others = diff_counts(), counts()
+        want = {"diffmarch_forward": forward if on_card else 0,
+                "diffmarch_backward": backward if on_card else 0,
+                "diffmarch_tangent": 0}
+        log(f"{label}: launches {got}, other kernels {others}")
+        assert got == want and not any(others.values()), (label, got, others)
+        return got
+
     # (a) card against CPU: the image at ATOL, data and LUT gradients at
     # DIFF_GRAD_REL of the largest, and each camera gradient (a sum over
-    # the frame whose terms cancel) at DIFF_GRAD_REL of its terms' sum
+    # the frame whose terms cancel) at DIFF_GRAD_REL of its terms' sum; the
+    # march's kernels against their plain versions on the scene's inputs
     for name, args, static in diff_scenes(torch):
         n = static["width"] * static["height"]
         w = np.random.default_rng(7).uniform(0, 1, size=(n, 4)).astype(np.float32)
         argnums = (0, 4, 6, 7, 8, 9, 10)  # data, LUT, eye, forward, right, up, fov
-        image, depth, grads = run(args, static, w, argnums, dev)
+        with recorded_marches() as marches:
+            image, depth, grads = run(args, static, w, argnums, dev)
         image_c, depth_c, grads_c = run(args, static, w, argnums, cpu)
         same, d = max_diff(image, image_c)
         same_d, d_d = max_diff(depth, depth_c)
@@ -2957,6 +3172,13 @@ def diff_phase(torch, dev, smi: str, reset_counts, counts, full: int = 1024,
         assert same and same_d and d <= ATOL and d_d <= ATOL, (d, d_d)
         assert image_c[:, 3].max() > 0.0
         assert max(rel) <= DIFF_GRAD_REL, rel
+        m, cfg, _ = marches[0]
+        _, ckpt, _ = hold_forward(f"phase 27: {name}", m, cfg)
+        grad = torch.from_numpy(np.random.default_rng(3).uniform(
+            -1, 1, size=(*m.d0.shape, 4)).astype(np.float32)).to(dev)
+        hold_backward(f"phase 27: {name}", m, cfg, grad, ckpt)
+        hold_tangent(f"phase 27: {name}", m, cfg)
+        del marches, m, ckpt
 
     # (b) full size
     geometry = three_level_geometry()
@@ -2965,50 +3187,103 @@ def diff_phase(torch, dev, smi: str, reset_counts, counts, full: int = 1024,
                                          device=dev)
     log(f"phase 27: prepare_geometry 3-level: data {tuple(args[0].shape)}, "
         f"{static['num_steps']} march steps")
-    reset_counts()  # counted run: the differentiable path at full size
     for attempt in range(2):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        with torch.no_grad():
-            image = diff.render_image_diff(*args, **static)
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        reset_counts()  # counted run: the forward at full size
+        sync()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() / 2 ** 30 if on_card else float("nan")
+        with recorded_marches() as forwards:
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                image = diff.render_image_diff(*args, **static)
+            sync()
+            ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else float("nan")
         covered = float((image[:, 3] > 0).float().mean())
         log(f"phase 27: {smi}: render_image_diff 3-level {full}x{full} under "
             f"no_grad (run {attempt + 1}): {ms:.3f} ms wall, peak device memory "
-            f"{peak:.3f} GiB, covered share {covered:.4f}")
+            f"{peak:.3f} GiB, {peak - held:.3f} GiB above the {held:.3f} GiB held "
+            f"before it; covered share {covered:.4f}")
+        expect(f"phase 27: the {full}x{full} forward (run {attempt + 1})", 1, 0)
     assert image.shape == (full * full, 4) and bool(torch.isfinite(image).all())
     assert ALPHA_FRACTION[0] < covered < ALPHA_FRACTION[1], covered
     del image
+    (m_full, cfg, _), = forwards
+    _, _, samples_full = hold_forward(f"phase 27: the {full}x{full} frame's march",
+                                      m_full, cfg, plain_cpu=False)
     small = dict(static, width=grad_size, height=grad_size)
     for attempt in range(2):
         data = args[0].clone().requires_grad_(True)
         table = args[4].clone().requires_grad_(True)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        image = diff.render_image_diff(data, *args[1:4], table, *args[5:],
-                                       remat=True, **small)
-        loss = (image * image).mean()
-        torch.cuda.synchronize()
-        fwd_ms = (time.perf_counter() - t0) * 1e3
-        loss.backward()
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        reset_counts()  # counted run: the gradient, the main path
+        sync()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() / 2 ** 30 if on_card else float("nan")
+        with recorded_marches() as marches:
+            t0 = time.perf_counter()
+            image = diff.render_image_diff(data, *args[1:4], table, *args[5:],
+                                           remat=True, **small)
+            loss = (image * image).mean()
+            sync()
+            fwd_ms = (time.perf_counter() - t0) * 1e3
+            loss.backward()
+            sync()
+            ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else float("nan")
         log(f"phase 27: {smi}: loss.backward() w.r.t. data and LUT, 3-level "
             f"{grad_size}x{grad_size}, remat=True (run {attempt + 1}): forward "
             f"{fwd_ms:.3f} ms + backward {ms - fwd_ms:.3f} ms = {ms:.3f} ms wall, "
-            f"peak device memory {peak:.3f} GiB")
-    got = counts()
-    log(f"phase 27: launches of the hand-written kernels in (b): {got}")
-    assert not any(got.values()), got
+            f"peak device memory {peak:.3f} GiB, {peak - held:.3f} GiB above the "
+            f"{held:.3f} GiB held before it")
+        got = expect(f"phase 27: the {grad_size}x{grad_size} gradient (run "
+                     f"{attempt + 1})", 1, 1)
+    records["diffmarch_forward"]["launches"] = got["diffmarch_forward"]
+    records["diffmarch_backward"]["launches"] = got["diffmarch_backward"]
     for g in (data.grad, table.grad):
         assert bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0.0
-    del data, table, image, loss, args
-    torch.cuda.empty_cache()
+    del data, table, image, loss
+    (m_grad, cfg_grad, g_out), = marches
+    needs = tuple(t.requires_grad for t in m_grad[:dm.DIFFERENTIABLE])
+    # the forward is deterministic: its rerun keeps the same checkpoints
+    _, ckpt, samples_grad = hold_forward(f"phase 27: the {grad_size}x{grad_size} "
+                                         "gradient's march", m_grad, cfg_grad,
+                                         plain_cpu=False)
+    hold_backward(f"phase 27: the {grad_size}x{grad_size} gradient's backward "
+                  "launch replayed", m_grad, cfg_grad, g_out, ckpt, needs,
+                  plain_cpu=False)
+    if on_card:
+        for name, m, c, samples, fn, plain, nbytes, flops in (
+                ("diffmarch_forward", m_full, cfg, samples_full,
+                 lambda: dm.diffmarch_forward(m_full, cfg),
+                 lambda: dm.march_forward_reference(m_full, cfg),
+                 sum(t.numel() * t.element_size() for t in m_full)
+                 + m_full.d0.numel() * 16, samples_full * diff_sample_flops(cfg)),
+                ("diffmarch_backward", m_grad, cfg_grad, samples_grad,
+                 lambda: dm.diffmarch_backward(m_grad, cfg_grad, g_out, ckpt, needs),
+                 lambda: dm.march_backward_reference(m_grad, cfg_grad, g_out, needs),
+                 sum(t.numel() * t.element_size() for t in (*m_grad, g_out, ckpt))
+                 + m_grad.data.numel() * 4 + m_grad.luts.numel() * 8
+                 + m_grad.d0.numel() * 4 + m_grad.directions.numel() * 4,
+                 samples_grad * (diff_sample_flops(cfg_grad) + DIFF_ADJOINT_FLOPS))):
+            with torch.no_grad():  # the recorded inputs include leaves that require grad
+                kernel_ms = min(event_ms(torch, fn) for _ in range(3))
+                t0 = time.perf_counter()
+                plain()
+                sync()
+                plain_ms = (time.perf_counter() - t0) * 1e3
+            b_ms, by = bound(nbytes, flops)
+            records[name].update(ms=kernel_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                 bound_by=by)
+            log(f"phase 27: {smi}: {name}, {m.d0.shape[0]} bricks x {m.d0.shape[1]} "
+                f"pixels, {c.num_steps} steps, {samples} valid samples: "
+                f"{kernel_ms:.4f} ms (CUDA events, best of 3), plain {plain_ms:.3f} ms "
+                f"(wall); bound {b_ms:.5f} ms ({by}: {nbytes} B, {flops} operations), "
+                f"kernel at {b_ms / kernel_ms:.4f} of its bound")
+    del args, m_full, m_grad, g_out, ckpt, forwards, marches
+    if on_card:
+        torch.cuda.empty_cache()
 
     # (c) the examples, both at once (each is bound by its host thread)
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -3029,6 +3304,7 @@ def diff_phase(torch, dev, smi: str, reset_counts, counts, full: int = 1024,
         assert final < 0.5 * first, summary
     log(f"phase 27: {smi}: both examples with their defaults, run together: "
         f"{wall:.3f} s wall")
+    return records
 
 
 # phase 29: the differentiable path over a sharded brick axis
@@ -3043,6 +3319,7 @@ import numpy as np
 import torch
 from amrvolumerenderer_torch import diff, driver
 from amrvolumerenderer_torch.ops import composite as comp
+from amrvolumerenderer_torch.ops import diffmarch as dmk
 from amrvolumerenderer_torch.ops import slicemarch as sm
 from amrvolumerenderer_torch.ops import tilemarch as tm
 from amrvolumerenderer_torch.parallel import directsend as ds
@@ -3062,7 +3339,8 @@ for i in (4, 6):
     args[i].requires_grad_(True)
 (data,) = ds.shard_leading(mesh, args[0])
 data = [None if d is None else d.clone().requires_grad_(True) for d in data]
-for fn in counted:
+march = (dmk.diffmarch_forward, dmk.diffmarch_backward)
+for fn in counted + march:
     fn.launches = 0
 if cuda:
     torch.cuda.synchronize()
@@ -3080,7 +3358,8 @@ np.savez(f"rank{rank}.npz", local=np.asarray(mesh.local),
 print("RANK_DIFF " + json.dumps({
     "rank": rank, "wall_s": wall,
     "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else None,
-    "launches": sum(fn.launches for fn in counted)}), flush=True)
+    "launches": sum(fn.launches for fn in counted),
+    "march": [fn.launches for fn in march]}), flush=True)
 torch.distributed.destroy_process_group()
 """
 
@@ -3104,7 +3383,7 @@ BENCH_EXAMPLES = (("bench_scaling_torch.py", []), ("bench_orbit_torch.py", []),
                   ("bench_orbit_torch.py", ["--batch"]))
 
 
-def diff_sharded_phase(torch, dev, smi: str, reset_counts, all_counts,
+def diff_sharded_phase(torch, dev, smi: str, reset_counts, all_counts, diff_counts,
                        size: int = 512, domain: int = 64,
                        examples=BENCH_EXAMPLES) -> None:
     """Phase 29.  (a) tests/test_diff.py's sharded scene (8 bricks of 4^3,
@@ -3119,20 +3398,28 @@ def diff_sharded_phase(torch, dev, smi: str, reset_counts, all_counts,
     field at ``domain`` as 8 bricks of 32^3 (``diff.prepare_scene``) at
     ``size``^2: forward and ``backward()`` with ``remat=True`` with respect
     to data, LUT and eye, single call and D=8 in this process, wall and
-    peak memory, every kernel count 0; frames equal, gradients as (a).
-    (c) the same in two processes on this card (gloo through pinned host
-    memory), 4 shards each: each rank's rows of the data gradient at rtol
-    1e-6 of (b)'s single call, eye and LUT equal on both ranks and within
+    peak memory, one forward and one backward launch of the march a call
+    or a shard and no other kernel, each forward launch held once against
+    the plain version at max |diff| 0; frames equal, gradients as (a); the
+    eye's forward-mode terms through the tangent kernel, one launch a
+    component, each held against the plain version at DIFF_GRAD_REL of its
+    scale (these terms scale the eye's tolerance) and the first timed
+    beside its bound.  (c) the same in two processes on this card (gloo through
+    pinned host memory), 4 shards each, four forward and four backward
+    launches a rank: each rank's rows of the data gradient at rtol 1e-6 of
+    (b)'s single call, eye and LUT equal on both ranks and within
     tolerance of one process.  (d) both benchmark examples with their
     defaults as subprocesses: rc 0, their ms/frame, kernel 1 launched.
     ``dev`` = the CPU, a smaller ``size`` and ``examples`` with ``--device
-    cpu`` try the phase on a machine without a card."""
+    cpu`` try the phase on a machine without a card.  Returns the tangent
+    kernel's record for the ``kernels`` line."""
     import shutil
     import socket
 
     import torch.autograd.forward_ad as fwAD
 
     from amrvolumerenderer_torch import diff
+    from amrvolumerenderer_torch.ops import diffmarch as dm
     from amrvolumerenderer_torch.parallel import directsend as ds
     from amrvolumerenderer_torch.types import CameraParameters
 
@@ -3230,22 +3517,28 @@ def diff_sharded_phase(torch, dev, smi: str, reset_counts, all_counts,
                                        device="cpu")
     args = tuple(a.numpy() for a in targs)
     num = len(bricks)
-    held = static["num_steps"] * num * size * size * 4 * 4
+    ckpts = -(-static["num_steps"] // 16)
     log(f"phase 29: (b) bench_orbit's field at --domain {domain}: {num} bricks of "
-        f"{box}^3 at {size}x{size}, {static['num_steps']} march steps; the "
-        f"checkpoints hold {static['num_steps']} [{num}, {size * size}, 4] float32 "
-        f"accumulators = {held / 1e9:.3f} GB")
-    results = {}
-    reset_counts()  # counted run: the sharded gradient at full width
+        f"{box}^3 at {size}x{size}, {static['num_steps']} march steps; the march "
+        f"keeps one [{num}, {size * size}, 4] accumulator and {ckpts} [{num}, "
+        f"{size * size}] opacity checkpoints = "
+        f"{(4 + ckpts) * num * size * size * 4 / 1e9:.3f} GB")
+    results, marches = {}, {}
     for mode, mesh in (("single call", None), ("8 shards, one process", mesh_card)):
+        reset_counts()  # counted run: the gradient at full width, one call or 8 shards
         sync()
         if on_card:
             torch.cuda.reset_peak_memory_stats()
         held_before = torch.cuda.memory_allocated() if on_card else 0
-        t0 = time.perf_counter()
-        results[mode] = run(args, static, dev, mesh, remat=True)
-        sync()
-        wall = (time.perf_counter() - t0) * 1e3
+        inner, marches[mode] = dm.march, []
+        dm.march = lambda m, cfg: (marches[mode].append((m, cfg)), inner(m, cfg))[1]
+        try:
+            t0 = time.perf_counter()
+            results[mode] = run(args, static, dev, mesh, remat=True)
+            sync()
+            wall = (time.perf_counter() - t0) * 1e3
+        finally:
+            dm.march = inner
         peak = ((torch.cuda.max_memory_allocated() - held_before) / 2 ** 30
                 if on_card else float("nan"))
         log(f"phase 29: {smi}: (b) forward + backward() w.r.t. data, LUT and eye, "
@@ -3254,9 +3547,29 @@ def diff_sharded_phase(torch, dev, smi: str, reset_counts, all_counts,
             f"peak device memory {peak:.3f} GiB above the "
             f"{held_before / 2 ** 30:.3f} GiB earlier phases still hold")
         results[mode + " wall"] = wall
-    got = all_counts()
-    log(f"phase 29: (b) launches of the hand-written kernels: {got}")
-    assert not any(got.values()), got
+        got, march = all_counts(), diff_counts()
+        calls = 1 if mesh is None else mesh.size
+        log(f"phase 29: (b) {mode}: launches of the march {march}, of the other "
+            f"kernels {got}")
+        assert not any(got.values()), got
+        assert march == {"diffmarch_forward": calls if on_card else 0,
+                         "diffmarch_backward": calls if on_card else 0,
+                         "diffmarch_tangent": 0}, march
+    # each march launch of (b), the single call's and each shard's, held
+    # once against the plain version
+    for mode, seen in marches.items():
+        worst_d, same = 0.0, True
+        for m, cfg in seen:
+            with torch.no_grad():
+                out, _ = dm.diffmarch_forward(m, cfg)
+                plain = dm.march_forward_reference(m, cfg)
+            fk, fp = torch.isfinite(out), torch.isfinite(plain)
+            same = same and bool(torch.equal(fk, fp))
+            worst_d = max(worst_d, float((out - plain).abs()[fk & fp].max()))
+        log(f"phase 29: (b) {mode}: each of its {len(seen)} forward launches vs plain "
+            f"on {dev}: max |diff| {worst_d:.3g}, non-finite pattern same {same}")
+        assert same and worst_d == 0.0, mode
+    del marches
     (image, sharded), (single_image, single) = (results["8 shards, one process"],
                                                 results["single call"])
     covered = float((single_image[:, 3] > 0).mean())
@@ -3265,11 +3578,65 @@ def diff_sharded_phase(torch, dev, smi: str, reset_counts, all_counts,
         f"{float(np.abs(image - single_image).max()):.3g}; covered share {covered:.4f}")
     assert np.array_equal(image, single_image)
     assert ALPHA_FRACTION[0] < covered < ALPHA_FRACTION[1], covered
-    t0 = time.perf_counter()
-    terms = eye_terms(args, static, dev)
-    log(f"phase 29: (b) eye terms' sums {terms} (forward mode on the card, "
-        f"{time.perf_counter() - t0:.3f} s)")
+    reset_counts()  # counted run: forward mode, one tangent launch an eye component
+    # the march's jvp recorded around it (the wrapper it calls counts its
+    # launches under its own name, so it stays in place)
+    inner_jvp, tangent_calls = vars(dm._March)["jvp"], []
+
+    def record_jvp(ctx, *args):
+        out = inner_jvp.__func__(ctx, *args)
+        tangent_calls.append((dm.MarchInputs(*(t.detach() for t in ctx.saved_tensors)),
+                              ctx.cfg, [t.detach().clone()
+                                        for t in args[2:2 + dm.DIFFERENTIABLE]],
+                              out.detach().clone()))
+        return out
+
+    dm._March.jvp = staticmethod(record_jvp)
+    try:
+        t0 = time.perf_counter()
+        terms = eye_terms(args, static, dev)
+        sync()
+        march = diff_counts()
+    finally:
+        dm._March.jvp = inner_jvp
+    log(f"phase 29: (b) eye terms' sums {terms} (forward mode on {dev}, "
+        f"{time.perf_counter() - t0:.3f} s; march launches {march})")
     assert np.all(terms > 0.0), terms
+    assert march["diffmarch_tangent"] == (3 if on_card else 0), march
+    assert len(tangent_calls) == 3, len(tangent_calls)
+    # each tangent launch (whose output gave ``terms``) against the plain
+    # version on the same inputs at DIFF_GRAD_REL of the tangent's scale
+    record = dict(launches=march["diffmarch_tangent"], max_abs_err=0.0)
+    for c, (m, cfg, tangents, got) in enumerate(tangent_calls):
+        sync()
+        t0 = time.perf_counter()
+        want = dm.march_tangent_reference(m, cfg, tangents)
+        sync()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err, scale = float((got - want).abs().max()), float(want.abs().max())
+        log(f"phase 29: (b) eye component {c}'s tangent launch vs plain on {dev}: "
+            f"max |diff| {err:.3g}, over max |t| {err / scale:.3g}; plain {plain_ms:.3f} "
+            f"ms (wall)")
+        assert scale > 0.0 and err <= DIFF_GRAD_REL * scale, (c, err, scale)
+        record["max_abs_err"] = max(record["max_abs_err"], err)
+        record.setdefault("plain_ms", plain_ms)
+    if on_card:
+        m, cfg, tangents, _ = tangent_calls[0]
+        with torch.no_grad():
+            _, samples = dm.march_forward_reference(m, cfg, count_samples=True)
+            kernel_ms = min(event_ms(torch, lambda: dm.diffmarch_tangent(m, cfg, tangents))
+                            for _ in range(3))
+        nbytes = (sum(t.numel() * t.element_size() for t in (*m, *tangents))
+                  + m.d0.numel() * 16)
+        flops = int(samples) * diff_tangent_flops(cfg)
+        b_ms, by = bound(nbytes, flops)
+        record.update(ms=kernel_ms, bound_ms=b_ms, bound_by=by)
+        log(f"phase 29: {smi}: diffmarch_tangent, {m.d0.shape[0]} bricks x "
+            f"{m.d0.shape[1]} pixels, {cfg.num_steps} steps, {int(samples)} valid "
+            f"samples: {kernel_ms:.4f} ms (CUDA events, best of 3), plain "
+            f"{record['plain_ms']:.3f} ms (wall); bound {b_ms:.5f} ms ({by}: {nbytes} B, "
+            f"{flops} operations), kernel at {b_ms / kernel_ms:.4f} of its bound")
+    del tangent_calls
     assert all(np.abs(g).max() > 0.0 for g in single)
     hold("(b) 8 shards vs the single call", sharded, single, terms)
     if on_card:
@@ -3311,9 +3678,11 @@ def diff_sharded_phase(torch, dev, smi: str, reset_counts, all_counts,
         log(f"phase 29: {smi}: (c) rank {r} of two processes on {dev} (gloo), "
             f"shards {saved['local'].tolist()}: forward + backward() "
             f"{rec['wall_s'] * 1e3:.3f} ms wall, peak device memory "
-            f"{rec['peak_gib']} GiB, hand-written kernel launches {rec['launches']}")
+            f"{rec['peak_gib']} GiB, other kernels' launches {rec['launches']}, the "
+            f"march's (forward, backward) {rec['march']}")
         assert list(saved["local"]) == list(range(4 * r, 4 * r + 4))
         assert rec["launches"] == 0, rec
+        assert rec["march"] == ([4, 4] if on_card else [0, 0]), rec
         assert np.array_equal(saved["image"], single_image), r
         hold(f"(c) rank {r}'s rows vs (b)'s single call",
              [saved["data"], saved["lut"], saved["eye"]],
@@ -3344,6 +3713,7 @@ def diff_sharded_phase(torch, dev, smi: str, reset_counts, all_counts,
         kind = "tilemarch_batch" if "--batch" in argv else "tilemarch"
         assert launched[0][kind] > 0 or not on_card, launched
         assert any("ms/frame" in x for x in printed), printed
+    return {"diffmarch_tangent": record}
 
 
 def ptxas_report(build_log: str):

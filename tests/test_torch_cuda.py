@@ -2,8 +2,10 @@
 float32 and bfloat16 volumes), slice-march (work list and dense), the
 composite (tile, pixel and runs modes), the multi-device route over 8
 shards of one card, the persistent multi-device renderer, the raymarch
-oracle, the differentiable path and the one-shot tile-march route against
-the same on the CPU, two processes of the CLI sharing the card against
+oracle, the differentiable path (its march's forward, backward and
+tangent kernels against their plain versions, their launch counts and a
+fitting step replayed as a CUDA graph) and the one-shot tile-march route
+against the same on the CPU, two processes of the CLI sharing the card against
 one process, and the differentiable path over a sharded brick axis
 (``diff.render_image_diff(mesh=make_mesh(N, "cuda"))``, whole data and
 data as shards) against the single call on the card and the same mesh on
@@ -1145,6 +1147,162 @@ def test_diff_matches_cpu(cuda, name):
         terms = camera_terms(args, static, w, i)
         assert np.all(terms > 0.0)
         assert np.all(np.abs(g - ref) <= 1e-4 * terms), (i, np.abs(g - ref) / terms)
+
+
+def diff_march_case(name, dev):
+    """The ``MarchInputs`` and ``MarchConfig`` that ``render_layers_diff``
+    hands the march on ``dev`` for ``diff_scene(name)``."""
+    from amrvolumerenderer_torch import diff
+    from amrvolumerenderer_torch.ops import diffmarch as dm
+
+    args, static = diff_scene(name)
+    seen, inner = [], dm.march
+    dm.march = lambda m, cfg: (seen.append((m, cfg)), inner(m, cfg))[1]
+    try:
+        with torch.no_grad():
+            diff.render_layers_diff(*diff.args_from_arrays(args, dev), **static)
+    finally:
+        dm.march = inner
+    (case,) = seen
+    return case
+
+
+def assert_rel_close(got, want, rel=1e-4):
+    """Each pair at ``rel`` of the reference's scale (``DIFF_GRAD_REL``)."""
+    for g, w in zip(got, want):
+        w = w.to(g.device)
+        assert float((g - w).abs().max()) <= rel * float(w.abs().max()), (
+            float((g - w).abs().max()), float(w.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["test_diff", "saturating", "log", "r2"])
+def test_diffmarch_kernels_match_plain(cuda, name):
+    """The differentiable march's kernels on the card against their plain
+    versions: the forward at max |diff| 0 with the same non-finite pattern
+    (on the card and on the CPU), the backward (from the forward's
+    checkpoints) and the tangent at 1e-4 of each output's scale against the
+    plain versions on the card and on the CPU (the kernels add with
+    atomics, in another order)."""
+    from amrvolumerenderer_torch.ops import diffmarch as dm
+
+    m, cfg = diff_march_case(name, cuda)
+    mc = dm.MarchInputs(*(t.cpu() for t in m))
+    out, ckpt = dm.diffmarch_forward(m, cfg, keep=True)
+    for plain in (dm.march_forward_reference(m, cfg).cpu(),
+                  dm.march_forward_reference(mc, cfg)):
+        assert_close(out.cpu(), plain)
+        assert torch.equal(out.cpu(), plain)
+    rng = np.random.default_rng(4)
+    grad = torch.from_numpy(rng.uniform(-1, 1, size=(*m.d0.shape, 4)).astype(
+        np.float32))
+    got = dm.diffmarch_backward(m, cfg, grad.to(cuda), ckpt)
+    assert all(float(g.abs().max()) > 0.0 for g in got[:2])
+    assert_rel_close(got, dm.march_backward_reference(m, cfg, grad.to(cuda)))
+    assert_rel_close(got, dm.march_backward_reference(mc, cfg, grad))
+    tangents = [torch.from_numpy(rng.standard_normal(tuple(t.shape)).astype(np.float32))
+                for t in mc[:dm.DIFFERENTIABLE]]
+    got_t = dm.diffmarch_tangent(m, cfg, [t.to(cuda) for t in tangents])
+    assert_rel_close([got_t], [dm.march_tangent_reference(
+        m, cfg, [t.to(cuda) for t in tangents])])
+    assert_rel_close([got_t], [dm.march_tangent_reference(mc, cfg, tangents)])
+
+
+@pytest.mark.cuda
+def test_diffmarch_launch_counts(cuda):
+    """One forward launch a call; one backward launch under reverse mode;
+    forward mode launches the forward and its tangent instantiation; a
+    sharded call one of each a shard."""
+    import torch.autograd.forward_ad as fwAD
+
+    from amrvolumerenderer_torch import diff
+    from amrvolumerenderer_torch.ops import diffmarch as dm
+    from amrvolumerenderer_torch.parallel import directsend as ds
+
+    fns = (dm.diffmarch_forward, dm.diffmarch_backward, dm.diffmarch_tangent)
+
+    def counted(fn):
+        for f in fns:
+            f.launches = 0
+        fn()
+        torch.cuda.synchronize()
+        return [f.launches for f in fns]
+
+    args, static = diff_scene("test_diff")
+    targs = list(diff.args_from_arrays(args, cuda))
+    with torch.no_grad():
+        assert counted(lambda: diff.render_image_diff(*targs, **static)) == [1, 0, 0]
+    lut = targs[4].clone().requires_grad_(True)
+    assert counted(lambda: diff.render_image_diff(
+        *targs[:4], lut, *targs[5:], **static).sum().backward()) == [1, 1, 0]
+
+    def forward_mode():
+        with fwAD.dual_level():
+            eye = fwAD.make_dual(targs[6], torch.ones(3, device=cuda))
+            out = diff.render_image_diff(*targs[:6], eye, *targs[7:], **static)
+            assert float(fwAD.unpack_dual(out).tangent.abs().max()) > 0.0
+
+    assert counted(forward_mode) == [1, 0, 1]
+    bargs, bstatic = sharded_diff_scene(cuda)
+    data = bargs[0].clone().requires_grad_(True)
+    mesh = ds.make_mesh(4, "cuda")
+    assert counted(lambda: diff.render_image_diff(
+        data, *bargs[1:], mesh=mesh, **bstatic).mean().backward()) == [4, 4, 0]
+
+
+@pytest.mark.cuda
+def test_diff_fitting_step_replays_as_cuda_graph(cuda):
+    """One transfer-function fitting step (forward, ``backward()`` through
+    the backward kernel, an SGD step), captured as a CUDA graph after two
+    warm-up steps on a side stream and replayed three times, against the
+    same steps run eagerly: losses and parameters at 1e-5 (the backward's
+    atomics add in another order each run); the loss falls."""
+    from amrvolumerenderer_torch import diff
+
+    args, static = diff_scene("test_diff")
+    targs = list(diff.args_from_arrays(args, cuda))
+    targs[10] = float(args[10])  # a number: the field of view reads no device value
+    with torch.no_grad():
+        target = diff.render_image_diff(*targs, **static)
+    start = (targs[4] * 0.5).clone()
+
+    def make():
+        lut = start.clone().requires_grad_(True)
+        opt = torch.optim.SGD([lut], lr=10.0)
+
+        def step():
+            image = diff.render_image_diff(*targs[:4], lut, *targs[5:], **static)
+            loss = ((image - target) ** 2).mean()
+            loss.backward()
+            opt.step()
+            return loss.detach()
+
+        return lut, opt, step
+
+    lut_e, opt_e, step_e = make()
+    eager = []
+    for _ in range(5):
+        opt_e.zero_grad(set_to_none=True)
+        eager.append(float(step_e()))
+    lut_g, opt_g, step_g = make()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graphed = []
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            opt_g.zero_grad(set_to_none=True)
+            graphed.append(float(step_g()))
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    opt_g.zero_grad(set_to_none=True)
+    with torch.cuda.graph(graph):
+        loss = step_g()
+    for _ in range(3):
+        graph.replay()
+        graphed.append(float(loss))
+    np.testing.assert_allclose(graphed, eager, rtol=1e-5)
+    assert eager[-1] < eager[0]
+    assert float((lut_g - lut_e).abs().max()) <= 1e-5 * float(lut_e.abs().max())
 
 
 @pytest.mark.cuda
