@@ -9,23 +9,33 @@
 // torch.autograd.Function; their plain versions are march_forward_reference,
 // march_tangent_reference and march_backward_reference beside it.
 //
-// One thread owns one (brick, pixel) pair; a block is 256 consecutive pixels
-// of one brick (grid y), so a block's samples read one brick's cells and LUT
-// through L1.  A step: the distance d0 + step * k, the position
-// fma(dir, dist, eye), the gate (hit, dist < tmax, inside the box, opacity
-// below 1), a trilinear sample with eight gathers, the scalar transform (XLA's
-// float32 log, ops/numerics.py::_log, op for op), the soft tail, a lerped LUT
-// lookup and the over step.  A thread stops only where no later step can be
-// active: a distance at or past tmax (distances do not decrease for a step
-// >= 0) or an opacity at or above 1.  A step outside the box does not stop
-// it (d0 is nudged by mesh_eps, so a later step may be inside).
+// Launch shape.  A first kernel (diffmarch_pairs_kernel, its own launch and
+// counter) lists each brick's hit pairs: the pixels whose ray meets the
+// brick, about 5% of the (brick, pixel) pairs at 1024^2 on bench.py's
+// 3-level scene, each list block's hits in pixel order.  For the forward it
+// also writes the zero row of every pair that misses.  The march kernels
+// then give a row of blocks to each brick (grid y), about kGridBlocks in all,
+// striding over the brick's list: no thread is spent on a miss, no block is
+// launched empty, and a block's samples read one brick's cells and LUT
+// through L1.  The list's count stays on the card, so the host reads nothing
+// and a CUDA graph can capture every launch.
 //
-// The forward (kTangent false) writes the raw accumulator [B, P, 4] and, when
-// reverse mode will follow, the opacity before steps 0, S, 2S, ... into
-// checkpoints [C, B, P] (S = kSegment).  The tangent instantiation carries a
-// tangent beside the accumulator: each active step's sample tangent from the
-// same intermediates (the data, LUT, ray, box and scalar tangents), then the
-// dual over step.
+// A step: the distance d0 + step * k, the position fma(dir, dist, eye), the
+// gate (dist < tmax, inside the box, opacity below 1), a trilinear sample
+// with eight gathers, the scalar transform (XLA's float32 log,
+// ops/numerics.py::_log, op for op), the soft tail, a lerped LUT lookup and
+// the over step.  A thread stops only where no later step can be active: a
+// distance at or past tmax (distances do not decrease for a step >= 0) or
+// an opacity at or above 1.  A step outside the box does not stop it (d0 is
+// nudged by mesh_eps, so a later step may be inside).
+//
+// The forward (kTangent false; a thread a hit pair) writes the raw
+// accumulator [B, P, 4] and, when reverse mode will follow, the opacity
+// before steps 0, S, 2S, ... into checkpoints [C, B, P] (S = kSegment; a
+// miss has none).  The tangent instantiation carries a tangent beside the
+// accumulator: each active step's sample tangent from the same
+// intermediates (the data, LUT, ray, box and scalar tangents), then the dual
+// over step.
 //
 // The backward is the exact reverse mode of the recurrence.  For an active
 // step, alpha = s.a (1 - A.a), A'.rgb = fma(s.rgb, alpha, A.rgb) and A'.a =
@@ -33,39 +43,52 @@
 // s.rgb + lam.a, lam.a -= s.a g_alpha, g_s.rgb = lam.rgb alpha and g_s.a =
 // g_alpha (1 - A.a).  It divides by no transmittance: each segment of S steps
 // is replayed forward from its checkpoint, through the same sample() as the
-// forward and in the same rounding, into a local array of the opacities
-// before each step, then walked backwards.  So every gate decision is the
-// forward's own.  g_s flows back through the LUT lerp (the two rows' gradients
-// summed in float64 in shared memory, one brick's LUT a block, flushed with
-// one float64 atomicAdd an entry: a LUT entry takes millions of terms at full
-// size, beyond what a float32 sum holds to 1e-4), the clips (half the gradient at every tie, as jnp.clip and
-// jnp.maximum give), the transform (log's 1 / x), the trilinear weights and
-// corners (atomicAdd into the data gradient), the position (direction: an
-// atomicAdd a pixel and brick; eye) and the distance (d0: written; step).  The
-// per-brick and global sums (step, origin, cell, eye, the five scalars) are
-// reduced over the block and written a block apart; ops/diffmarch.py adds
-// them.  Atomics add in an order that changes from run to run, so the
-// backward is held at 1e-4 of the gradient's scale, not bit for bit.
+// forward and in the same rounding, into shared memory (the opacity before
+// each step), then walked backwards.  So every gate decision is the
+// forward's own.  A warp's 32 hit pairs walk their segments and steps in
+// step, so that each step's gradients are added a warp at a time:
+//   * the LUT rows: the lanes with one LUT row are gathered by the first of
+//     them (__match_any_sync and shuffles), which adds the float32 sum of at
+//     most 32 terms into the warp's own float64 copy of the brick's LUT
+//     gradient in shared memory with plain adds; at the block's end the
+//     copies are summed in a fixed order and flushed with one float64
+//     atomicAdd an entry (a LUT entry takes millions of terms at full size,
+//     beyond what a float32 sum holds to 1e-4);
+//   * the data: the runs of neighbouring lanes on one cell are summed by a
+//     segmented tree of shuffles and their first lanes add the eight corners
+//     with float32 atomicAdd (a RED to L2).
+// Shared-memory atomicAdd of float32 and float64 is a compare-and-swap loop
+// on this card (ATOMS.CAST.SPIN in the SASS), and lanes of one warp hit the
+// same LUT rows: an atomic an active lane and step took 6.9 of the
+// backward's 10.23 ms on an H100 80GB HBM3 at 700 W
+// (chip_smoke.py --diff-march).  g_s also flows back
+// through the clips (half the gradient at every tie, as jnp.clip and
+// jnp.maximum give), the transform (log's 1 / x), the trilinear weights, the
+// position (direction: an atomicAdd a pixel and brick; eye) and the
+// distance (d0: written; step).  The per-brick and global sums (step,
+// origin, cell, eye, the five scalars) are reduced over the block and
+// written a block apart; ops/diffmarch.py adds them.  Atomics and the list's
+// order change from run to run, so the backward is held at 1e-4 of the
+// gradient's scale, not bit for bit.
 //
 // What bounds it on this card: operations and latency, not bytes.  The
 // forward writes 16 B a pair and reads each brick's cells and LUT about once
-// from device memory (L1 and L2 serve the rest); a valid sample is about 90
-// float32 operations and nine dependent gathers, and the backward does about
-// three samples' work a valid sample plus twelve atomics.  What the design
-// does about it: a ray stops at the first step that cannot be active again,
-// the backward skips every segment whose checkpoint is already opaque or whose
-// first distance is past the box, and nothing is stored per step.
+// from device memory (L1 and L2 serve the rest); a valid sample is about 270
+// SASS instructions (the forward's loop body, with the normalisation) and
+// nine gathers in two dependent rounds; the backward does about three
+// samples' work a valid sample, the adjoint and a warp's adds.  What the
+// design does about it: the pair list, a ray stops at the first step that
+// cannot be active again, the backward skips every segment whose checkpoint
+// is already opaque or whose first distance is past the box, and nothing is
+// stored per step.
 //
 // Numerics: each FMA site of the plain version is a __fmaf_rn here; the build
 // passes -fmad=false, so nothing else contracts, and divisions are IEEE
-// (-prec-div).  The forward equals its plain version bit for bit.  (The plain
-// version rounds the position once, as here (numerics.fma_once); its other
-// sites' fma, a float64 product and sum cast to float32, rounds twice where the
-// float64 sum falls exactly halfway between two float32 values; no tested
-// scene meets such a sum: see ROADMAP section 3.)  The tangent and the backward's
-// derivative arithmetic are float32 in another order than autograd's, and the
-// backward's own divisions (g / x, g / cell) are __fdividef: both are held at
-// 1e-4 of the gradient's scale.
+// (-prec-div).  The forward equals its plain version bit for bit: the plain
+// version's numerics.fma rounds once, as __fmaf_rn does.  The tangent and the
+// backward's derivative arithmetic are float32 in another order than
+// autograd's, and the backward's own divisions (g / x, g / cell) are
+// __fdividef: both are held at 1e-4 of the gradient's scale.
 
 #include <cuda_runtime.h>
 #include <float.h>
@@ -74,9 +97,14 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // pixels per block
+constexpr int kThreads = 256;      // hit pairs a block of the forward and the tangent
+constexpr int kBackThreads = 128;  // hit pairs a block of the backward
+constexpr int kBackWarps = kBackThreads / 32;
 constexpr int kSegment = 16;   // steps between two opacity checkpoints
 constexpr int kPartials = 15;  // step, origin (3), cell (3), eye (3), scalars (5)
+constexpr int kLutCopyBytes = 96 * 1024;  // the backward's LUT copies, at most
+// blocks a launch aims at: each brick's blocks stride over its list
+constexpr int kGridBlocks = 4096;
 
 constexpr int kLog = 1, kNormalize = 2, kClip = 4, kSoft = 8;
 
@@ -180,8 +208,7 @@ struct Ray {
   float cell[3];
   int top[3], low[3];
   float rmin, rinv, pfloor, nmin, ninv;
-  const float* vol;        // the brick's cells
-  const float4* lut;       // the brick's LUT
+  int b;                   // the brick (its cells and LUT are read through it)
 };
 
 __device__ __forceinline__ Ray load_ray(const Inputs& in, int b, int n, int64_t pair) {
@@ -204,8 +231,7 @@ __device__ __forceinline__ Ray load_ray(const Inputs& in, int b, int n, int64_t 
   r.pfloor = in.scalars[2];
   r.nmin = in.scalars[3];
   r.ninv = in.scalars[4];
-  r.vol = in.data + b * in.cells;
-  r.lut = in.luts + static_cast<int64_t>(b) * in.lut_entries;
+  r.b = b;
   return r;
 }
 
@@ -261,7 +287,8 @@ __device__ __forceinline__ void sample(const Inputs& in, const Ray& r, const flo
     for (int y = 0; y < 2; ++y)
 #pragma unroll
       for (int x = 0; x < 2; ++x)
-        s.c[(z * 2 + y) * 2 + x] = r.vol[s.base + z * s.oz + y * s.oy + x * s.ox];
+        s.c[(z * 2 + y) * 2 + x] = in.data[r.b * in.cells + s.base + z * s.oz + y * s.oy +
+                                           x * s.ox];
 #pragma unroll
   for (int zy = 0; zy < 4; ++zy) s.cx[zy] = lerp(s.c[zy * 2], s.c[zy * 2 + 1], s.w[0]);
 #pragma unroll
@@ -302,8 +329,9 @@ __device__ __forceinline__ void sample(const Inputs& in, const Ray& r, const flo
   s.j0 = min(max(static_cast<int>(floorf(s.u)), 0), max(table_max - 1, 0));
   s.wl = clip(s.u - static_cast<float>(s.j0), 0.0f, 1.0f);
   s.j1 = min(s.j0 + 1, table_max);
-  s.row0 = r.lut[s.j0];
-  s.row1 = r.lut[s.j1];
+  const float4* lut = in.luts + static_cast<int64_t>(r.b) * in.lut_entries;
+  s.row0 = lut[s.j0];
+  s.row1 = lut[s.j1];
   s.s.x = lerp(s.row0.x, s.row1.x, s.wl);
   s.s.y = lerp(s.row0.y, s.row1.y, s.wl);
   s.s.z = lerp(s.row0.z, s.row1.z, s.wl);
@@ -369,60 +397,118 @@ __device__ __forceinline__ float4 sample_tangent(const Inputs& in, const Tangent
   return st;
 }
 
-template <bool kTangent>
-__global__ void __launch_bounds__(kThreads)
-    diffmarch_forward_kernel(Inputs in, Tangents t, float4* out, float4* out_tangent,
-                             float* ckpt) {
-  const int n = blockIdx.x * kThreads + threadIdx.x;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kListThreads = 256, kListPixels = 4;  // a block of the pair list
+constexpr int kListWarps = kListThreads / 32;
+
+// Each brick's hit pairs as a list of pixels: list[b * P + i] for i below
+// counts[b] (which starts at 0).  A block reads kListPixels rows of
+// kListThreads neighbouring pixels and writes its hits in pixel order at an
+// offset one atomicAdd of the block takes; where ``zero_out`` is given, it
+// writes the zero row of every pair that misses there.
+__global__ void __launch_bounds__(kListThreads)
+    diffmarch_pairs_kernel(const uint8_t* hit, int num_pixels, int* list, int* counts,
+                           float4* zero_out) {
+  __shared__ int s_warp[kListPixels * kListWarps];
+  __shared__ int s_base;
   const int b = blockIdx.y;
-  if (n >= in.num_pixels) return;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int first = blockIdx.x * kListThreads * kListPixels + threadIdx.x;
+  const int64_t row = static_cast<int64_t>(b) * num_pixels;
+  unsigned masks[kListPixels];
+#pragma unroll
+  for (int i = 0; i < kListPixels; ++i) {
+    const int n = first + i * kListThreads;
+    const bool inside = n < num_pixels;
+    const bool h = inside && hit[row + n] != 0;
+    if (inside && !h && zero_out != nullptr)
+      zero_out[row + n] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    masks[i] = __ballot_sync(kFull, h);
+    if (lane == 0) s_warp[i * kListWarps + warp] = __popc(masks[i]);
+  }
+  __syncthreads();
+  int total = 0;
+  for (int w = 0; w < kListPixels * kListWarps; ++w) total += s_warp[w];
+  if (threadIdx.x == 0) s_base = total > 0 ? atomicAdd(counts + b, total) : 0;
+  __syncthreads();
+  // pixel order is (row i, warp, lane): the hits before each of this
+  // thread's own
+  int before = s_base;
+#pragma unroll
+  for (int i = 0; i < kListPixels; ++i) {
+    for (int w = 0; w < kListWarps; ++w)
+      if (w < warp) before += s_warp[i * kListWarps + w];
+    if ((masks[i] >> lane) & 1u)
+      list[row + before + __popc(masks[i] & ((1u << lane) - 1u))] = first + i * kListThreads;
+    for (int w = warp; w < kListWarps; ++w) before += s_warp[i * kListWarps + w];
+  }
+}
+
+// One hit pair's march, from the list: brick b, pixel n.
+template <bool kTangent>
+__device__ __forceinline__ void march_pair(const Inputs& in, const Tangents& t, int b, int n,
+                                           float4* out, float4* out_tangent, float* ckpt) {
   const int64_t pair = static_cast<int64_t>(b) * in.num_pixels + n;
   float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   float4 acc_t = acc;
-  if (in.hit[pair]) {
-    const Ray r = load_ray(in, b, n, pair);
-    const int64_t pairs = static_cast<int64_t>(in.num_bricks) * in.num_pixels;
-    const bool rising = !(r.step < 0.0f);  // distances never decrease
-    int next = 0;  // the next checkpoint to write
-    for (int k = 0; k < in.num_steps; ++k) {
-      if (ckpt != nullptr && k == next * kSegment) ckpt[next++ * pairs + pair] = acc.w;
-      if (!(acc.w < 1.0f)) break;  // never active again
-      const float kf = static_cast<float>(k);
-      float dist, p[3];
-      bool beyond;
-      if (!gate(r, kf, dist, p, beyond)) {
-        if (beyond && rising) break;
-        continue;
-      }
-      Sample s;
-      sample(in, r, p, s);
-      const float alpha = s.s.w * (1.0f - acc.w);
-      if (kTangent) {
-        const float4 st = sample_tangent(in, t, r, s, b, n, pair, kf, dist);
-        const float alpha_t = st.w * (1.0f - acc.w) - s.s.w * acc_t.w;
-        acc_t.x = acc_t.x + (st.x * alpha + s.s.x * alpha_t);
-        acc_t.y = acc_t.y + (st.y * alpha + s.s.y * alpha_t);
-        acc_t.z = acc_t.z + (st.z * alpha + s.s.z * alpha_t);
-        acc_t.w = acc_t.w + alpha_t;
-      }
-      acc.x = __fmaf_rn(s.s.x, alpha, acc.x);  // FMA: colour accumulation
-      acc.y = __fmaf_rn(s.s.y, alpha, acc.y);
-      acc.z = __fmaf_rn(s.s.z, alpha, acc.z);
-      acc.w = acc.w + alpha;
+  const Ray r = load_ray(in, b, n, pair);
+  const bool rising = !(r.step < 0.0f);  // distances never decrease
+  int next = 0;  // the next checkpoint to write
+  for (int k = 0; k < in.num_steps; ++k) {
+    if (ckpt != nullptr && k == next * kSegment)
+      ckpt[next++ * static_cast<int64_t>(in.num_bricks) * in.num_pixels + pair] = acc.w;
+    if (!(acc.w < 1.0f)) break;  // never active again
+    const float kf = static_cast<float>(k);
+    float dist, p[3];
+    bool beyond;
+    if (!gate(r, kf, dist, p, beyond)) {
+      if (beyond && rising) break;
+      continue;
     }
-    if (ckpt != nullptr)  // the rest: no later step changes the opacity
-      for (; next * kSegment < in.num_steps; ++next) ckpt[next * pairs + pair] = acc.w;
+    Sample s;
+    sample(in, r, p, s);
+    const float alpha = s.s.w * (1.0f - acc.w);
+    if (kTangent) {
+      const float4 st = sample_tangent(in, t, r, s, b, n, pair, kf, dist);
+      const float alpha_t = st.w * (1.0f - acc.w) - s.s.w * acc_t.w;
+      acc_t.x = acc_t.x + (st.x * alpha + s.s.x * alpha_t);
+      acc_t.y = acc_t.y + (st.y * alpha + s.s.y * alpha_t);
+      acc_t.z = acc_t.z + (st.z * alpha + s.s.z * alpha_t);
+      acc_t.w = acc_t.w + alpha_t;
+    }
+    acc.x = __fmaf_rn(s.s.x, alpha, acc.x);  // FMA: colour accumulation
+    acc.y = __fmaf_rn(s.s.y, alpha, acc.y);
+    acc.z = __fmaf_rn(s.s.z, alpha, acc.z);
+    acc.w = acc.w + alpha;
   }
+  if (ckpt != nullptr)  // the rest: no later step changes the opacity
+    for (; next * kSegment < in.num_steps; ++next)
+      ckpt[next * static_cast<int64_t>(in.num_bricks) * in.num_pixels + pair] = acc.w;
   if (out != nullptr) out[pair] = acc;
   if (kTangent) out_tangent[pair] = acc_t;
 }
 
+// A thread a hit pair of brick blockIdx.y's list, the brick's blocks
+// striding over it; the misses have their zero rows from the list's kernel.
+template <bool kTangent>
+__global__ void __launch_bounds__(kThreads, kTangent ? 1 : 3)
+    diffmarch_forward_kernel(Inputs in, Tangents t, const int* list, const int* counts,
+                             float4* out, float4* out_tangent, float* ckpt) {
+  const int b = blockIdx.y;
+  const int count = counts[b];
+  const int64_t row = static_cast<int64_t>(b) * in.num_pixels;
+  for (int i = blockIdx.x * kThreads + threadIdx.x; i < count; i += gridDim.x * kThreads)
+    march_pair<kTangent>(in, t, b, list[row + i], out, out_tangent, ckpt);
+}
+
 // The reverse of one active step with opacity ``Aa`` before it: updates the
-// cotangent ``lam`` and adds the step's gradients.
+// cotangent ``lam`` and the per-ray and per-block sums, and returns the
+// step's LUT gradient (rows j0 then j1, RGBA) in ``g_lut`` and its corners'
+// data gradient (index (z * 2 + y) * 2 + x) in ``g_cell``.
 __device__ __forceinline__ void adjoint(const Inputs& in, const Ray& r, const Sample& s,
                                         float kf, float dist, float Aa, float4& lam,
-                                        double* s_lut, float* g_vol, float part[kPartials],
-                                        float& g_d0, float g_dir[3]) {
+                                        float (&g_lut)[8], float (&g_cell)[8],
+                                        float part[kPartials], float& g_d0, float g_dir[3]) {
   const float one_minus = 1.0f - Aa;
   const float alpha = s.s.w * one_minus;
   const float g_alpha = lam.x * s.s.x + lam.y * s.s.y + lam.z * s.s.z + lam.w;
@@ -430,17 +516,15 @@ __device__ __forceinline__ void adjoint(const Inputs& in, const Ray& r, const Sa
                                 g_alpha * one_minus);
   lam.w = lam.w - s.s.w * g_alpha;
   // the LUT lerp
-  if (s_lut != nullptr) {
-    const float w0 = 1.0f - s.wl, w1 = s.wl;
-    atomicAdd(s_lut + 4 * s.j0 + 0, static_cast<double>(gs.x * w0));
-    atomicAdd(s_lut + 4 * s.j0 + 1, static_cast<double>(gs.y * w0));
-    atomicAdd(s_lut + 4 * s.j0 + 2, static_cast<double>(gs.z * w0));
-    atomicAdd(s_lut + 4 * s.j0 + 3, static_cast<double>(gs.w * w0));
-    atomicAdd(s_lut + 4 * s.j1 + 0, static_cast<double>(gs.x * w1));
-    atomicAdd(s_lut + 4 * s.j1 + 1, static_cast<double>(gs.y * w1));
-    atomicAdd(s_lut + 4 * s.j1 + 2, static_cast<double>(gs.z * w1));
-    atomicAdd(s_lut + 4 * s.j1 + 3, static_cast<double>(gs.w * w1));
-  }
+  const float w0 = 1.0f - s.wl, w1 = s.wl;
+  g_lut[0] = gs.x * w0;
+  g_lut[1] = gs.y * w0;
+  g_lut[2] = gs.z * w0;
+  g_lut[3] = gs.w * w0;
+  g_lut[4] = gs.x * w1;
+  g_lut[5] = gs.y * w1;
+  g_lut[6] = gs.z * w1;
+  g_lut[7] = gs.w * w1;
   float g = gs.x * (s.row1.x - s.row0.x) + gs.y * (s.row1.y - s.row0.y) +
             gs.z * (s.row1.z - s.row0.z) + gs.w * (s.row1.w - s.row0.w);
   g *= clip_grad(s.u - static_cast<float>(s.j0), 0.0f, 1.0f);
@@ -478,12 +562,8 @@ __device__ __forceinline__ void adjoint(const Inputs& in, const Ray& r, const Sa
       const int zy = z * 2 + y;
       const float g_cx = g_cy * (y ? s.w[1] : 1.0f - s.w[1]);
       g_w[0] += g_cx * (s.c[zy * 2 + 1] - s.c[zy * 2]);
-      if (g_vol != nullptr) {
-        const int o = s.base + z * s.oz + y * s.oy;
-        const float g0 = g_cx * (1.0f - s.w[0]), g1 = g_cx * s.w[0];
-        if (g0 != 0.0f) atomicAdd(g_vol + o, g0);
-        if (g1 != 0.0f) atomicAdd(g_vol + o + s.ox, g1);
-      }
+      g_cell[zy * 2] = g_cx * (1.0f - s.w[0]);
+      g_cell[zy * 2 + 1] = g_cx * s.w[0];
     }
   }
   // h = (pos - bmin) / cell - 0.5, pos = fma(direction, dist, eye)
@@ -503,40 +583,128 @@ __device__ __forceinline__ void adjoint(const Inputs& in, const Ray& r, const Sa
   part[0] += g_dist * kf;
 }
 
-__global__ void __launch_bounds__(kThreads)
-    diffmarch_backward_kernel(Inputs in, const float4* grad, const float* ckpt,
-                              float* g_data, double* g_luts, float* g_d0, float* g_dirs,
-                              float* g_partial) {
-  extern __shared__ double s_lut[];  // [lut_entries * 4] when g_luts is given
-  __shared__ float s_red[kPartials][kThreads / 32];
-  const int n = blockIdx.x * kThreads + threadIdx.x;
+// Sums the warp's per-lane values ``v`` over runs of neighbouring lanes that
+// hold one key, in float32 by a segmented tree of shuffles (as many levels
+// as the warp's longest run needs), into the run's first lane; returns true
+// on that lane where ``act``.  A lane with nothing to add passes a key no
+// other lane holds.  Every lane of the warp calls it, converged.
+__device__ __forceinline__ bool sum_runs(int key, bool act, float (&v)[8]) {
+  const int lane = threadIdx.x & 31;
+  const int prev = __shfl_up_sync(kFull, key, 1);
+  const bool head = lane == 0 || prev != key;
+  const unsigned heads = __ballot_sync(kFull, head);
+  const unsigned later = heads & ~((2u << lane) - 1u);  // run heads after this lane
+  const int end = later ? __ffs(later) - 1 : 32;        // one past this lane's run
+  const int longest = static_cast<int>(
+      __reduce_max_sync(kFull, head ? static_cast<unsigned>(end - lane) : 0u));
+  for (int off = 1; off < longest; off <<= 1) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float o = __shfl_down_sync(kFull, v[i], off);
+      if (lane + off < end) v[i] += o;
+    }
+  }
+  return head && act;
+}
+
+// Adds the warp's LUT-gradient rows (``v``: row j0 then row j1, RGBA) to
+// ``lut_sum``.  Each group of lanes with one j0 (exact, __match_any_sync)
+// is gathered by its first lane through shuffles, a lane at a time, in
+// float32 (at most 32 terms); then each group's first lane adds the sums in
+// float64: to a copy of the warp's own with plain adds, the rows j0 and
+// then the rows j1 (the groups' rows differ), else with atomicAdd (a
+// compare-and-swap loop in shared memory on this card).  Every lane of the
+// warp calls it, converged; a lane with nothing to add passes ``act`` false
+// and a j0 no other lane holds.
+__device__ __forceinline__ void add_lut_rows(double* lut_sum, bool own, int j0, int j1,
+                                             bool act, float (&v)[8]) {
+  const int lane = threadIdx.x & 31;
+  const unsigned peers = __match_any_sync(kFull, j0);
+  const bool lead = act && __ffs(peers) - 1 == lane;
+  unsigned rest = lead ? peers & (peers - 1u) : 0u;  // the group's other lanes
+  const int most = static_cast<int>(__reduce_max_sync(kFull, __popc(rest)));
+  float mine[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) mine[i] = v[i];
+  for (int t = 0; t < most; ++t) {
+    const int src = rest ? __ffs(rest) - 1 : lane;
+    rest &= rest - 1u;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float o = __shfl_sync(kFull, mine[i], src);
+      if (src != lane) v[i] += o;
+    }
+  }
+  if (own) {
+    if (lead)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) lut_sum[4 * j0 + c] += static_cast<double>(v[c]);
+    __syncwarp();
+    if (lead)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) lut_sum[4 * j1 + c] += static_cast<double>(v[4 + c]);
+    __syncwarp();
+  } else if (lead) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      atomicAdd(lut_sum + 4 * j0 + c, static_cast<double>(v[c]));
+      atomicAdd(lut_sum + 4 * j1 + c, static_cast<double>(v[4 + c]));
+    }
+  }
+}
+
+// The backward: brick blockIdx.y's blocks stride over its hit pairs,
+// kBackThreads at a time; a warp's lanes walk their 32 pairs back in step.
+__global__ void __launch_bounds__(kBackThreads)
+    diffmarch_backward_kernel(Inputs in, const int* list, const int* counts,
+                              const float4* grad, const float* ckpt, float* g_data,
+                              double* g_luts, float* g_d0, float* g_dirs, float* g_partial,
+                              int lut_copies) {
+  // the LUT gradient's float64 sums, a copy a warp (warp % lut_copies)
+  extern __shared__ double s_lut[];  // [lut_copies][lut_entries * 4] when g_luts is given
+  __shared__ float s_before[kSegment][kBackThreads];  // a segment's opacity before each step
+  __shared__ float s_red[kPartials][kBackWarps];
   const int b = blockIdx.y;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int count = counts[b];
+  if (static_cast<int>(blockIdx.x) * kBackThreads >= count) return;  // the whole block
   const int lut_floats = g_luts != nullptr ? in.lut_entries * 4 : 0;
-  for (int i = threadIdx.x; i < lut_floats; i += kThreads) s_lut[i] = 0.0;
+  for (int i = threadIdx.x; i < lut_floats * lut_copies; i += kBackThreads) s_lut[i] = 0.0;
   __syncthreads();
+  double* lut_sum = g_luts != nullptr ? s_lut + (warp % lut_copies) * lut_floats : nullptr;
+  const bool lut_private = lut_copies == kBackWarps;  // a copy of the warp's own
+  float* g_vol = g_data != nullptr ? g_data + b * in.cells : nullptr;
+  const int64_t row = static_cast<int64_t>(b) * in.num_pixels;
+  const int64_t pairs = static_cast<int64_t>(in.num_bricks) * in.num_pixels;
+  const int segments = (in.num_steps + kSegment - 1) / kSegment;
   float part[kPartials];
 #pragma unroll
   for (int i = 0; i < kPartials; ++i) part[i] = 0.0f;
-  if (n < in.num_pixels) {
-    const int64_t pair = static_cast<int64_t>(b) * in.num_pixels + n;
+  for (int start = blockIdx.x * kBackThreads; start < count;
+       start += gridDim.x * kBackThreads) {
+    if (start + warp * 32 >= count) continue;  // the warp: no pair in this chunk
+    const bool valid = start + static_cast<int>(threadIdx.x) < count;
+    const int n = list[row + start + (valid ? static_cast<int>(threadIdx.x) : warp * 32)];
+    const int64_t pair = row + n;
+    const Ray r = load_ray(in, b, n, pair);
+    const bool rising = !(r.step < 0.0f);
+    float4 lam = valid ? grad[pair] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     float gd0 = 0.0f, g_dir[3] = {0.0f, 0.0f, 0.0f};
-    if (in.hit[pair]) {
-      const Ray r = load_ray(in, b, n, pair);
-      const int64_t pairs = static_cast<int64_t>(in.num_bricks) * in.num_pixels;
-      const bool rising = !(r.step < 0.0f);
-      float* g_vol = g_data != nullptr ? g_data + b * in.cells : nullptr;
-      double* lut_sum = g_luts != nullptr ? s_lut : nullptr;
-      float4 lam = grad[pair];
-      const int segments = (in.num_steps + kSegment - 1) / kSegment;
-      for (int seg = segments - 1; seg >= 0; --seg) {
-        const int k0 = seg * kSegment;
-        const int k1 = min(in.num_steps, k0 + kSegment);
-        float a = ckpt[seg * pairs + pair];
-        if (!(a < 1.0f)) continue;  // opaque: no step of it is active
-        if (rising && !(r.d0 + r.step * static_cast<float>(k0) < r.tmax)) continue;
-        // replay the segment forward: the opacity before each active step
-        float before[kSegment];
-        unsigned active = 0u;
+    for (int seg = segments - 1; seg >= 0; --seg) {
+      const int k0 = seg * kSegment;
+      const int k1 = min(in.num_steps, k0 + kSegment);
+      // a segment that starts past the box, or whose checkpoint is opaque,
+      // has no active step
+      bool live = valid && !(rising && !(r.d0 + r.step * static_cast<float>(k0) < r.tmax));
+      float a = 1.0f;
+      if (live) {
+        a = ckpt[seg * pairs + pair];
+        live = a < 1.0f;
+      }
+      if (!__any_sync(kFull, live)) continue;
+      // replay the segment forward: the opacity before each active step
+      unsigned active = 0u;
+      if (live) {
         for (int k = k0; k < k1; ++k) {
           if (!(a < 1.0f)) break;
           float dist, p[3];
@@ -547,48 +715,73 @@ __global__ void __launch_bounds__(kThreads)
           }
           Sample s;
           sample(in, r, p, s);
-          before[k - k0] = a;
+          s_before[k - k0][threadIdx.x] = a;
           active |= 1u << (k - k0);
           a = a + s.s.w * (1.0f - a);
         }
-        // then walk it backwards
-        for (int k = k1 - 1; k >= k0; --k) {
-          if (!((active >> (k - k0)) & 1u)) continue;
+      }
+      // then walk it backwards, the warp's lanes in step
+      for (int k = k1 - 1; k >= k0; --k) {
+        const bool act = (active >> (k - k0)) & 1u;
+        if (!__any_sync(kFull, act)) continue;
+        float g_lut[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+        float g_cell[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+        // keys no other lane holds, unless the step is active
+        int j0 = -1 - lane, j1 = 0, base = -1 - lane, ox = 0, oy = 0, oz = 0;
+        if (act) {
           const float kf = static_cast<float>(k);
           float dist, p[3];
           bool beyond;
           gate(r, kf, dist, p, beyond);
           Sample s;
           sample(in, r, p, s);
-          adjoint(in, r, s, kf, dist, before[k - k0], lam, lut_sum, g_vol, part, gd0,
-                  g_dir);
+          adjoint(in, r, s, kf, dist, s_before[k - k0][threadIdx.x], lam, g_lut, g_cell,
+                  part, gd0, g_dir);
+          j0 = s.j0;
+          j1 = s.j1;
+          base = s.base;
+          ox = s.ox;
+          oy = s.oy;
+          oz = s.oz;
+        }
+        __syncwarp();
+        if (lut_sum != nullptr) add_lut_rows(lut_sum, lut_private, j0, j1, act, g_lut);
+        if (g_vol != nullptr && sum_runs(base, act, g_cell)) {
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const int o = base + (i >> 2) * oz + ((i >> 1) & 1) * oy + (i & 1) * ox;
+            if (g_cell[i] != 0.0f) atomicAdd(g_vol + o, g_cell[i]);
+          }
         }
       }
     }
-    g_d0[pair] = gd0;
+    if (valid) {
+      g_d0[pair] = gd0;
 #pragma unroll
-    for (int a = 0; a < 3; ++a)
-      if (g_dir[a] != 0.0f) atomicAdd(g_dirs + 3 * n + a, g_dir[a]);
+      for (int c = 0; c < 3; ++c)
+        if (g_dir[c] != 0.0f) atomicAdd(g_dirs + 3 * n + c, g_dir[c]);
+    }
   }
   // the block's sums, a block apart (no atomics: the order is fixed)
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
   for (int i = 0; i < kPartials; ++i) {
     float v = part[i];
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(kFull, v, o);
     if (lane == 0) s_red[i][warp] = v;
   }
-  __syncthreads();
+  __syncthreads();  // also: every warp's LUT adds are in
   if (threadIdx.x < kPartials) {
     float v = 0.0f;
 #pragma unroll
-    for (int w = 0; w < kThreads / 32; ++w) v += s_red[threadIdx.x][w];
+    for (int w = 0; w < kBackWarps; ++w) v += s_red[threadIdx.x][w];
     g_partial[(static_cast<int64_t>(b) * gridDim.x + blockIdx.x) * kPartials + threadIdx.x] = v;
   }
-  // the block's LUT gradient, one atomicAdd an entry
-  for (int i = threadIdx.x; i < lut_floats; i += kThreads) {
-    const double v = s_lut[i];
+  // the block's LUT gradient, its copies summed in a fixed order, one
+  // atomicAdd an entry
+  for (int i = threadIdx.x; i < lut_floats; i += kBackThreads) {
+    double v = 0.0;
+    for (int c = 0; c < lut_copies; ++c) v += s_lut[c * lut_floats + i];
     if (v != 0.0) atomicAdd(g_luts + static_cast<int64_t>(b) * lut_floats + i, v);
   }
 }
@@ -626,20 +819,54 @@ Inputs make_inputs(const void* const* p, int num_bricks, int num_pixels, int pad
   return in;
 }
 
-dim3 grid_of(int num_bricks, int num_pixels) {
-  return dim3((num_pixels + kThreads - 1) / kThreads, num_bricks);
+dim3 grid_of(int num_bricks, int num_pixels, int per_block) {
+  return dim3((num_pixels + per_block - 1) / per_block, num_bricks);
+}
+
+// A march kernel's grid: a row of blocks a brick, at most a block a
+// ``per_block`` pixels, about kGridBlocks in all
+dim3 march_grid(int num_bricks, int num_pixels, int per_block) {
+  const int most = (num_pixels + per_block - 1) / per_block;
+  return dim3(max(1, min(most, (kGridBlocks + num_bricks - 1) / num_bricks)), num_bricks);
+}
+
+Tangents make_tangents(const void* const* p) {
+  Tangents t;
+  t.data = static_cast<const float*>(p[0]);
+  t.luts = static_cast<const float4*>(p[1]);
+  t.d0 = static_cast<const float*>(p[2]);
+  t.dirs = static_cast<const float*>(p[3]);
+  t.eye = static_cast<const float*>(p[4]);
+  t.steps = static_cast<const float*>(p[5]);
+  t.bmin = static_cast<const float*>(p[6]);
+  t.cell = static_cast<const float*>(p[7]);
+  t.scalars = static_cast<const float*>(p[8]);
+  return t;
 }
 
 }  // namespace
 
-// The entry points take the 14 fields of ops/diffmarch.py's MarchInputs in
-// order, then their own buffers, the sizes and flags, and the stream.
+// The pair list (``diffmarch_pairs_kernel``): ``counts`` [B] must hold 0.
+extern "C" int avr_diffmarch_pairs_launch(const void* hit, void* list, void* counts,
+                                          void* zero_out, int num_bricks, int num_pixels,
+                                          void* stream) {
+  if (num_bricks <= 0 || num_pixels <= 0) return 0;
+  diffmarch_pairs_kernel<<<grid_of(num_bricks, num_pixels, kListThreads * kListPixels),
+                           kListThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(hit), num_pixels, static_cast<int*>(list),
+      static_cast<int*>(counts), static_cast<float4*>(zero_out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The march entry points take the 14 fields of ops/diffmarch.py's
+// MarchInputs in order, the pair list and its counts, then their own
+// buffers, the sizes and flags, and the stream.
 
 extern "C" int avr_diffmarch_forward_launch(
     const void* data, const void* luts, const void* d0, const void* dirs, const void* eye,
     const void* steps, const void* bmin, const void* cell, const void* scalars,
     const void* tmax, const void* hit, const void* bmax, const void* top, const void* low,
-    void* out, void* checkpoints,
+    const void* list, const void* counts, void* out, void* checkpoints,
     int num_bricks, int num_pixels, int pad_x, int pad_y, int pad_z, int lut_entries,
     int num_steps, int flags, float clip_start, float clip_span, float clip_rspan,
     float clip_end,
@@ -652,8 +879,10 @@ extern "C" int avr_diffmarch_forward_launch(
   if (num_bricks <= 0 || num_pixels <= 0) return 0;
   const Tangents none = {};
   diffmarch_forward_kernel<false>
-      <<<grid_of(num_bricks, num_pixels), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-          in, none, static_cast<float4*>(out), nullptr, static_cast<float*>(checkpoints));
+      <<<march_grid(num_bricks, num_pixels, kThreads), kThreads, 0,
+         static_cast<cudaStream_t>(stream)>>>(
+          in, none, static_cast<const int*>(list), static_cast<const int*>(counts),
+          static_cast<float4*>(out), nullptr, static_cast<float*>(checkpoints));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -661,6 +890,7 @@ extern "C" int avr_diffmarch_tangent_launch(
     const void* data, const void* luts, const void* d0, const void* dirs, const void* eye,
     const void* steps, const void* bmin, const void* cell, const void* scalars,
     const void* tmax, const void* hit, const void* bmax, const void* top, const void* low,
+    const void* list, const void* counts,
     const void* data_t, const void* luts_t, const void* d0_t, const void* dirs_t,
     const void* eye_t, const void* steps_t, const void* bmin_t, const void* cell_t,
     const void* scalars_t, void* out, void* out_tangent,
@@ -674,19 +904,14 @@ extern "C" int avr_diffmarch_tangent_launch(
                                 lut_entries, num_steps, flags, clip_start, clip_span,
                                 clip_rspan, clip_end);
   if (num_bricks <= 0 || num_pixels <= 0) return 0;
-  Tangents t;
-  t.data = static_cast<const float*>(data_t);
-  t.luts = static_cast<const float4*>(luts_t);
-  t.d0 = static_cast<const float*>(d0_t);
-  t.dirs = static_cast<const float*>(dirs_t);
-  t.eye = static_cast<const float*>(eye_t);
-  t.steps = static_cast<const float*>(steps_t);
-  t.bmin = static_cast<const float*>(bmin_t);
-  t.cell = static_cast<const float*>(cell_t);
-  t.scalars = static_cast<const float*>(scalars_t);
+  const void* tptrs[9] = {data_t, luts_t, d0_t, dirs_t, eye_t, steps_t, bmin_t, cell_t,
+                          scalars_t};
   diffmarch_forward_kernel<true>
-      <<<grid_of(num_bricks, num_pixels), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-          in, t, static_cast<float4*>(out), static_cast<float4*>(out_tangent), nullptr);
+      <<<march_grid(num_bricks, num_pixels, kThreads), kThreads, 0,
+         static_cast<cudaStream_t>(stream)>>>(
+          in, make_tangents(tptrs), static_cast<const int*>(list),
+          static_cast<const int*>(counts), static_cast<float4*>(out),
+          static_cast<float4*>(out_tangent), nullptr);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -694,8 +919,8 @@ extern "C" int avr_diffmarch_backward_launch(
     const void* data, const void* luts, const void* d0, const void* dirs, const void* eye,
     const void* steps, const void* bmin, const void* cell, const void* scalars,
     const void* tmax, const void* hit, const void* bmax, const void* top, const void* low,
-    const void* grad, const void* checkpoints, void* g_data, void* g_luts, void* g_d0,
-    void* g_dirs, void* g_partial,
+    const void* list, const void* counts, const void* grad, const void* checkpoints,
+    void* g_data, void* g_luts, void* g_d0, void* g_dirs, void* g_partial, int blocks,
     int num_bricks, int num_pixels, int pad_x, int pad_y, int pad_z, int lut_entries,
     int num_steps, int flags, float clip_start, float clip_span, float clip_rspan,
     float clip_end,
@@ -705,17 +930,38 @@ extern "C" int avr_diffmarch_backward_launch(
   const Inputs in = make_inputs(ptrs, num_bricks, num_pixels, pad_x, pad_y, pad_z,
                                 lut_entries, num_steps, flags, clip_start, clip_span,
                                 clip_rspan, clip_end);
-  if (num_bricks <= 0 || num_pixels <= 0) return 0;
-  const int smem = g_luts != nullptr ? lut_entries * 4 * static_cast<int>(sizeof(double)) : 0;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        diffmarch_backward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (num_bricks <= 0 || num_pixels <= 0 || blocks <= 0) return 0;
+  // dynamic shared memory up to what a block may hold, raised once a device
+  // (a kernel's attribute is held per device), so that no capture into a
+  // CUDA graph meets the call
+  constexpr int kMaxDevices = 64;
+  static int max_dynamic[kMaxDevices] = {};  // 0: not raised on that device yet
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (device < 0 || device >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (max_dynamic[device] == 0) {
+    int optin = 0;
+    cudaFuncAttributes attr;
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+    if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, diffmarch_backward_kernel);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(diffmarch_backward_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 optin - static_cast<int>(attr.sharedSizeBytes));
     if (err != cudaSuccess) return static_cast<int>(err);
+    max_dynamic[device] = optin - static_cast<int>(attr.sharedSizeBytes);
   }
-  diffmarch_backward_kernel<<<grid_of(num_bricks, num_pixels), kThreads, smem,
-                              static_cast<cudaStream_t>(stream)>>>(
-      in, static_cast<const float4*>(grad), static_cast<const float*>(checkpoints),
+  // the LUT gradient's copies: one a warp while they fit in kLutCopyBytes
+  const int lut_bytes = lut_entries * 4 * static_cast<int>(sizeof(double));
+  const int copies = max(1, min(kBackWarps, kLutCopyBytes / lut_bytes));
+  const int smem = g_luts != nullptr ? copies * lut_bytes : 0;
+  if (smem > max_dynamic[device]) return static_cast<int>(cudaErrorInvalidValue);
+  diffmarch_backward_kernel<<<dim3(blocks, num_bricks), kBackThreads,
+                              smem, static_cast<cudaStream_t>(stream)>>>(
+      in, static_cast<const int*>(list), static_cast<const int*>(counts),
+      static_cast<const float4*>(grad), static_cast<const float*>(checkpoints),
       static_cast<float*>(g_data), static_cast<double*>(g_luts), static_cast<float*>(g_d0),
-      static_cast<float*>(g_dirs), static_cast<float*>(g_partial));
+      static_cast<float*>(g_dirs), static_cast<float*>(g_partial), copies);
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,12 +8,15 @@ PyTorch under autograd (``diff.render_layers_diff``) and the march is
 ``march``: a ``torch.autograd.Function`` over the raw ``[B, P, 4]``
 accumulator of every (brick, pixel) pair.
 
-* On the card its forward is ``diffmarch_forward`` (``csrc/diffmarch.cu``,
-  one thread a pair, stopping at the first step that can never be active
-  again), its backward ``diffmarch_backward`` (the exact reverse mode of
-  the march, replayed from opacity checkpoints the forward keeps every
-  ``CHECKPOINT_EVERY`` steps) and its forward-mode rule ``diffmarch_tangent``
-  (the forward kernel carrying a tangent beside each value).  A failed
+* On the card each kernel walks a list of the (brick, pixel) pairs whose
+  ray meets the brick (``diffmarch_pairs``, a launch of its own that also
+  writes the misses' zero rows; the backward walks the forward's list).  The forward is ``diffmarch_forward``
+  (``csrc/diffmarch.cu``, one thread a hit pair, stopping at the first
+  step that can never be active again), the backward ``diffmarch_backward``
+  (the exact reverse mode of the march, replayed from opacity checkpoints
+  the forward keeps every ``CHECKPOINT_EVERY`` steps) and the forward-mode
+  rule ``diffmarch_tangent`` (the forward kernel carrying a tangent beside
+  each value).  A failed
   build or launch raises: no input routes the card to the plain versions.
 * On the CPU the same Function runs ``march_forward_reference`` (the step
   the eager loop ran, op for op), ``march_backward_reference`` (the same
@@ -49,7 +52,7 @@ from torch.autograd.function import once_differentiable
 
 from ..colormap import SOFT_CLIP_TOLERANCE
 from .march import f32, require
-from .numerics import fma, fma_once, log
+from .numerics import fma, log
 
 Tensor = torch.Tensor
 
@@ -59,8 +62,12 @@ CHECKPOINT_EVERY = 16
 # per-block sums the backward kernel writes: the step, the trilinear origin
 # (3), the cell size (3), the eye (3) and the five transform scalars
 PARTIALS = 15
-_THREADS = 256  # pixels per block of both kernels
+_BACK_THREADS = 128  # hit pairs a block of the backward kernel
+_GRID_BLOCKS = 4096  # blocks a march launch aims at (csrc/diffmarch.cu kGridBlocks)
 _SHARED_BYTES = 232448  # what one block may use on Hopper
+# the backward's static shared memory: a segment's opacities a thread, the
+# block's sums
+_BACK_STATIC_BYTES = (CHECKPOINT_EVERY * _BACK_THREADS + PARTIALS * _BACK_THREADS // 32) * 4
 
 
 def _clip(x: Tensor, lo, hi) -> Tensor:
@@ -128,6 +135,14 @@ class MarchConfig(NamedTuple):
     normalize: bool
     apply_clip: bool
     clip_start: float
+
+
+class Kept(NamedTuple):
+    """What the forward kernel keeps for the backward kernel: the opacity
+    checkpoints and the pair list it walked (``diffmarch_pairs``)."""
+    checkpoints: Tensor  # [C, B, P] float32, C = checkpoint_count(cfg)
+    pixels: Tensor  # [B, P] int32
+    counts: Tensor  # [B] int32
 
 
 def _soft(clip_start: float):
@@ -231,8 +246,7 @@ def _step(m: MarchInputs, cfg: MarchConfig, k: float) -> SimpleNamespace:
     ``soft_tail_terms`` and ``lut_terms``)."""
     st = SimpleNamespace()
     st.dist = m.d0 + m.steps[:, None] * k
-    # FMA: eye + direction * distance, rounded once as the kernel's
-    st.pos = fma_once(m.directions, st.dist[..., None], m.eye)
+    st.pos = fma(m.directions, st.dist[..., None], m.eye)  # FMA: eye + direction * distance
     lo, hi = m.bmin[:, None, :], m.bmax[:, None, :]
     st.gate = m.hit & (st.dist < m.tmax) & ((st.pos >= lo) & (st.pos <= hi)).all(dim=-1)
     vars(st).update(vars(trilinear_terms(m.data, m.top.long()[:, None, :],
@@ -424,7 +438,7 @@ def _check(m: MarchInputs) -> None:
                          "cell offsets")
     if num_bricks > 65535:
         raise ValueError(f"{num_bricks} bricks exceed the grid's 65535 rows")
-    if size * 32 > _SHARED_BYTES:  # the backward's float64 LUT gradient
+    if size * 32 + _BACK_STATIC_BYTES > _SHARED_BYTES:  # the backward's float64 LUT sums
         raise ValueError(f"a {size}-entry LUT's gradient does not fit in shared memory")
 
 
@@ -453,11 +467,63 @@ def checkpoint_count(cfg: MarchConfig) -> int:
     return -(-cfg.num_steps // CHECKPOINT_EVERY)
 
 
+def hit_pairs_reference(hit: Tensor):
+    """Each brick's hit pairs: ``(pixels [B, P] int32, counts [B] int32)``,
+    brick b's hits the pixels ``pixels[b, :counts[b]]`` in pixel order (the
+    rest of a row is -1)."""
+    num_bricks, num_pixels = hit.shape
+    counts = hit.sum(1, dtype=torch.int32)
+    order = torch.argsort((~hit).to(torch.int8), dim=1, stable=True).to(torch.int32)
+    index = torch.arange(num_pixels, device=hit.device)
+    return torch.where(index < counts[:, None], order, -1), counts
+
+
+def diffmarch_pairs(hit: Tensor, zero_rows: Optional[Tensor] = None):
+    """Each brick's hit pairs, the list the march kernels walk: ``(pixels
+    [B, P] int32, counts [B] int32)``, brick b's hits the pixels
+    ``pixels[b, :counts[b]]``, and with ``zero_rows`` ([B, P, 4] float32)
+    the zero row of every pair that misses written there.  A CUDA ``hit``
+    launches the pair-list kernel (``csrc/diffmarch.cu``: each of its
+    blocks' hits in pixel order, the blocks in the order they take their
+    offsets; the rest of a row unwritten), counted in
+    ``diffmarch_pairs.launches``, with no read of a device value; a CPU
+    ``hit`` runs ``hit_pairs_reference``."""
+    dev = hit.device
+    if dev.type == "cpu":
+        if zero_rows is not None:
+            zero_rows.masked_fill_(~hit[..., None], 0.0)
+        return hit_pairs_reference(hit)
+    if dev.type != "cuda":
+        raise ValueError(f"diffmarch_pairs has no kernel for {dev}")
+    num_bricks, num_pixels = hit.shape
+    require(hit, "hit", torch.bool, (num_bricks, num_pixels), dev)
+    if zero_rows is not None:
+        require(zero_rows, "zero_rows", torch.float32, (num_bricks, num_pixels, 4), dev)
+    pixels = torch.empty((num_bricks, num_pixels), dtype=torch.int32, device=dev)
+    counts = torch.zeros(num_bricks, dtype=torch.int32, device=dev)
+    if pixels.numel() == 0:
+        return pixels, counts
+    from . import _build
+
+    _raise(_build.load("diffmarch").avr_diffmarch_pairs_launch(
+        hit.data_ptr(), pixels.data_ptr(), counts.data_ptr(),
+        None if zero_rows is None else zero_rows.data_ptr(), num_bricks, num_pixels,
+        _stream(dev)), "pair list")
+    diffmarch_pairs.launches += 1
+    return pixels, counts
+
+
+diffmarch_pairs.launches = 0
+
+
 def diffmarch_forward(m: MarchInputs, cfg: MarchConfig, keep: bool = False):
     """The raw accumulator ``[B, P, 4]`` of the march, and with ``keep``
-    on the card the opacity checkpoints ``[C, B, P]`` the backward kernel
-    replays from (None otherwise).  A CUDA ``m`` launches the forward
-    kernel (``csrc/diffmarch.cu``) on the current stream, counted in
+    on the card what the backward kernel replays from (``Kept``: the
+    opacity checkpoints ``[C, B, P]``, none for a pair that misses, and the
+    pair list; None otherwise).  A CUDA
+    ``m`` launches the pair list (``diffmarch_pairs``, which writes the
+    misses' zero rows) and the forward kernel (``csrc/diffmarch.cu``, a
+    thread a hit pair) on the current stream, counted in
     ``diffmarch_forward.launches``; a CPU ``m`` runs
     ``march_forward_reference``."""
     dev = m.data.device
@@ -470,17 +536,18 @@ def diffmarch_forward(m: MarchInputs, cfg: MarchConfig, keep: bool = False):
     accum = torch.empty((num_bricks, num_pixels, 4), dtype=torch.float32, device=dev)
     ckpt = (torch.empty((checkpoint_count(cfg), num_bricks, num_pixels),
                         dtype=torch.float32, device=dev) if keep else None)
-    if accum.numel() == 0:
-        return accum, ckpt
+    if accum.numel() == 0:  # an empty list, no launch
+        return accum, None if ckpt is None else Kept(ckpt, *diffmarch_pairs(m.hit))
     from . import _build
 
+    pixels, counts = diffmarch_pairs(m.hit, accum)
     lib = _build.load("diffmarch")
     _raise(lib.avr_diffmarch_forward_launch(
-        *(t.data_ptr() for t in m), accum.data_ptr(),
+        *(t.data_ptr() for t in m), pixels.data_ptr(), counts.data_ptr(), accum.data_ptr(),
         None if ckpt is None else ckpt.data_ptr(), *_launch_args(m, cfg), _stream(dev)),
         "forward")
     diffmarch_forward.launches += 1
-    return accum, ckpt
+    return accum, None if ckpt is None else Kept(ckpt, pixels, counts)
 
 
 diffmarch_forward.launches = 0
@@ -490,7 +557,8 @@ def diffmarch_tangent(m: MarchInputs, cfg: MarchConfig,
                       tangents: Sequence[Tensor]) -> Tensor:
     """The tangent ``[B, P, 4]`` of the raw accumulator for ``tangents``
     (one a differentiable field of ``MarchInputs``).  A CUDA ``m``
-    launches the forward kernel's tangent instantiation, counted in
+    launches the pair list (``diffmarch_pairs``, the misses' zero rows) and
+    the forward kernel's tangent instantiation, counted in
     ``diffmarch_tangent.launches``; a CPU ``m`` runs
     ``march_tangent_reference``."""
     dev = m.data.device
@@ -509,10 +577,12 @@ def diffmarch_tangent(m: MarchInputs, cfg: MarchConfig,
         return out_t
     from . import _build
 
+    pixels, counts = diffmarch_pairs(m.hit, out_t)
     lib = _build.load("diffmarch")
     _raise(lib.avr_diffmarch_tangent_launch(
-        *(t.data_ptr() for t in m), *(t.data_ptr() for t in tangents), None,
-        out_t.data_ptr(), *_launch_args(m, cfg), _stream(dev)), "tangent")
+        *(t.data_ptr() for t in m), pixels.data_ptr(), counts.data_ptr(),
+        *(t.data_ptr() for t in tangents), None, out_t.data_ptr(), *_launch_args(m, cfg),
+        _stream(dev)), "tangent")
     diffmarch_tangent.launches += 1
     return out_t
 
@@ -521,16 +591,18 @@ diffmarch_tangent.launches = 0
 
 
 def diffmarch_backward(m: MarchInputs, cfg: MarchConfig, grad: Tensor,
-                       checkpoints: Optional[Tensor],
+                       kept: Optional[Kept],
                        needs: Sequence[bool] = (True,) * DIFFERENTIABLE) -> List[Tensor]:
     """The gradients of ``MarchInputs``' differentiable fields for the
     cotangent ``grad`` ``[B, P, 4]`` of the raw accumulator (the data and
     LUT ones zero unless ``needs`` asks for them).  A CUDA ``m`` launches
-    the backward kernel on the current stream, replaying from the
-    forward's ``checkpoints``, counted in ``diffmarch_backward.launches``:
-    data and LUT gradients by atomic adds, each block's per-brick sums
-    written apart and added here, allocations through the caching
-    allocator and no read of a device value (a CUDA graph can capture it).
+    the backward kernel on the current stream over the forward's pair
+    list, a warp's 32 hit pairs walked back in step from its checkpoints
+    (``kept``), counted in ``diffmarch_backward.launches``:
+    data and LUT gradients by atomic adds of each run of neighbouring lanes
+    with one cell or one LUT row, each block's per-brick sums written apart
+    and added here, allocations through the caching allocator and no read
+    of a device value (a CUDA graph can capture it).
     A CPU ``m`` runs ``march_backward_reference``."""
     dev = m.data.device
     if dev.type == "cpu":
@@ -541,16 +613,20 @@ def diffmarch_backward(m: MarchInputs, cfg: MarchConfig, grad: Tensor,
     num_bricks, num_pixels = m.d0.shape
     grad = grad.to(dev, torch.float32).contiguous()
     require(grad, "grad", torch.float32, (num_bricks, num_pixels, 4), dev)
-    if checkpoints is None:
-        raise ValueError("the backward kernel needs the forward's checkpoints "
-                         "(diffmarch_forward(..., keep=True))")
-    require(checkpoints, "checkpoints", torch.float32,
+    if kept is None:
+        raise ValueError("the backward kernel needs the forward's checkpoints and "
+                         "pair list (diffmarch_forward(..., keep=True))")
+    require(kept.checkpoints, "checkpoints", torch.float32,
             (checkpoint_count(cfg), num_bricks, num_pixels), dev)
+    require(kept.pixels, "pixels", torch.int32, (num_bricks, num_pixels), dev)
+    require(kept.counts, "counts", torch.int32, (num_bricks,), dev)
     f = torch.float32
-    blocks = -(-num_pixels // _THREADS)
+    # a row of blocks a brick striding over its hit pairs, about
+    # _GRID_BLOCKS in all; each block writes its sums apart
+    blocks = max(1, min(-(-num_pixels // _BACK_THREADS), -(-_GRID_BLOCKS // num_bricks)))
     g_data = torch.zeros_like(m.data)
     g_luts = torch.zeros(m.luts.shape, dtype=torch.float64, device=dev)
-    g_d0 = torch.empty_like(m.d0)
+    g_d0 = torch.zeros_like(m.d0)
     g_dirs = torch.zeros_like(m.directions)
     partial = torch.zeros((num_bricks, blocks, PARTIALS), dtype=f, device=dev)
     if g_d0.numel():
@@ -558,10 +634,11 @@ def diffmarch_backward(m: MarchInputs, cfg: MarchConfig, grad: Tensor,
 
         lib = _build.load("diffmarch")
         _raise(lib.avr_diffmarch_backward_launch(
-            *(t.data_ptr() for t in m), grad.data_ptr(), checkpoints.data_ptr(),
+            *(t.data_ptr() for t in m), kept.pixels.data_ptr(), kept.counts.data_ptr(),
+            grad.data_ptr(), kept.checkpoints.data_ptr(),
             g_data.data_ptr() if needs[0] else None,
             g_luts.data_ptr() if needs[1] else None, g_d0.data_ptr(), g_dirs.data_ptr(),
-            partial.data_ptr(), *_launch_args(m, cfg), _stream(dev)), "backward")
+            partial.data_ptr(), blocks, *_launch_args(m, cfg), _stream(dev)), "backward")
         diffmarch_backward.launches += 1
     part = partial.sum(1)
     return [g_data, g_luts.float(), g_d0, g_dirs, part[:, 7:10].sum(0), part[:, 0],
@@ -578,9 +655,9 @@ class _March(torch.autograd.Function):
     @staticmethod
     def forward(ctx, cfg, keep, *tensors):
         m = MarchInputs(*tensors)
-        accum, ckpt = diffmarch_forward(m, cfg, keep)
+        accum, kept = diffmarch_forward(m, cfg, keep)
         ctx.cfg = cfg
-        ctx.save_for_backward(*m, *(() if ckpt is None else (ckpt,)))
+        ctx.save_for_backward(*m, *(() if kept is None else kept))
         ctx.save_for_forward(*m)
         return accum
 
@@ -588,11 +665,10 @@ class _March(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, grad):
         saved = ctx.saved_tensors
-        m = MarchInputs(*saved[:len(MarchInputs._fields)])
-        ckpt = saved[len(MarchInputs._fields)] if len(saved) > len(MarchInputs._fields) \
-            else None
+        n = len(MarchInputs._fields)
+        kept = Kept(*saved[n:]) if len(saved) > n else None
         needs = ctx.needs_input_grad[2:2 + DIFFERENTIABLE]
-        grads = diffmarch_backward(m, ctx.cfg, grad, ckpt, needs)
+        grads = diffmarch_backward(MarchInputs(*saved[:n]), ctx.cfg, grad, kept, needs)
         return (None, None, *(g if need else None for g, need in zip(grads, needs)),
                 *(None,) * (len(MarchInputs._fields) - DIFFERENTIABLE))
 

@@ -24,6 +24,8 @@ differentiable path (``diff``).
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -143,31 +145,209 @@ def _f64(v):
     return v.double() if isinstance(v, torch.Tensor) else float(v)
 
 
-def fma(a, b, c) -> Tensor:
-    """float32 ``a * b + c`` rounded once.  The float64 product of two
-    float32 values is exact; the float64 sum rounds before the float32
-    cast, which differs from one rounding only on exact float32 ties."""
-    return (_f64(a) * _f64(b) + _f64(c)).float()
+def _tracked(*xs) -> bool:
+    """True when autograd (reverse mode, or a dual level of forward mode)
+    may differentiate through ``xs``."""
+    import torch.autograd.forward_ad as fwAD
+
+    if fwAD._current_level >= 0:
+        return True
+    return torch.is_grad_enabled() and any(
+        isinstance(x, Tensor) and x.requires_grad for x in xs)
 
 
-def fma_once(a: Tensor, b: Tensor, c: Tensor) -> Tensor:
-    """float32 ``a * b + c`` rounded once, as ``__fmaf_rn`` and XLA's
-    contracted FMA round it, where ``fma`` rounds twice: at a float64 sum
-    exactly halfway between two float32 values whose exact sum is not, it
-    is moved one float64 ulp towards the exact sum (TwoSum's error term)
-    before the cast.  Derivatives are ``fma``'s; the correction carries
-    none."""
-    y = fma(a, b, c)
-    p = a.detach().double() * b.detach().double()  # exact
-    c64 = c.detach().double()
-    s = p + c64
+_LOW29, _HALF_ULP32 = (1 << 29) - 1, 1 << 28
+
+
+def fma_reference(a, b, c) -> Tensor:
+    """The plain version of ``fma``'s value, on any device: float32 ``a * b
+    + c`` rounded once.  The float64 product of two float32 values is
+    exact.  The float64 sum is rounded to odd before the one float32 cast:
+    truncated towards zero, then its last bit set where it was inexact
+    (TwoSum's error term).  float64 carries 29 bits beyond float32's 24, so
+    a sum rounded to odd casts as the exact sum would; a sum rounded to
+    nearest would round twice where it falls exactly halfway between two
+    float32 values.  Where no sum is such a midpoint, that is the cast.  No
+    derivatives."""
+    a64, b64, c64 = (_f64(v.detach() if isinstance(v, Tensor) else v) for v in (a, b, c))
+    p = a64 * b64  # exact
+    s = torch.as_tensor(p + c64)
+    # the cast rounds twice only at a float32 midpoint: 2^28 in the low 29
+    # bits of a float64 in float32's normal range, or a float32 subnormal
+    mag = s.abs()
+    if not bool(((s.view(torch.int64) & _LOW29) == _HALF_ULP32).logical_or_(
+            (mag < MIN_NORMAL) & (mag > 0.0)).any()):
+        return s.float()
     back = s - p
-    err = (p - (s - back)) + (c64 - back)  # p + c == s + err exactly
-    r = y.detach()
-    other = torch.nextafter(r, torch.where(s > r.double(), torch.inf, -torch.inf).float())
-    tie = (s == (r.double() + other.double()) * 0.5) & (err != 0.0)
-    nudged = torch.nextafter(s, torch.where(err > 0.0, torch.inf, -torch.inf).double())
-    return y + torch.where(tie, nudged.float() - r, 0.0)
+    err = (p - (s - back)) + (c64 - back)  # p + c == s + err exactly (NaN past inf)
+    e = err * torch.sign(s)  # exact: negative where s lies beyond the exact sum
+    bits = (s.view(torch.int64) - (e < 0.0).long()) | (e.abs() > 0.0).long()
+    return bits.view(torch.float64).float()
+
+
+def fma(a, b, c) -> Tensor:
+    """float32 ``a * b + c`` rounded once, as ``__fmaf_rn`` and XLA's
+    contracted FMA round it: every FMA site of the port's PyTorch code.
+    With a CUDA tensor among the operands (float32 tensors, and numbers
+    that float32 holds), one launch of ``csrc/numerics.cu``'s kernel,
+    counted in ``fma.launches``; otherwise ``fma_reference``.  Derivatives
+    (``_Fma``) are those autograd forms for ``(a * b + c)`` in float64
+    cast to float32; the rounding carries none."""
+    if _tracked(a, b, c):
+        return _Fma.apply(a, b, c)
+    return _fma_value(a, b, c)
+
+
+def _fma_value(a, b, c) -> Tensor:
+    values = [v.detach() if isinstance(v, Tensor) else v for v in (a, b, c)]
+    if any(isinstance(v, Tensor) and v.device.type == "cuda" for v in values):
+        return _fma_launch(*values)
+    return fma_reference(*values)
+
+
+class _Fma(torch.autograd.Function):
+    """``fma`` under autograd: the value rounded once, the derivatives of
+    ``(a.double() * b.double() + c.double()).float()`` formed as autograd
+    forms them (products in float64, reduced to each operand's shape, then
+    cast), so that they equal bit for bit what that expression gives."""
+
+    @staticmethod
+    def forward(ctx, a, b, c):
+        ctx.numbers = tuple(None if isinstance(v, Tensor) else v for v in (a, b, c))
+        tensors = [v for v in (a, b, c) if isinstance(v, Tensor)]
+        ctx.save_for_backward(*tensors)
+        ctx.save_for_forward(*tensors)
+        return _fma_value(a, b, c)
+
+    @staticmethod
+    def _operands(ctx):
+        saved = iter(ctx.saved_tensors)
+        return [next(saved) if n is None else n for n in ctx.numbers]
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b, c = _Fma._operands(ctx)
+        g64 = g.double()
+        grads = (g64 * _f64(b), g64 * _f64(a), g64)
+        return tuple(d.sum_to_size(v.shape).float() if need else None
+                     for v, d, need in zip((a, b, c), grads, ctx.needs_input_grad))
+
+    @staticmethod
+    def jvp(ctx, ta, tb, tc):
+        # mul's forward rule (other_t * self_p + self_t * other_p), add's
+        # (self_t + other_t), then the cast
+        a, b, c = _Fma._operands(ctx)
+        terms = [t.double() * _f64(p) for t, p in ((tb, a), (ta, b)) if t is not None]
+        t = terms[0] + terms[1] if len(terms) == 2 else (terms[0] if terms else None)
+        if tc is not None:
+            t = tc.double() if t is None else t + tc.double()
+        if t is None:
+            return torch.zeros_like(_fma_value(a, b, c))
+        return t.float()
+
+
+fma.launches = 0
+
+
+def fma_layout(ops, dev):
+    """How ``fma``'s kernel walks its operands on ``dev``: ``(tensors,
+    values, shape, sizes, strides, flat)``.  ``shape`` is the broadcast
+    of the tensor operands' shapes; each tensor operand on ``dev`` goes as
+    itself with a stride a dimension (0 where it broadcasts), each number
+    (or 0-d tensor elsewhere) as None and its value; ``sizes`` and
+    ``strides`` (row-major, element strides) merge the dimensions that every
+    operand steps across as one run and drop those of size 1; ``flat``:
+    every tensor operand is contiguous in ``shape``.  The walk depends only
+    on the operands' shapes and strides, and is planned once for each."""
+    tensors, values, specs = [], [], []
+    for v in ops:
+        if isinstance(v, Tensor) and (v.device == dev or v.dim() > 0):
+            if v.device != dev or v.dtype != torch.float32:
+                raise ValueError(f"fma on {dev} takes float32 tensors on it, not a "
+                                 f"{v.dtype} tensor on {v.device}")
+            tensors.append(v)
+            values.append(0.0)
+            specs.append((v.shape, v.stride(), v.is_contiguous()))
+        else:
+            x = float(v)
+            if float(np.float32(x)) != x and x == x:
+                raise ValueError(f"fma on {dev} takes numbers that float32 holds, not {x!r}")
+            tensors.append(None)
+            values.append(x)
+            specs.append(None)
+    return (tensors, values) + _fma_plan(tuple(specs))
+
+
+@functools.lru_cache(maxsize=1024)
+def _fma_plan(specs):
+    """``(shape, sizes, strides, flat)`` of ``fma_layout`` from each
+    operand's ``(shape, strides, contiguous)``, or None for a number."""
+    shapes = [sp[0] for sp in specs if sp is not None]
+    ndim = max(len(sh) for sh in shapes)
+    shape = []
+    for d in range(ndim):
+        sizes_d = {sh[d - ndim + len(sh)] for sh in shapes if d - ndim + len(sh) >= 0}
+        n = max(sizes_d)
+        if not sizes_d <= {1, n}:
+            raise ValueError(f"fma operands of shapes {shapes} do not broadcast")
+        shape.append(n)
+    shape = torch.Size(shape)
+    flat = all(sp is None or (sp[2] and sp[0] == shape) for sp in specs)
+    sizes = list(shape) or [1]
+    strides = []
+    for sp in specs:
+        st = [0] * len(sizes)
+        if sp is not None:
+            for d in range(len(sp[0])):
+                k = d + ndim - len(sp[0])
+                if sp[0][d] == shape[k] and shape[k] != 1:
+                    st[k] = sp[1][d]
+        strides.append(st)
+    # merge dimension d into d + 1 where every operand steps across both as
+    # one run
+    for d in range(len(sizes) - 2, -1, -1):
+        if all(st[d] == st[d + 1] * sizes[d + 1] for st in strides):
+            sizes[d + 1] *= sizes[d]
+            del sizes[d]
+            for st in strides:
+                del st[d]
+    keep = [k for k, n in enumerate(sizes) if n != 1] or [0]
+    return (shape, tuple(sizes[k] for k in keep),
+            tuple(tuple(st[k] for k in keep) for st in strides), flat)
+
+
+def _fma_launch(*ops) -> Tensor:
+    """``fma``'s kernel on the operands' CUDA device (``fma_layout``)."""
+    from . import _build
+
+    dev = next(v.device for v in ops if isinstance(v, Tensor) and v.device.type == "cuda")
+    tensors, values, shape, sizes, strides, flat = fma_layout(ops, dev)
+    out = torch.empty(shape, dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    if len(sizes) > _FMA_DIMS:
+        raise ValueError(f"fma on {dev} takes at most {_FMA_DIMS} dimensions that do not "
+                         f"merge, not {len(sizes)}")
+    rc = _build.load("numerics").avr_fma_launch(
+        *(None if t is None else t.data_ptr() for t in tensors), out.data_ptr(), *values,
+        len(sizes), *_fma_arrays(sizes, strides), int(flat),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fma kernel launch failed: CUDA error {rc}")
+    fma.launches += 1
+    return out
+
+
+@functools.lru_cache(maxsize=1024)
+def _fma_arrays(sizes, strides):
+    """The kernel's int64 size and stride arrays, made once for each walk."""
+    import ctypes
+
+    arr = ctypes.c_int64 * _FMA_DIMS
+    return (arr(*sizes), *(arr(*st) for st in strides))
+
+
+_FMA_DIMS = 8  # csrc/numerics.cu kDims
 
 
 def exp(x: Tensor) -> Tensor:

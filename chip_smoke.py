@@ -5,10 +5,11 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the port's five CUDA kernel libraries (tile-march, slice-march,
+It builds the port's six CUDA kernel libraries (tile-march, slice-march,
 composite with its tile, pixel and runs modes, the raymarch oracle's
-march, and the differentiable path's march with its forward, tangent and
-backward kernels) from the checkout's sources, all at once, holds each against
+march, the differentiable path's march with its pair list, forward,
+tangent and backward kernels, and ``numerics.fma``'s once-rounding
+multiply-add) from the checkout's sources, all at once, holds each against
 the golden rows and against its plain PyTorch version on the card, drives
 both one-shot main paths through the entry points a user calls: a
 512-brick 256^3 plotfile at 1024x1024 through
@@ -25,7 +26,8 @@ march axes against per-frame ``render``, bit for bit, in every output mode
 and at 2048^2 AA=4; the bfloat16 frame against the float32 one;
 ``set_transfer_function`` against a renderer built with the new map;
 two ``update_data`` time steps on the 512-brick scene from CUDA tensors
-and two from NumPy arrays against the plain path on the CPU; orbits through
+and two from NumPy arrays against the plain path on the CPU (the tables
+and the 128^2 frame after each step); orbits through
 ``render(plotfile, orbit_frames=)`` and the CLI's ``--orbit-frames``, with
 every batched launch of those orbits (float32 and bfloat16) replayed
 against the plain version on its own arguments; and the batched kernel's
@@ -97,14 +99,22 @@ pattern; gradients with respect to data and LUT at 1e-4 of the largest,
 with respect to eye, basis and field of view at 1e-4 of the sum of their
 terms' magnitudes), and on each scene's march the three kernels against
 their plain versions on the card and on the CPU (forward max |diff| 0,
-backward and tangent at 1e-4 of their scale); bench.py's 3-level scene
+backward under each ``needs`` of data and LUT gradients and tangent at
+1e-4 of their scale), also on a contention scene (one brick of 2^3 cells
+whose every sample falls into one LUT bin); bench.py's 3-level scene
 through ``diff.prepare_geometry`` (13 bricks padded to 64^3, 224 steps),
 the forward at 1024^2 under ``no_grad`` and ``loss.backward()`` with
 respect to data and LUT at 512^2 with ``remat=True``, each timed with its
 peak memory, with the launch counts read around each call (one forward
-launch, and one backward launch with the gradient, no other kernel),
-each launch held once against its plain version and the kernels timed
-against their bounds; and both fitting examples with their defaults on
+launch after one launch of the pair list, and one backward launch over
+that list with the gradient, 30 ``numerics.fma`` launches, no other
+kernel), each march launch held once against its plain version, every
+fma launch of a checked rerun of each call held as it returns against
+``fma_reference`` at max |diff| 0, and the kernels timed against their
+bounds, the backward
+also by the gradients it forms (both, no LUT, no data, neither), the
+forward with every pair a miss (its floor) and the pair list alone
+against its byte bound; and both fitting examples with their defaults on
 the card, run together, each replaying its step as a CUDA graph (the loss
 must fall below half its first value, and each example must reach its own
 goal).
@@ -145,7 +155,8 @@ and kernel 1 on their own inputs (bench_scaling's 64-brick tables at
 chunk) against its plain version at max |diff| 0.
 
 Phase 1 also logs each kernel instantiation's registers, shared memory and
-spills (and fails on a spill) and counts the SASS instructions of one
+spills (and fails on a spill), the diff march's stack frames and SASS
+atomics by opcode (``cuobjdump -sass``), and counts the SASS instructions of one
 valid sample and of one composite fold step (``ops/csrc/sample_probe.cu``),
 from which the timing phases give an issue bound beside the FLOP bound.  Phase 20 holds the
 tile-march, slice-march and dense kernels against their plain versions
@@ -158,6 +169,15 @@ outside a checkout of the repository, it exits non-zero and prints no
 result.  Scratch files go to ``build/chip_smoke/`` in the checkout.  It
 imports only the port (``amrvolumerenderer_torch``), never jax and never
 the JAX package.
+
+    python3 chip_smoke.py --diff-march [--tree DIR] [--check] [--steps]
+        [--graph-repeats N] [--two-process N]
+
+times only the diff march's kernels (``ops/csrc/diffmarch.cu``) of the
+package in ``--tree`` (default: this checkout) on phase 27's inputs, with
+this file's helpers (``diff_march_main``).  Run it once a tree,
+alternating (parent, change, change, parent), to compare two trees on one
+card.
 """
 
 from __future__ import annotations
@@ -447,6 +467,7 @@ def main() -> int:
     from amrvolumerenderer_torch.ops import _build
     from amrvolumerenderer_torch.ops import composite as comp
     from amrvolumerenderer_torch.ops import diffmarch as dmk
+    from amrvolumerenderer_torch.ops import numerics as nm
     from amrvolumerenderer_torch.ops import raymarch as rm
     from amrvolumerenderer_torch.ops import slicemarch as sm
     from amrvolumerenderer_torch.ops import tilemarch as tm
@@ -462,7 +483,8 @@ def main() -> int:
     assert "jax" not in sys.modules, "the port imported jax"
     assert "amrvolumerenderer_tpu" not in sys.modules, \
         "the port imported the JAX package"
-    libraries = ("tilemarch", "slicemarch", "composite", "raymarch", "diffmarch")
+    libraries = ("tilemarch", "slicemarch", "composite", "raymarch", "diffmarch",
+                 "numerics")
     counters = {"tilemarch": tm.tilemarch_render,
                 "slicemarch": sm.slicemarch_render_worklist_raw,
                 "composite": comp.composite_tiles,  # tile mode
@@ -474,7 +496,8 @@ def main() -> int:
     # the differentiable path's march: forward, backward and tangent
     diff_fns = {"diffmarch_forward": dmk.diffmarch_forward,
                 "diffmarch_backward": dmk.diffmarch_backward,
-                "diffmarch_tangent": dmk.diffmarch_tangent}
+                "diffmarch_tangent": dmk.diffmarch_tangent,
+                "diffmarch_pairs": dmk.diffmarch_pairs}  # the kernels' pair list
 
     def reset_counts():
         for fn in counters.values():
@@ -485,6 +508,7 @@ def main() -> int:
         ray_fn.launches = 0
         for fn in diff_fns.values():
             fn.launches = 0
+        nm.fma.launches = 0
 
     def diff_counts():
         return {name: fn.launches for name, fn in diff_fns.items()}
@@ -521,7 +545,7 @@ def main() -> int:
                 "slicemarch_dense": dense_fn.launches, "composite_runs": runs_fn.launches,
                 "raymarch": ray_fn.launches}
 
-    # ---- phase 1: build the five libraries, one nvcc each, in parallel ----
+    # ---- phase 1: build the six libraries, one nvcc each, in parallel -----
     t0 = time.perf_counter()
     _build.build_all(libraries)
     for name in libraries:
@@ -538,6 +562,13 @@ def main() -> int:
                 f"spill stores {stores} B, spill loads {loads} B")
             spills += stores + loads
     assert spills == 0, "a kernel spills registers"
+    # the diff march's stack frames and its atomics, by opcode
+    for line in ptxas_lines(_build.build_log.get("diffmarch", "")):
+        log(f"phase 1: ptxas diffmarch: {line}")
+    atomics = sass_atomics(_build._nvcc(), _build.NVCC_FLAGS, _build._CSRC, "diffmarch",
+                           SCRATCH)
+    log("phase 1: SASS atomics of ops/csrc/diffmarch.cu (cuobjdump -sass): "
+        + "; ".join(f"{k}: {v}" for k, v in atomics.items()))
     smi_clock = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
         capture_output=True, text=True, check=True).stdout.split()[0]
@@ -875,6 +906,7 @@ def main() -> int:
 
     # bounds from this run's inputs, per frame (mean over the 8 cameras)
     bounds_ms = {}
+    library_ms = {}  # one PyTorch call that computes a kernel's function, where there is one
     flops = SAMPLE_FLOPS[("nearest", "post")]
     tile_samples, tile_bytes = 0, 0
     for a in tile_args:
@@ -1051,15 +1083,17 @@ def main() -> int:
         f"for bit; {int((~swapped.visible).sum())} of {len(swapped.visible)} "
         "pieces culled")
     del swapped, built
-    upd = {"cuda": FastSceneRenderer(geometry, RenderParameters(width=512, height=512),
+    # at 128^2: the CPU's frames at 512^2 took 110-150 s each on the host of
+    # an H100 machine with the once-rounding plain FMA
+    upd = {"cuda": FastSceneRenderer(geometry, RenderParameters(width=128, height=128),
                                      device=dev)}
-    upd["cpu"] = FastSceneRenderer(geometry, RenderParameters(width=512, height=512),
+    upd["cpu"] = FastSceneRenderer(geometry, RenderParameters(width=128, height=128),
                                    device="cpu")
     ucam = auto_orbit_camera(upd["cuda"].bounds)
     base = [torch.from_numpy(np.asarray(b.data, np.float32)).to(dev)
             for b in geometry.bricks]
     for kind in ("tensor", "numpy"):
-        for step in range(1, 3):  # the CPU render of each step dominates the script
+        for step in range(1, 3):  # the CPU render of each step dominates the phase
             mix = 0.15 * step
             new = [b * (1.0 - mix) + (1.0 - b) * mix for b in base]
             t0 = time.perf_counter()
@@ -2619,6 +2653,7 @@ def main() -> int:
             launches[name], worst[name] = rec["launches"], rec["max_abs_err"]
             times[name] = (rec["ms"], rec["plain_ms"])
             bounds_ms[name] = (rec["bound_ms"], rec["bound_by"])
+            library_ms[name] = rec.get("library_ms")
 
     # ---- phase 27: the differentiable path ---------------------------------
     take(diff_phase(torch, dev, smi, reset_counts, counts, diff_counts))
@@ -2626,8 +2661,10 @@ def main() -> int:
     # ---- phase 28: the one-shot tile-march route; two processes ------------
     # (i) renderer_fast.render_composited_tilemarch (JAX's route: the
     # slice-march prep, parent-hint fallback, visibility owner keys) on the
-    # 3-level scene with the graph on and off, against the same route on
-    # the CPU; its one kernel-1 launch replayed against the plain version
+    # 3-level scene with the graph on and off at 1024^2, its one kernel-1
+    # launch replayed against the plain version; the same route at 256^2
+    # on the card against the CPU (the CPU's frame at 1024^2 took 138-149 s
+    # on the host of an H100 machine with the once-rounding plain FMA)
     for graph in (True, False):
         params = RenderParameters(width=1024, height=1024, use_visibility_graph=graph)
         camera = auto_orbit_camera(bounds3, params.camera_seed, params.camera_up)
@@ -2637,15 +2674,19 @@ def main() -> int:
             route_ms, frame = synced_ms(
                 lambda: rf.render_composited_tilemarch(*route, device=dev))
         got = counts()
+        small = (geometry3, RenderParameters(width=256, height=256,
+                                             use_visibility_graph=graph),
+                 camera, srange3, rsd3, 256, 256, None)
         t0 = time.perf_counter()
-        cpu_frame = rf.render_composited_tilemarch(*route, device="cpu")
+        cpu_frame = rf.render_composited_tilemarch(*small, device="cpu")
         cpu_s = time.perf_counter() - t0
-        same, d = max_diff(frame, cpu_frame)
+        same, d = max_diff(rf.render_composited_tilemarch(*small, device=dev), cpu_frame)
         covered = float((frame[:, 3] > 0).mean())
         log(f"phase 28: {smi}: render_composited_tilemarch 3-level 1024x1024, "
             f"visibility graph {'on' if graph else 'off'}: {route_ms:.3f} ms wall, "
-            f"launches {got}; the CPU's frame ({cpu_s:.3f} s): max |diff| {d:.3g}, "
-            f"non-finite pattern same {same}; alpha > 0 on {covered:.4f}")
+            f"launches {got}; at 256x256 the CPU's frame ({cpu_s:.3f} s) against the "
+            f"card's: max |diff| {d:.3g}, non-finite pattern same {same}; alpha > 0 on "
+            f"{covered:.4f}")
         assert got == {"tilemarch": 1, "slicemarch": 0, "composite": 0,
                        "composite_pixels": 0}, got
         assert same and d == 0.0
@@ -2719,6 +2760,11 @@ def main() -> int:
                                "amrvolumerenderer_tpu/diff.py:113"),
         "diffmarch_tangent": ("ops/csrc/diffmarch.cu",
                               "amrvolumerenderer_tpu/diff.py:113"),
+        "diffmarch_pairs": ("ops/csrc/diffmarch.cu",
+                            "amrvolumerenderer_tpu/diff.py:113"),
+        "fma": ("ops/csrc/numerics.cu",
+                "none: XLA's contracted a * b + c (the FMA sites of the plain "
+                "versions and of diff.py's eager ray set-up and fold)"),
     }
     for prec, name in batch_name.items():
         times[name] = batch_times[prec][:2]
@@ -2734,7 +2780,7 @@ def main() -> int:
         "plain_ms": times[name][1],
         "bound_ms": bounds_ms[name][0],
         "bound_by": bounds_ms[name][1],
-        "library_ms": None,
+        "library_ms": library_ms.get(name),
     } for name in sources]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -2970,6 +3016,181 @@ def diff_tangent_flops(cfg) -> int:
 DIFF_ADJOINT_FLOPS = 178
 
 
+def diff_contention_scene(torch, dev, size: int = 64):
+    """(MarchInputs, MarchConfig) of the diff march's worst contention
+    (tests/test_torch_cuda.py's "contention" scene): one brick of 2^3 cells
+    seen face on at ``size``^2, so that every sample reads the same eight
+    cells and falls into the same LUT bin, and every backward step adds
+    into the same eight data-gradient cells and the same two LUT rows."""
+    from amrvolumerenderer_torch import diff
+    from amrvolumerenderer_torch.ops import diffmarch as dm
+    from amrvolumerenderer_torch.types import CameraParameters
+
+    # 0.6 to 0.6035: one LUT bin, and a gradient along every axis
+    cells = (0.6 + 0.0005 * np.fromfunction(lambda x, y, z: x + 2 * y + 4 * z, (2, 2, 2)))
+    bricks = [(cells.astype(np.float32), (0.0, 0.0, 0.0), (1.0, 1.0, 1.0))]
+    camera = CameraParameters(eye=(0.5, 0.5, 2.5), look_at=(0.5, 0.5, 0.5),
+                              up=(0.0, 1.0, 0.0), fov_y_degrees=20.0)
+    args, static = diff.prepare_scene(bricks, camera, width=size, height=size,
+                                      device=dev)
+    seen, inner = [], dm.march
+    dm.march = lambda m, cfg: (seen.append((m, cfg)), inner(m, cfg))[1]
+    try:
+        with torch.no_grad():
+            diff.render_layers_diff(*args, **static)
+    finally:
+        dm.march = inner
+    (case,) = seen
+    return case
+
+
+# the backward's breakdown: which gradients the kernel forms, by ``needs``
+# of (data, LUT); the other inputs' gradients are always formed
+DIFF_NEEDS = {"both": (True, True), "no_lut": (True, False), "no_data": (False, True),
+              "neither": (False, False)}
+
+
+# numerics.fma launches of one call of the diff path on the 3-level scene,
+# with or without the gradient: the eager ray set-up's FMA sites and the
+# 13-layer fold's (the march has its own kernels)
+DIFF_FMA_LAUNCHES = 30
+
+
+def diff_needs(dm, which: str):
+    return DIFF_NEEDS[which] + (True,) * (dm.DIFFERENTIABLE - 2)
+
+
+def diff_backward_breakdown(torch, dm, m, cfg, grad, ckpt, best) -> dict:
+    """The backward kernel's device ms under each ``DIFF_NEEDS`` entry,
+    ``best(fn)`` timing each: with both gradients, without the LUT's,
+    without the data's, and with neither (the replay and the adjoint's
+    arithmetic, with the per-pair and per-block sums)."""
+    return {f"backward_{which}": best(lambda w=which: dm.diffmarch_backward(
+        m, cfg, grad, ckpt, diff_needs(dm, w))) for which in DIFF_NEEDS}
+
+
+def diff_backward_vs_plain(torch, dm, m, cfg, grad, ckpt):
+    """[(which, max over the formed gradients of max |kernel - plain| over
+    max |plain|)] of the backward kernel against its plain version on the
+    same device, under each ``DIFF_NEEDS`` entry."""
+    out = []
+    for which in DIFF_NEEDS:
+        needs = diff_needs(dm, which)
+        got = dm.diffmarch_backward(m, cfg, grad, ckpt, needs)
+        want = dm.march_backward_reference(m, cfg, grad, needs)
+        rel = 0.0
+        for i, (g, w) in enumerate(zip(got, want)):
+            if i >= 2 or needs[i]:
+                err = float((g - w).abs().max()) if g.numel() else 0.0
+                scale = float(w.abs().max()) if w.numel() else 0.0
+                rel = max(rel, err / scale if scale else err)
+            else:
+                assert float(g.abs().max()) == 0.0 if g.numel() else True, which
+        out.append((which, rel))
+    return out
+
+
+def diff_active_steps(torch, dm, m, cfg) -> dict:
+    """From a plain run of the march (untimed): the active steps a hit
+    (brick, pixel) pair, their quantiles over the pairs with any, and the
+    share of lanes busy in 32-pixel warps of one brick while the warp's
+    longest lane works, for the active steps and for the steps marched
+    (a step before the box exit with the opacity below 1)."""
+    num_bricks, num_pixels = m.d0.shape
+    acc = torch.zeros_like(m.d0)
+    count = torch.zeros(m.d0.shape, dtype=torch.int32, device=m.d0.device)
+    marched = torch.zeros_like(count)
+    with torch.no_grad():
+        for k in range(cfg.num_steps):
+            st = dm._step(m, cfg, float(k))
+            live = m.hit & (acc < 1.0)
+            marched += (live & (st.dist < m.tmax)).int()
+            active = st.gate & live
+            count += active.int()
+            acc = acc + torch.where(active, st.s[..., 3] * (1.0 - acc), 0.0)
+            del st
+    busy = count[count > 0].float()
+    q = torch.quantile(busy[:2 ** 24], torch.tensor([0.5, 0.9, 0.99], device=busy.device))
+
+    def lanes(c):
+        if num_pixels % 32:
+            return float("nan")
+        w = c.reshape(num_bricks, -1, 32)
+        top = w.max(-1).values
+        return float(w.sum()) / max(float(top.sum()) * 32, 1.0)
+
+    return {"pairs": num_bricks * num_pixels, "hit_pairs": int(m.hit.sum()),
+            "pairs_with_samples": int((count > 0).sum()),
+            "samples": int(count.sum()),
+            "steps_marched": int(marched.sum()),
+            "active_steps_p50_p90_p99_max": [float(v) for v in q] + [float(busy.max())],
+            "active_mean_per_hit_pair": float(count.sum()) / max(int(m.hit.sum()), 1),
+            "warp_lane_share_active": lanes(count),
+            "warp_lane_share_marched": lanes(marched)}
+
+
+def diff_graph_spread(torch, diff, repeats: int) -> dict:
+    """``repeats`` runs of the transfer-function fitting step of
+    tests/test_torch_cuda.py::test_diff_fitting_step_replays_as_cuda_graph
+    on the 6^3 scene: five eager steps, and two warm-up steps on a side
+    stream, then one captured and replayed three times; returns the
+    largest relative difference, graph against eager, of the losses and
+    of the LUT, and across repeats of the eager losses."""
+    name, args, static = diff_scenes(torch)[0]
+    dev = torch.device("cuda")
+    targs = list(diff.args_from_arrays(args, dev))
+    targs[10] = float(args[10])
+    with torch.no_grad():
+        target = diff.render_image_diff(*targs, **static)
+    start = (targs[4] * 0.5).clone()
+
+    def make():
+        lut = start.clone().requires_grad_(True)
+        opt = torch.optim.SGD([lut], lr=10.0)
+
+        def step():
+            image = diff.render_image_diff(*targs[:4], lut, *targs[5:], **static)
+            loss = ((image - target) ** 2).mean()
+            loss.backward()
+            opt.step()
+            return loss.detach()
+
+        return lut, opt, step
+
+    loss_rel, lut_rel, eager_runs = 0.0, 0.0, []
+    for _ in range(repeats):
+        lut_e, opt_e, step_e = make()
+        eager = []
+        for _ in range(5):
+            opt_e.zero_grad(set_to_none=True)
+            eager.append(float(step_e()))
+        lut_g, opt_g, step_g = make()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        graphed = []
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                opt_g.zero_grad(set_to_none=True)
+                graphed.append(float(step_g()))
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        opt_g.zero_grad(set_to_none=True)
+        with torch.cuda.graph(graph):
+            loss = step_g()
+        for _ in range(3):
+            graph.replay()
+            graphed.append(float(loss))
+        loss_rel = max(loss_rel, max(abs(g - e) / abs(e) for g, e in zip(graphed, eager)))
+        lut_rel = max(lut_rel, float((lut_g - lut_e).abs().max())
+                      / float(lut_e.abs().max()))
+        eager_runs.append(eager)
+    runs = np.asarray(eager_runs)
+    return {"repeats": repeats, "loss_rel_graph_vs_eager": loss_rel,
+            "lut_rel_graph_vs_eager": lut_rel,
+            "eager_loss_rel_spread": float((np.abs(runs - runs[0]) / np.abs(runs[0])).max()),
+            "within_1e-5": bool(loss_rel <= 1e-5 and lut_rel <= 1e-5)}
+
+
 def diff_phase(torch, dev, smi: str, reset_counts, counts, diff_counts,
                full: int = 1024, grad_size: int = 512, example_args=()) -> dict:
     """Phase 27, the differentiable path (``amrvolumerenderer_torch.diff``:
@@ -2984,9 +3205,11 @@ def diff_phase(torch, dev, smi: str, reset_counts, counts, diff_counts,
     ``no_grad`` and ``loss.backward()`` with respect to data and LUT at
     ``grad_size``^2 with ``remat=True``, each timed with its peak memory,
     driven with the launch counts set to 0 just before and read just after
-    (one forward launch a call, one backward launch with the gradient, no
-    other kernel); each march launch of those runs held once against its
-    plain version (untimed, with the valid-sample count), then the kernels
+    (one forward launch a call, one backward launch with the gradient, one
+    pair list, DIFF_FMA_LAUNCHES fma launches, no other kernel); each march
+    launch of those runs held once against its plain version (untimed, with
+    the valid-sample count), each fma launch of a checked rerun of each
+    call held as it returns against ``fma_reference``, then the kernels
     timed by CUDA events and the plain versions by wall clock, beside
     their bounds; (c) both fitting examples, run together with their
     defaults.  Returns the kernels' records for the ``kernels`` line.
@@ -2998,8 +3221,11 @@ def diff_phase(torch, dev, smi: str, reset_counts, counts, diff_counts,
     cpu = torch.device("cpu")
     on_card = dev.type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
+    from amrvolumerenderer_torch.ops import numerics as nm
+
     records = {name: dict(launches=0, max_abs_err=0.0)
-               for name in ("diffmarch_forward", "diffmarch_backward")}
+               for name in ("diffmarch_forward", "diffmarch_backward", "diffmarch_pairs",
+                            "fma")}
 
     def run(args, static, weights, argnums, device):
         targs = list(diff.args_from_arrays(args, device))
@@ -3058,6 +3284,39 @@ def diff_phase(torch, dev, smi: str, reset_counts, counts, diff_counts,
         both = fa & fb
         d = float((a - b.to(a.device)).abs()[both].max()) if bool(both.any()) else 0.0
         return bool(torch.equal(fa, fb)), d
+
+    @contextlib.contextmanager
+    def checked_fmas():
+        """``[(shape, same non-finite pattern, max |diff|)]`` of every
+        ``numerics.fma`` kernel launch inside the block, each held as it
+        returns against ``fma_reference`` on the same card operands; the
+        calls still go through the counted wrapper."""
+        inner, seen = nm._fma_launch, []
+
+        def check(*ops):
+            out = inner(*ops)
+            same, d = device_diff(out, nm.fma_reference(*ops))
+            seen.append((tuple(out.shape), same, d))
+            return out
+
+        nm._fma_launch = check
+        try:
+            yield seen
+        finally:
+            nm._fma_launch = inner
+
+    def hold_fmas(label, fmas):
+        """The launches ``checked_fmas`` saw, as many as the counter says
+        and DIFF_FMA_LAUNCHES on the card, each at max |diff| 0."""
+        worst = max((d for _, _, d in fmas), default=0.0)
+        off = [f for f in fmas if not (f[1] and f[2] == 0.0)]
+        log(f"{label}: {len(fmas)} numerics.fma launches ({nm.fma.launches} counted), "
+            f"each against fma_reference on the same operands: max |diff| {worst:.3g}, "
+            f"{len(off)} off; shapes {sorted(set(f[0] for f in fmas))}")
+        assert len(fmas) == nm.fma.launches == (DIFF_FMA_LAUNCHES if on_card else 0), \
+            (label, len(fmas), nm.fma.launches)
+        assert not off, (label, off)
+        records["fma"]["max_abs_err"] = max(records["fma"]["max_abs_err"], worst)
 
     def rel_errors(got, want):
         """Per output, max |got - want| over max |want| (0 where both are
@@ -3135,11 +3394,24 @@ def diff_phase(torch, dev, smi: str, reset_counts, counts, diff_counts,
             f"{rel:.3g}, on the CPU {rel_c:.3g}")
         assert max(rel, rel_c) <= DIFF_GRAD_REL, (label, rel, rel_c)
 
+    def hold_march(label, m, cfg):
+        """A march's three kernels against their plain versions: the
+        forward, the backward under each ``DIFF_NEEDS`` entry and the
+        tangent."""
+        _, ckpt, _ = hold_forward(label, m, cfg)
+        grad = torch.from_numpy(np.random.default_rng(3).uniform(
+            -1, 1, size=(*m.d0.shape, 4)).astype(np.float32)).to(dev)
+        for which in DIFF_NEEDS:
+            hold_backward(f"{label}, gradients {which}", m, cfg, grad, ckpt,
+                          diff_needs(dm, which))
+        hold_tangent(label, m, cfg)
+
     def expect(label, forward, backward):
         got, others = diff_counts(), counts()
         want = {"diffmarch_forward": forward if on_card else 0,
                 "diffmarch_backward": backward if on_card else 0,
-                "diffmarch_tangent": 0}
+                "diffmarch_tangent": 0,
+                "diffmarch_pairs": forward if on_card else 0}
         log(f"{label}: launches {got}, other kernels {others}")
         assert got == want and not any(others.values()), (label, got, others)
         return got
@@ -3173,12 +3445,11 @@ def diff_phase(torch, dev, smi: str, reset_counts, counts, diff_counts,
         assert image_c[:, 3].max() > 0.0
         assert max(rel) <= DIFF_GRAD_REL, rel
         m, cfg, _ = marches[0]
-        _, ckpt, _ = hold_forward(f"phase 27: {name}", m, cfg)
-        grad = torch.from_numpy(np.random.default_rng(3).uniform(
-            -1, 1, size=(*m.d0.shape, 4)).astype(np.float32)).to(dev)
-        hold_backward(f"phase 27: {name}", m, cfg, grad, ckpt)
-        hold_tangent(f"phase 27: {name}", m, cfg)
-        del marches, m, ckpt
+        hold_march(f"phase 27: {name}", m, cfg)
+        del marches, m
+    # the worst contention: every sample in one LUT bin and on the same cells
+    hold_march("phase 27: the contention scene, 2^3 cells at 64x64",
+               *diff_contention_scene(torch, dev))
 
     # (b) full size
     geometry = three_level_geometry()
@@ -3204,12 +3475,19 @@ def diff_phase(torch, dev, smi: str, reset_counts, counts, diff_counts,
         log(f"phase 27: {smi}: render_image_diff 3-level {full}x{full} under "
             f"no_grad (run {attempt + 1}): {ms:.3f} ms wall, peak device memory "
             f"{peak:.3f} GiB, {peak - held:.3f} GiB above the {held:.3f} GiB held "
-            f"before it; covered share {covered:.4f}")
+            f"before it; covered share {covered:.4f}; fma launches {nm.fma.launches}")
         expect(f"phase 27: the {full}x{full} forward (run {attempt + 1})", 1, 0)
+        assert nm.fma.launches == (DIFF_FMA_LAUNCHES if on_card else 0), nm.fma.launches
     assert image.shape == (full * full, 4) and bool(torch.isfinite(image).all())
     assert ALPHA_FRACTION[0] < covered < ALPHA_FRACTION[1], covered
     del image
     (m_full, cfg, _), = forwards
+    reset_counts()  # checked run: each fma launch of the same call held at once
+    with checked_fmas() as fmas, torch.no_grad():
+        diff.render_image_diff(*args, **static)
+    sync()
+    expect(f"phase 27: the {full}x{full} forward (checked run)", 1, 0)
+    hold_fmas(f"phase 27: the {full}x{full} forward (checked run)", fmas)
     _, _, samples_full = hold_forward(f"phase 27: the {full}x{full} frame's march",
                                       m_full, cfg, plain_cpu=False)
     small = dict(static, width=grad_size, height=grad_size)
@@ -3239,12 +3517,28 @@ def diff_phase(torch, dev, smi: str, reset_counts, counts, diff_counts,
             f"{held:.3f} GiB held before it")
         got = expect(f"phase 27: the {grad_size}x{grad_size} gradient (run "
                      f"{attempt + 1})", 1, 1)
-    records["diffmarch_forward"]["launches"] = got["diffmarch_forward"]
-    records["diffmarch_backward"]["launches"] = got["diffmarch_backward"]
+        # numerics.fma: the eager ray set-up's and the fold's FMA sites
+        got["fma"] = nm.fma.launches
+        log(f"phase 27: the {grad_size}x{grad_size} gradient (run {attempt + 1}): "
+            f"fma launches {got['fma']}")
+        assert got["fma"] == (DIFF_FMA_LAUNCHES if on_card else 0), got
+    for name in records:
+        records[name]["launches"] = got[name]
     for g in (data.grad, table.grad):
         assert bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0.0
     del data, table, image, loss
     (m_grad, cfg_grad, g_out), = marches
+    data = args[0].clone().requires_grad_(True)
+    table = args[4].clone().requires_grad_(True)
+    reset_counts()  # checked run: each fma launch of the same call held at once
+    with checked_fmas() as fmas:
+        image = diff.render_image_diff(data, *args[1:4], table, *args[5:], remat=True,
+                                       **small)
+        (image * image).mean().backward()
+    sync()
+    expect(f"phase 27: the {grad_size}x{grad_size} gradient (checked run)", 1, 1)
+    hold_fmas(f"phase 27: the {grad_size}x{grad_size} gradient (checked run)", fmas)
+    del data, table, image, fmas
     needs = tuple(t.requires_grad for t in m_grad[:dm.DIFFERENTIABLE])
     # the forward is deterministic: its rerun keeps the same checkpoints
     _, ckpt, samples_grad = hold_forward(f"phase 27: the {grad_size}x{grad_size} "
@@ -3263,7 +3557,9 @@ def diff_phase(torch, dev, smi: str, reset_counts, counts, diff_counts,
                 ("diffmarch_backward", m_grad, cfg_grad, samples_grad,
                  lambda: dm.diffmarch_backward(m_grad, cfg_grad, g_out, ckpt, needs),
                  lambda: dm.march_backward_reference(m_grad, cfg_grad, g_out, needs),
-                 sum(t.numel() * t.element_size() for t in (*m_grad, g_out, ckpt))
+                 sum(t.numel() * t.element_size()
+                     for t in (*m_grad, g_out, ckpt.checkpoints, ckpt.counts))
+                 + 4 * int(ckpt.counts.sum())  # the hit pairs of the forward's list
                  + m_grad.data.numel() * 4 + m_grad.luts.numel() * 8
                  + m_grad.d0.numel() * 4 + m_grad.directions.numel() * 4,
                  samples_grad * (diff_sample_flops(cfg_grad) + DIFF_ADJOINT_FLOPS))):
@@ -3281,6 +3577,66 @@ def diff_phase(torch, dev, smi: str, reset_counts, counts, diff_counts,
                 f"{kernel_ms:.4f} ms (CUDA events, best of 3), plain {plain_ms:.3f} ms "
                 f"(wall); bound {b_ms:.5f} ms ({by}: {nbytes} B, {flops} operations), "
                 f"kernel at {b_ms / kernel_ms:.4f} of its bound")
+        # the backward's breakdown by the gradients it forms, the forward's
+        # floor (every pair a miss: the list and the zero rows) and the pair
+        # list alone, as the forward launches it
+        best = lambda fn: min(event_ms(torch, fn) for _ in range(3))  # noqa: E731
+        with torch.no_grad():
+            split = diff_backward_breakdown(torch, dm, m_grad, cfg_grad, g_out, ckpt, best)
+            miss = m_full._replace(hit=torch.zeros_like(m_full.hit))
+            floor_ms = best(lambda: dm.diffmarch_forward(miss, cfg))
+            rows = torch.empty((*m_full.d0.shape, 4), dtype=torch.float32, device=dev)
+            pairs_ms = best(lambda: dm.diffmarch_pairs(m_full.hit, rows))
+            t0 = time.perf_counter()
+            want_pixels, want_counts = dm.hit_pairs_reference(m_full.hit)
+            sync()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            pixels, got_counts = dm.diffmarch_pairs(m_full.hit)
+        assert torch.equal(got_counts, want_counts)
+        index = torch.arange(pixels.shape[1], device=dev)
+        listed = torch.where(index < got_counts[:, None], pixels, -1)
+        # each kernel block's hits in pixel order, the blocks in any order
+        wrong = int((torch.sort(torch.where(listed < 0, pixels.shape[1], listed)).values
+                     != torch.where(want_pixels < 0, pixels.shape[1], want_pixels)).sum())
+        assert wrong == 0, wrong
+        hits = int(want_counts.sum())
+        nbytes = m_full.hit.numel() * (1 + 16) - 12 * hits + 4 * len(want_counts)
+        b_ms, by = bound(nbytes, 0)
+        records["diffmarch_pairs"].update(ms=pairs_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                          bound_by=by)
+        # numerics.fma on the depth's FMA site, the entry points of every
+        # (brick, pixel) pair at 1024^2, against its plain version and one
+        # torch.addcmul (which need not round once)
+        ops = (m_full.directions, m_full.d0[..., None], m_full.eye)
+        with torch.no_grad():
+            got_f = nm.fma(*ops)
+            want_f = nm.fma_reference(*ops)
+            fma_ms = best(lambda: nm.fma(*ops))
+            lib_ms = best(lambda: torch.addcmul(ops[2], ops[0], ops[1]))
+            sync()
+            t0 = time.perf_counter()
+            nm.fma_reference(*ops)
+            sync()
+            fma_plain_ms = (time.perf_counter() - t0) * 1e3
+        same, d = device_diff(got_f, want_f)
+        assert same and d == 0.0, d
+        f_bytes = sum(t.numel() * 4 for t in ops) + got_f.numel() * 4
+        f_ms, f_by = bound(f_bytes, 2 * got_f.numel())
+        records["fma"].update(max_abs_err=d, ms=fma_ms, plain_ms=fma_plain_ms,
+                              bound_ms=f_ms, bound_by=f_by, library_ms=lib_ms)
+        log(f"phase 27: {smi}: numerics.fma, {tuple(got_f.shape)} from "
+            f"{tuple(ops[0].shape)} x {tuple(ops[1].shape)} + {tuple(ops[2].shape)}: "
+            f"{fma_ms:.4f} ms (CUDA events, best of 3), vs its plain version max |diff| "
+            f"{d:.3g}, plain {fma_plain_ms:.3f} ms (wall), torch.addcmul {lib_ms:.4f} ms; "
+            f"bound {f_ms:.5f} ms ({f_by}: {f_bytes} B), at {f_ms / fma_ms:.4f} of it")
+        del ops, got_f, want_f
+        log(f"phase 27: {smi}: the backward at {grad_size}x{grad_size} by the gradients "
+            f"it forms (CUDA events, best of 3, ms): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+            + f"; the forward at {full}x{full} with every pair a miss (its floor) "
+            f"{floor_ms:.4f} ms; diffmarch_pairs alone {pairs_ms:.4f} ms ({hits} hit "
+            f"pairs of {m_full.hit.numel()}, {wrong} listed wrong), plain {plain_ms:.3f} "
+            f"ms; bound {b_ms:.5f} ms ({by}: {nbytes} B), at {b_ms / pairs_ms:.4f} of it")
     del args, m_full, m_grad, g_out, ckpt, forwards, marches
     if on_card:
         torch.cuda.empty_cache()
@@ -3339,7 +3695,7 @@ for i in (4, 6):
     args[i].requires_grad_(True)
 (data,) = ds.shard_leading(mesh, args[0])
 data = [None if d is None else d.clone().requires_grad_(True) for d in data]
-march = (dmk.diffmarch_forward, dmk.diffmarch_backward)
+march = (dmk.diffmarch_forward, dmk.diffmarch_backward, dmk.diffmarch_pairs)
 for fn in counted + march:
     fn.launches = 0
 if cuda:
@@ -3554,7 +3910,8 @@ def diff_sharded_phase(torch, dev, smi: str, reset_counts, all_counts, diff_coun
         assert not any(got.values()), got
         assert march == {"diffmarch_forward": calls if on_card else 0,
                          "diffmarch_backward": calls if on_card else 0,
-                         "diffmarch_tangent": 0}, march
+                         "diffmarch_tangent": 0,
+                         "diffmarch_pairs": calls if on_card else 0}, march
     # each march launch of (b), the single call's and each shard's, held
     # once against the plain version
     for mode, seen in marches.items():
@@ -3603,6 +3960,8 @@ def diff_sharded_phase(torch, dev, smi: str, reset_counts, all_counts, diff_coun
         f"{time.perf_counter() - t0:.3f} s; march launches {march})")
     assert np.all(terms > 0.0), terms
     assert march["diffmarch_tangent"] == (3 if on_card else 0), march
+    # each forward-mode pass: the forward and its tangent, a pair list each
+    assert march["diffmarch_pairs"] == (6 if on_card else 0), march
     assert len(tangent_calls) == 3, len(tangent_calls)
     # each tangent launch (whose output gave ``terms``) against the plain
     # version on the same inputs at DIFF_GRAD_REL of the tangent's scale
@@ -3679,10 +4038,10 @@ def diff_sharded_phase(torch, dev, smi: str, reset_counts, all_counts, diff_coun
             f"shards {saved['local'].tolist()}: forward + backward() "
             f"{rec['wall_s'] * 1e3:.3f} ms wall, peak device memory "
             f"{rec['peak_gib']} GiB, other kernels' launches {rec['launches']}, the "
-            f"march's (forward, backward) {rec['march']}")
+            f"march's (forward, backward, pair list) {rec['march']}")
         assert list(saved["local"]) == list(range(4 * r, 4 * r + 4))
         assert rec["launches"] == 0, rec
-        assert rec["march"] == ([4, 4] if on_card else [0, 0]), rec
+        assert rec["march"] == ([4, 4, 4] if on_card else [0, 0, 0]), rec
         assert np.array_equal(saved["image"], single_image), r
         hold(f"(c) rank {r}'s rows vs (b)'s single call",
              [saved["data"], saved["lut"], saved["eye"]],
@@ -3736,6 +4095,53 @@ def ptxas_report(build_log: str):
                          int(smem.group(1)) if smem else 0, *spill))
             name, spill = None, (0, 0)
     return rows
+
+
+def ptxas_lines(build_log: str):
+    """['kernel: N registers, F bytes stack frame, S bytes spill stores, L
+    bytes spill loads'] of every entry function in an ``nvcc -Xptxas -v``
+    log."""
+    import re
+
+    rows, name, frame = [], None, ""
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name, frame = m.group(1), ""
+        m = re.search(r"(\d+ bytes stack frame.*)", line)
+        if m and name:
+            frame = m.group(1).strip()
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append(f"{demangle(name)}: {m.group(1)} registers, {frame}")
+            name = None
+    return rows
+
+
+def sass_atomics(nvcc: str, flags, csrc: str, name: str, out_dir: str) -> dict:
+    """{kernel: {opcode: count}} of the atomic instructions (ATOMS, ATOMG,
+    ATOM, RED, and compare-and-swap loops, whose opcodes hold CAS) in the
+    SASS of ``csrc/<name>.cu`` built as a cubin with ``flags``
+    (``cuobjdump -sass``)."""
+    import re
+
+    os.makedirs(out_dir, exist_ok=True)
+    cubin = os.path.join(out_dir, f"{name}_atomics.cubin")
+    flags = [f for f in flags if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    subprocess.run([nvcc, *flags, "-cubin", "-o", cubin, os.path.join(csrc, f"{name}.cu")],
+                   check=True, capture_output=True, text=True)
+    sass = subprocess.run([os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass",
+                           cubin], check=True, capture_output=True, text=True).stdout
+    out = {}
+    for chunk in sass.split("Function : ")[1:]:
+        ops = {}
+        for op in re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);", chunk):
+            words = op.split()
+            code = words[1] if words[0].startswith("@") and len(words) > 1 else words[0]
+            if code.startswith(("ATOM", "RED")) or "CAS" in code:
+                ops[code] = ops.get(code, 0) + 1
+        out[demangle(chunk.split()[0])] = ops
+    return out
 
 
 def demangle(name: str) -> str:
@@ -3798,5 +4204,209 @@ def band_bytes(torch, bricks, bounds, dims, max_slices, cell_bytes=4) -> int:
     return int(touched.sum()) * 1024 * cell_bytes
 
 
+
+def diff_two_process(tree: str, repeats: int) -> list:
+    """[[rank 0 s, rank 1 s], ...]: ``repeats`` runs of phase 29 (c) from
+    ``tree`` (its ``chip_smoke.py``'s ``DIFF_RANK_RUN``: two processes on
+    this card over gloo, 4 shards each, one forward + ``backward()`` of
+    bench_orbit's field at 512^2 in a fresh process), each rank's wall."""
+    import importlib.util
+    import shutil
+    import socket
+
+    from amrvolumerenderer_torch import diff
+
+    spec = importlib.util.spec_from_file_location("tree_smoke",
+                                                  os.path.join(tree, "chip_smoke.py"))
+    tree_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tree_smoke)
+    bench = runpy.run_path(os.path.join(tree, "examples", "bench_orbit_torch.py"))
+    domain, box = 64, 32
+    field = bench["turbulence_field"](domain)
+    bricks = [(field[i:i + box, j:j + box, k:k + box], np.array([i, j, k]) / domain,
+               np.array([i + box, j + box, k + box]) / domain)
+              for i in range(0, domain, box) for j in range(0, domain, box)
+              for k in range(0, domain, box)]
+    targs, static = diff.prepare_scene(bricks, bench["orbit_cameras"](12)[0], width=512,
+                                       height=512, device="cpu")
+    base = os.path.join(tree, "build", "two_process_ab")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    scene = os.path.join(base, "scene.npz")
+    np.savez(scene, **{f"a{i}": a.numpy() for i, a in enumerate(targs)})
+    walls = []
+    for rep in range(repeats):
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        procs = []
+        for r in (0, 1):
+            cwd = os.path.join(base, f"run{rep}_rank{r}")
+            os.makedirs(cwd)
+            env = dict(os.environ, PYTHONPATH=tree,
+                       JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}", JAX_NUM_PROCESSES="2",
+                       JAX_PROCESS_ID=str(r), LOCAL_WORLD_SIZE="2", LOCAL_RANK=str(r))
+            env.pop("AVR_DISTRIBUTED", None)
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", tree_smoke.DIFF_RANK_RUN, tree, scene,
+                 json.dumps(static), "cuda"], cwd=cwd, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True))
+        row = []
+        for proc in procs:
+            out, err = proc.communicate(timeout=600)
+            assert proc.returncode == 0, err[-4000:]
+            (line,) = [x for x in out.splitlines() if x.startswith("RANK_DIFF ")]
+            row.append(json.loads(line[len("RANK_DIFF "):])["wall_s"])
+        walls.append(row)
+    return walls
+
+
+def diff_march_main(argv) -> int:
+    """``--diff-march``: the diff march's kernels of one tree on phase 27's
+    inputs (bench.py's 3-level scene through ``diff.prepare_geometry``).
+    Prints the build's ptxas lines and the SASS atomics of each kernel;
+    device ms by CUDA events, best of five: the forward at 1024^2 under
+    ``no_grad``, the same with every ``hit`` false (its floor), the pair
+    list alone, the forward at 512^2 keeping its checkpoints, and the
+    backward at 512^2 (the cotangent of ``mean(image^2)``) under each
+    ``DIFF_NEEDS`` entry; with ``--check`` each kernel against its plain
+    version on the card (the forward at max |diff| 0, the backward at
+    DIFF_GRAD_REL of each gradient's scale, the contention scene too);
+    ``--steps`` the active steps a hit pair (``diff_active_steps``);
+    ``--two-process N`` ``diff_two_process``; ``--graph-repeats N``
+    ``diff_graph_spread``.  The last line is one JSON object of the
+    figures."""
+    import argparse
+
+    ap = argparse.ArgumentParser(prog="chip_smoke.py --diff-march")
+    ap.add_argument("--tree", default=ROOT)
+    ap.add_argument("--check", action="store_true")
+    ap.add_argument("--steps", action="store_true")
+    ap.add_argument("--graph-repeats", type=int, default=0)
+    ap.add_argument("--two-process", type=int, default=0)
+    opts = ap.parse_args(argv)
+    tree = os.path.abspath(opts.tree)
+    if not os.path.isdir(os.path.join(tree, "amrvolumerenderer_torch")):
+        print(f"{tree} holds no amrvolumerenderer_torch", file=sys.stderr)
+        return 2
+    sys.path.insert(0, tree)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch.cuda.is_available() is false: this mode needs a GPU", file=sys.stderr)
+        return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()[0]
+    print(f"{tree}: {smi}", flush=True)
+    from amrvolumerenderer_torch import diff
+    from amrvolumerenderer_torch.ops import _build
+    from amrvolumerenderer_torch.ops import diffmarch as dm
+    from amrvolumerenderer_torch.renderer import auto_orbit_camera, compute_global_bounds
+
+    assert "jax" not in sys.modules and "amrvolumerenderer_tpu" not in sys.modules
+    dev = torch.device("cuda", 0)
+    result = {"tree": tree, "device": smi}
+    _build.build_all(["diffmarch"])
+    result["ptxas"] = ptxas_lines(_build.build_log.get("diffmarch", ""))
+    result["sass_atomics"] = sass_atomics(_build._nvcc(), _build.NVCC_FLAGS, _build._CSRC,
+                                          "diffmarch", os.path.join(tree, "build"))
+    for line in result["ptxas"]:
+        print("  ptxas", line)
+    for kernel, ops in result["sass_atomics"].items():
+        print(f"  SASS {kernel}: {ops}")
+
+    @contextlib.contextmanager
+    def recorded():
+        inner, seen = dm.march, []
+
+        def record(m, cfg):
+            out = inner(m, cfg)
+            entry = [m, cfg, None]
+            seen.append(entry)
+            if out.requires_grad:
+                out.register_hook(lambda g: entry.__setitem__(2, g))
+            return out
+
+        dm.march = record
+        try:
+            yield seen
+        finally:
+            dm.march = inner
+
+    geometry = three_level_geometry()
+    camera = auto_orbit_camera(compute_global_bounds(geometry))
+    args, static = diff.prepare_geometry(geometry, camera, width=1024, height=1024,
+                                         device=dev)
+    with recorded() as seen, torch.no_grad():
+        diff.render_image_diff(*args, **static)
+    (m_full, cfg, _), = seen
+    data = args[0].clone().requires_grad_(True)
+    table = args[4].clone().requires_grad_(True)
+    with recorded() as seen:
+        image = diff.render_image_diff(data, *args[1:4], table, *args[5:], remat=True,
+                                       **dict(static, width=512, height=512))
+        (image * image).mean().backward()
+    (m_grad, cfg_grad, g_out), = seen
+    m_grad = dm.MarchInputs(*(t.detach() for t in m_grad))
+    del data, table, image
+    torch.cuda.synchronize()
+
+    def best(fn, reps=5):
+        with torch.no_grad():
+            fn()
+            return min(event_ms(torch, fn) for _ in range(reps))
+
+    times = {"forward_1024": best(lambda: dm.diffmarch_forward(m_full, cfg))}
+    miss = m_full._replace(hit=torch.zeros_like(m_full.hit))
+    times["forward_1024_all_miss"] = best(lambda: dm.diffmarch_forward(miss, cfg))
+    if hasattr(dm, "diffmarch_pairs"):  # a tree with the pair list
+        times["pairs_1024"] = best(lambda: dm.diffmarch_pairs(m_full.hit))
+    times["forward_512_keep"] = best(lambda: dm.diffmarch_forward(m_grad, cfg_grad,
+                                                                  keep=True))
+    _, ckpt = dm.diffmarch_forward(m_grad, cfg_grad, keep=True)
+    times.update(diff_backward_breakdown(torch, dm, m_grad, cfg_grad, g_out, ckpt, best))
+    result["ms"] = times
+    for k, v in times.items():
+        print(f"  {k}: {v:.4f} ms", flush=True)
+    if opts.check:
+        checks = {}
+        with torch.no_grad():
+            for tag, m, c in (("1024", m_full, cfg), ("512", m_grad, cfg_grad)):
+                out, _ = dm.diffmarch_forward(m, c, keep=True)
+                plain = dm.march_forward_reference(m, c)
+                same = bool(torch.equal(torch.isfinite(out), torch.isfinite(plain)))
+                fin = torch.isfinite(plain)
+                d = float((out - plain)[fin].abs().max())
+                checks[f"forward_{tag}"] = (d, same)
+                assert same and d == 0.0, (tag, d, same)
+            for needs, rel in diff_backward_vs_plain(torch, dm, m_grad, cfg_grad, g_out,
+                                                     ckpt):
+                checks[f"backward_{needs}"] = rel
+            m_c, cfg_c = diff_contention_scene(torch, dev)
+            _, ckpt_c = dm.diffmarch_forward(m_c, cfg_c, keep=True)
+            g_c = torch.from_numpy(np.random.default_rng(3).uniform(
+                -1, 1, size=(*m_c.d0.shape, 4)).astype(np.float32)).to(dev)
+            for needs, rel in diff_backward_vs_plain(torch, dm, m_c, cfg_c, g_c, ckpt_c):
+                checks[f"contention_backward_{needs}"] = rel
+        result["checks"] = checks
+        for k, v in checks.items():
+            print(f"  check {k}: {v}", flush=True)
+        assert all(v <= DIFF_GRAD_REL for k, v in checks.items() if "backward" in k), checks
+    if opts.steps:
+        result["steps"] = diff_active_steps(torch, dm, m_full, cfg)
+        print("  active steps a hit pair (1024^2, plain):", result["steps"], flush=True)
+    if opts.two_process:
+        result["two_process_s"] = diff_two_process(tree, opts.two_process)
+        print("  two processes, each rank's wall (s):", result["two_process_s"], flush=True)
+    if opts.graph_repeats:
+        result["graph"] = diff_graph_spread(torch, diff, opts.graph_repeats)
+        print("  graph vs eager:", result["graph"], flush=True)
+        assert result["graph"]["within_1e-5"], result["graph"]
+    print(json.dumps(result))
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(diff_march_main(sys.argv[2:]) if sys.argv[1:2] == ["--diff-march"]
+             else main())

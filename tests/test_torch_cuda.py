@@ -1040,14 +1040,31 @@ def test_raymarch_kernel_matches_plain(cuda, case):
     np.testing.assert_array_equal(got[finite], want[finite])
 
 
+# the contention scene's 2^3 cells, 0.6 to 0.6035: one LUT bin of 256 over
+# [0, 1], and a gradient along every axis
+CONTENTION_CELLS = (0.6 + 0.0005 * np.fromfunction(lambda x, y, z: x + 2 * y + 4 * z,
+                                                   (2, 2, 2))).astype(np.float32)
+
+
 def diff_scene(name):
     """(args, static) of the differentiable path as NumPy arrays:
     tests/test_diff.py's 6^3 scene at 12x12 and 64 steps (its smooth LUT,
     an opaque-tail LUT whose rays saturate at alpha exactly 1, and a
-    log-scaled, normalised, soft-clipped variant), or the golden
-    manifest's r^2 scene through ``prepare_geometry``."""
+    log-scaled, normalised, soft-clipped variant, and a 1024-entry LUT, whose
+    backward's float64 copies are shared by warps), the golden manifest's
+    r^2 scene through ``prepare_geometry``, or the march's worst
+    contention: one brick of 2^3 cells (``CONTENTION_CELLS``) seen face on
+    at 64x64, so that every sample reads the same eight cells and falls
+    into one LUT bin."""
     from amrvolumerenderer_torch import diff
 
+    if name == "contention":
+        camera = CameraParameters(eye=(0.5, 0.5, 2.5), look_at=(0.5, 0.5, 0.5),
+                                  up=(0.0, 1.0, 0.0), fov_y_degrees=20.0)
+        args, static = diff.prepare_scene(
+            [(CONTENTION_CELLS, (0.0, 0.0, 0.0), (1.0, 1.0, 1.0))],
+            camera, width=64, height=64, device="cpu")
+        return tuple(a.numpy() for a in args), static
     if name == "r2":
         geometry = api.load_amr_geometry(r2_data(), 0, -1, 0, False, True,
                                          verbose=False)
@@ -1058,7 +1075,7 @@ def diff_scene(name):
         return tuple(a.numpy() for a in args), static
     rng = np.random.default_rng(11)
     data = rng.uniform(0.2, 0.8, size=(6, 6, 6)).astype(np.float32)
-    t = np.linspace(0.0, 1.0, 256)
+    t = np.linspace(0.0, 1.0, 1024 if name == "lut1024" else 256)
     lut = np.stack([t, np.full_like(t, 0.4), 1.0 - t, 0.3 * t], 1).astype(np.float32)
     scalars = (0.0, 1.0, 0.0, 0.0, 1.0)
     static = dict(width=12, height=12, num_steps=64, log_scale=False,
@@ -1176,7 +1193,8 @@ def assert_rel_close(got, want, rel=1e-4):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["test_diff", "saturating", "log", "r2"])
+@pytest.mark.parametrize("name", ["test_diff", "saturating", "log", "r2", "contention",
+                                  "lut1024"])
 def test_diffmarch_kernels_match_plain(cuda, name):
     """The differentiable march's kernels on the card against their plain
     versions: the forward at max |diff| 0 with the same non-finite pattern
@@ -1209,17 +1227,149 @@ def test_diffmarch_kernels_match_plain(cuda, name):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("which", ["both", "no_lut", "no_data", "neither"])
+@pytest.mark.parametrize("name", ["r2", "contention"])
+def test_diffmarch_backward_needs_match_plain(cuda, name, which):
+    """The backward kernel forming the data and LUT gradients or not (the
+    ``needs`` of the Function's backward): each formed gradient at 1e-4 of
+    its scale against the plain version on the card and on the CPU, the
+    others zero; on the contention scene every step adds into the same
+    eight cells and the same LUT rows."""
+    from amrvolumerenderer_torch.ops import diffmarch as dm
+
+    needs = {"both": (True, True), "no_lut": (True, False), "no_data": (False, True),
+             "neither": (False, False)}[which] + (True,) * (dm.DIFFERENTIABLE - 2)
+    m, cfg = diff_march_case(name, cuda)
+    mc = dm.MarchInputs(*(t.cpu() for t in m))
+    _, ckpt = dm.diffmarch_forward(m, cfg, keep=True)
+    grad = torch.from_numpy(np.random.default_rng(6).uniform(
+        -1, 1, size=(*m.d0.shape, 4)).astype(np.float32))
+    got = dm.diffmarch_backward(m, cfg, grad.to(cuda), ckpt, needs)
+    formed = [i for i in range(dm.DIFFERENTIABLE) if i >= 2 or needs[i]]
+    for i in range(2):
+        if needs[i]:
+            assert float(got[i].abs().max()) > 0.0
+        else:
+            assert float(got[i].abs().max()) == 0.0
+    for plain in (dm.march_backward_reference(m, cfg, grad.to(cuda), needs),
+                  dm.march_backward_reference(mc, cfg, grad, needs)):
+        assert_rel_close([got[i] for i in formed], [plain[i] for i in formed])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["r2", "contention"])
+def test_diffmarch_pairs_match_plain(cuda, name):
+    """The pair list on the card: each brick's count equal to the plain
+    version's (and to NumPy's), its listed pixels the same set (each
+    kernel block's in pixel order, the blocks in any order), and with
+    ``zero_rows`` the misses' rows zero and the hits' rows untouched."""
+    from amrvolumerenderer_torch.ops import diffmarch as dm
+
+    m, _ = diff_march_case(name, cuda)
+    pixels, counts = dm.diffmarch_pairs(m.hit)
+    want_pixels, want_counts = dm.hit_pairs_reference(m.hit.cpu())
+    hit = m.hit.cpu().numpy()
+    np.testing.assert_array_equal(counts.cpu().numpy(), hit.sum(1))
+    assert torch.equal(counts.cpu(), want_counts)
+    for b, c in enumerate(want_counts.tolist()):
+        np.testing.assert_array_equal(np.sort(pixels[b, :c].cpu().numpy()),
+                                      want_pixels[b, :c].numpy())
+    rows = torch.full((*m.hit.shape, 4), 7.0, device=cuda)
+    dm.diffmarch_pairs(m.hit, rows)
+    rows = rows.cpu().numpy()
+    assert np.all(rows[~hit] == 0.0) and np.all(rows[hit] == 7.0)
+
+
+def double_rounding_triples(n, seed=0):
+    """float32 ``(a, b, c)`` whose float64 ``a * b + c`` falls exactly
+    halfway between two float32 values while the exact sum lies just
+    beyond it: ``a = 1 + u 2^-12`` and ``b = 2^-24 (1 - u 2^-12 + u^2
+    2^-24)`` for u in 1..5 give ``a * b = 2^-24 + u^3 2^-60``, and ``c`` is
+    in +-[1, 2); where ``c``'s last bit is even a second rounding goes the
+    wrong way.  Then ``n`` random normal triples."""
+    rng = np.random.default_rng(seed)
+    u = rng.integers(1, 6, n).astype(np.float64)
+    a64 = 1.0 + u * 2.0 ** -12
+    b64 = 2.0 ** -24 * (1.0 - u * 2.0 ** -12 + u ** 2 * 2.0 ** -24)
+    a, b = a64.astype(np.float32), b64.astype(np.float32)
+    assert np.array_equal(a, a64) and np.array_equal(b, b64)  # exact in float32
+    sign = rng.choice([-1.0, 1.0], n).astype(np.float32)
+    c = (1.0 + rng.integers(0, 2 ** 23, n) * 2.0 ** -23).astype(np.float32)
+    rand = rng.standard_normal((3, n)).astype(np.float32)
+    return (np.concatenate([a * sign, rand[0]]), np.concatenate([b, rand[1]]),
+            np.concatenate([c * sign, rand[2]]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["ties", "broadcast", "special", "tracked"])
+def test_fma_kernel_matches_plain(cuda, form):
+    """``numerics.fma`` on the card (``csrc/numerics.cu``, one launch a
+    call) against its plain version ``fma_reference`` on the card and on
+    the CPU, bit for bit: on constructed double-rounding ties and random
+    triples, on broadcast operands (rows, a number, a transposed view, a
+    strided view, 0-d tensors), on special values, and with autograd
+    tracking (the value once rounded, the gradient the float64
+    expression's)."""
+    from amrvolumerenderer_torch.ops import numerics
+
+    rng = np.random.default_rng(12)
+    f = torch.float32
+    if form in ("ties", "tracked"):
+        cases = [tuple(torch.from_numpy(v) for v in double_rounding_triples(2048))]
+    elif form == "broadcast":
+        cases = [(torch.randn(50, 3), torch.randn(7, 50, 1), torch.randn(3)),
+                 (torch.randn(7, 50, 4), 0.5, torch.randn(7, 50, 4)),
+                 (torch.randn(60, 40).t(), torch.randn(40, 60), 1.0),
+                 (torch.randn(7, 50, 2, 2)[..., 0], torch.randn(7, 50, 1), torch.randn(())),
+                 (torch.tensor(2.0), 3.0, torch.tensor(1.0))]
+    else:
+        special = torch.tensor([np.inf, -np.inf, np.nan, 0.0, -0.0, 1.0, -1.5, 3.4e38,
+                                -3.4e38, 2.0 ** -60, 1e-40], dtype=f)
+        cases = [tuple(g.reshape(-1) for g in torch.meshgrid(special, special, special,
+                                                              indexing="ij"))]
+    del rng
+    for ops in cases:
+        on_card = [v.to(cuda) if isinstance(v, torch.Tensor) else v for v in ops]
+        before = numerics.fma.launches
+        if form == "tracked":
+            leaves = [v.clone().requires_grad_(True) for v in on_card]
+            got = numerics.fma(*leaves)
+            got.sum().backward()
+            ref = [v.clone().requires_grad_(True) for v in on_card]
+            (ref[0].double() * ref[1].double() + ref[2].double()).float().sum().backward()
+            for g, w in zip(leaves, ref):
+                assert torch.equal(g.grad, w.grad)
+            got = got.detach()
+        else:
+            got = numerics.fma(*on_card)
+        torch.cuda.synchronize()
+        assert numerics.fma.launches == before + 1
+        for want in (numerics.fma_reference(*on_card).cpu(), numerics.fma_reference(*ops)):
+            got_c = got.cpu()
+            assert got_c.shape == want.shape
+            assert torch.equal(torch.isnan(got_c), torch.isnan(want))
+            finite = ~torch.isnan(want)
+            assert torch.equal(got_c[finite], want[finite])
+            assert torch.equal(torch.signbit(got_c[finite]), torch.signbit(want[finite]))
+    with pytest.raises(ValueError, match="float32 tensors"):
+        numerics.fma(torch.ones(3, dtype=torch.float64, device=cuda), 1.0, 1.0)
+
+
+@pytest.mark.cuda
 def test_diffmarch_launch_counts(cuda):
     """One forward launch a call; one backward launch under reverse mode;
     forward mode launches the forward and its tangent instantiation; a
-    sharded call one of each a shard."""
+    sharded call one of each a shard; the forward and the tangent each
+    launch one pair list before them, and the backward walks the
+    forward's."""
     import torch.autograd.forward_ad as fwAD
 
     from amrvolumerenderer_torch import diff
     from amrvolumerenderer_torch.ops import diffmarch as dm
     from amrvolumerenderer_torch.parallel import directsend as ds
 
-    fns = (dm.diffmarch_forward, dm.diffmarch_backward, dm.diffmarch_tangent)
+    fns = (dm.diffmarch_forward, dm.diffmarch_backward, dm.diffmarch_tangent,
+           dm.diffmarch_pairs)
 
     def counted(fn):
         for f in fns:
@@ -1231,10 +1381,10 @@ def test_diffmarch_launch_counts(cuda):
     args, static = diff_scene("test_diff")
     targs = list(diff.args_from_arrays(args, cuda))
     with torch.no_grad():
-        assert counted(lambda: diff.render_image_diff(*targs, **static)) == [1, 0, 0]
+        assert counted(lambda: diff.render_image_diff(*targs, **static)) == [1, 0, 0, 1]
     lut = targs[4].clone().requires_grad_(True)
     assert counted(lambda: diff.render_image_diff(
-        *targs[:4], lut, *targs[5:], **static).sum().backward()) == [1, 1, 0]
+        *targs[:4], lut, *targs[5:], **static).sum().backward()) == [1, 1, 0, 1]
 
     def forward_mode():
         with fwAD.dual_level():
@@ -1242,12 +1392,12 @@ def test_diffmarch_launch_counts(cuda):
             out = diff.render_image_diff(*targs[:6], eye, *targs[7:], **static)
             assert float(fwAD.unpack_dual(out).tangent.abs().max()) > 0.0
 
-    assert counted(forward_mode) == [1, 0, 1]
+    assert counted(forward_mode) == [1, 0, 1, 2]
     bargs, bstatic = sharded_diff_scene(cuda)
     data = bargs[0].clone().requires_grad_(True)
     mesh = ds.make_mesh(4, "cuda")
     assert counted(lambda: diff.render_image_diff(
-        data, *bargs[1:], mesh=mesh, **bstatic).mean().backward()) == [4, 4, 0]
+        data, *bargs[1:], mesh=mesh, **bstatic).mean().backward()) == [4, 4, 0, 4]
 
 
 @pytest.mark.cuda

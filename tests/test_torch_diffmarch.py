@@ -38,6 +38,7 @@ from amrvolumerenderer_torch.ops import diffmarch as dm
 from test_diff import STATIC, smooth_lut
 from test_torch_diff import (CASES, GRAD_REL, assert_grads_close, jax_grads, np_args,
                              port, port_grads)
+from test_torch_cuda import diff_scene, double_rounding_triples
 from test_torch_worklist import one_torch_thread  # noqa: F401
 
 REF_REL = GRAD_REL
@@ -119,6 +120,7 @@ SCENES = {
     "saturating": lambda: captured(*CASES["saturating"]),
     "ties": tie_case,
     "parallel-misses": parallel_misses,
+    "contention": lambda: captured(*diff_scene("contention")),
 }
 
 
@@ -192,6 +194,31 @@ def test_tangent_reference_matches_forward_mode(name):
     for g in (got, through):
         assert float((g - want).abs().max()) <= REF_REL * float(want.abs().max())
         assert bool(torch.isfinite(g).all())
+
+
+@pytest.mark.parametrize("name", list(SCENES))
+def test_hit_pairs_match_numpy(name):
+    """The pair list the kernels walk, on the CPU: each brick's count and
+    hit pixels in pixel order are NumPy's, the rest of a row -1; with
+    ``zero_rows`` the misses' rows are zeroed and the hits' rows kept."""
+    m, _ = SCENES[name]()
+    hit = m.hit.numpy()
+    pixels, counts = dm.diffmarch_pairs(m.hit)
+    np.testing.assert_array_equal(counts.numpy(), np.count_nonzero(hit, axis=1))
+    for b in range(hit.shape[0]):
+        listed = np.flatnonzero(hit[b])
+        np.testing.assert_array_equal(pixels[b, :len(listed)].numpy(), listed)
+        assert np.all(pixels[b, len(listed):].numpy() == -1)
+    rows = torch.full((*m.hit.shape, 4), 7.0)
+    dm.diffmarch_pairs(m.hit, rows)
+    assert np.all(rows.numpy()[~hit] == 0.0) and np.all(rows.numpy()[hit] == 7.0)
+    if name == "contention":  # every sample: the same eight cells, one LUT bin
+        steps = [dm._step(m, cfg, float(k)) for k, cfg in
+                 ((k, SCENES[name]()[1]) for k in range(4))]
+        live = [st for st in steps if bool(st.gate.any())]
+        assert live and len({int(v) for st in live for v in st.j0[st.gate]}) == 1
+        assert len({tuple(o) for st in live
+                    for o in st.offset.flatten(-3)[st.gate].tolist()}) == 1
 
 
 def test_function_runs_the_plain_versions_on_the_cpu():
@@ -328,42 +355,21 @@ def test_tangent_matches_jax_jvp(name):
     assert np.abs(got - want).max() <= GRAD_REL * np.abs(want).max()
 
 
-def double_rounding_triples(n, seed=0):
-    """float32 ``(a, b, c)`` whose float64 ``a * b + c`` falls exactly
-    halfway between two float32 values while the exact sum lies just
-    beyond it: ``a = 1 + u 2^-12`` and ``b = 2^-24 (1 - u 2^-12 + u^2
-    2^-24)`` for u in 1..5 give ``a * b = 2^-24 + u^3 2^-60``, and ``c`` is
-    in +-[1, 2); where ``c``'s last bit is even a second rounding goes the
-    wrong way.  Then ``n`` random normal triples."""
-    rng = np.random.default_rng(seed)
-    u = rng.integers(1, 6, n).astype(np.float64)
-    a64 = 1.0 + u * 2.0 ** -12
-    b64 = 2.0 ** -24 * (1.0 - u * 2.0 ** -12 + u ** 2 * 2.0 ** -24)
-    a, b = a64.astype(np.float32), b64.astype(np.float32)
-    assert np.array_equal(a, a64) and np.array_equal(b, b64)  # exact in float32
-    sign = rng.choice([-1.0, 1.0], n).astype(np.float32)
-    c = (1.0 + rng.integers(0, 2 ** 23, n) * 2.0 ** -23).astype(np.float32)
-    rand = rng.standard_normal((3, n)).astype(np.float32)
-    return (np.concatenate([a * sign, rand[0]]), np.concatenate([b, rand[1]]),
-            np.concatenate([c * sign, rand[2]]))
-
-
 def test_position_fma_rounds_once_as_jax():
     """The march's position ``eye + direction * distance`` is one FMA in
     the jitted JAX program and in the kernel (``__fmaf_rn``): one rounding.
-    ``numerics.fma_once``, which ``_step`` forms it with, equals jitted JAX
-    bit for bit on triples where a float64 sum cast to float32 (what
-    ``numerics.fma`` computes) rounds twice, and on random ones; and on the
-    constructed case ``1 + 2^-12``, ``2^-24 (1 - 4095 2^-24)``, ``1``
-    (ROADMAP section 3) the step's position is JAX's ``1 + 2^-23``, not the
-    twice-rounded 1."""
-    from amrvolumerenderer_torch.ops.numerics import fma_once
+    ``numerics.fma``, which ``_step`` forms it with, equals jitted JAX bit
+    for bit on triples where a float64 sum cast to float32 rounds twice,
+    and on random ones; and on the constructed case ``1 + 2^-12``, ``2^-24
+    (1 - 4095 2^-24)``, ``1`` the step's position is JAX's ``1 + 2^-23``,
+    not the twice-rounded 1."""
+    from amrvolumerenderer_torch.ops.numerics import fma
 
     a, b, c = double_rounding_triples(2048)
     twice = (a.astype(np.float64) * b + c).astype(np.float32)
     want = np.asarray(jax.jit(lambda x, y, z: x * y + z)(a, b, c))
     assert 500 < int((twice != want).sum()) < 2048 - 500  # the ties the test needs
-    got = fma_once(*(torch.from_numpy(v) for v in (a, b, c))).numpy()
+    got = fma(*(torch.from_numpy(v) for v in (a, b, c))).numpy()
     np.testing.assert_array_equal(got, want)
 
     m, cfg = SCENES["random"]()
