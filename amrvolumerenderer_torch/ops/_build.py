@@ -48,7 +48,7 @@ _SIGNATURES = {
                   "avr_composite_runs_launch":
                   [_P] * 4 + [_I, _I, _I, _L, _I, _I, _P]},
     "raymarch": {"avr_raymarch_launch": [_P] * 13 + [_I] * 7 + [_P]},
-    "numerics": {"avr_fma_launch": [_P] * 4 + [_F] * 3 + [_I] + [_P] * 4 + [_I, _P]},
+    "numerics": {"avr_fma_launch": [_P] * 4 + [_F] * 3 + [_P, _P]},
     "diffmarch": {"avr_diffmarch_pairs_launch": [_P] * 4 + [_I, _I, _P],
                   "avr_diffmarch_forward_launch": [_P] * 18 + [_I] * 8 + [_F] * 4 + [_P],
                   "avr_diffmarch_tangent_launch": [_P] * 27 + [_I] * 8 + [_F] * 4 + [_P],

@@ -29,13 +29,18 @@
 // an opacity at or above 1.  A step outside the box does not stop it (d0 is
 // nudged by mesh_eps, so a later step may be inside).
 //
-// The forward (kTangent false; a thread a hit pair) writes the raw
-// accumulator [B, P, 4] and, when reverse mode will follow, the opacity
-// before steps 0, S, 2S, ... into checkpoints [C, B, P] (S = kSegment; a
-// miss has none).  The tangent instantiation carries a tangent beside the
-// accumulator: each active step's sample tangent from the same
-// intermediates (the data, LUT, ray, box and scalar tangents), then the dual
-// over step.
+// The forward (kGroups 0; a thread a hit pair) writes the raw accumulator
+// [B, P, 4] and, when reverse mode will follow, the opacity before steps 0,
+// S, 2S, ... into checkpoints [C, B, P] (S = kSegment; a miss has none).  A
+// tangent instantiation carries a tangent beside the accumulator: each
+// active step's sample tangent from the same intermediates, then the dual
+// over step.  It is instantiated for the groups of fields that carry a
+// tangent (data, LUT, the ray and box geometry, the transform's scalars:
+// kGroups), decided on the host as jax.jvp's symbolic zeros are, so that an
+// absent group costs no load, no term and no register: the eye's forward
+// mode carries the geometry alone (d0 and eye) in 128 registers, 16 warps an
+// SM, where all four groups take 153 (12 warps, in blocks of 128).  A pair
+// loads its geometry's tangents and the cell's reciprocal once.
 //
 // The backward is the exact reverse mode of the recurrence.  For an active
 // step, alpha = s.a (1 - A.a), A'.rgb = fma(s.rgb, alpha, A.rgb) and A'.a =
@@ -87,8 +92,9 @@
 // (-prec-div).  The forward equals its plain version bit for bit: the plain
 // version's numerics.fma rounds once, as __fmaf_rn does.  The tangent and the
 // backward's derivative arithmetic are float32 in another order than
-// autograd's, and the backward's own divisions (g / x, g / cell) are
-// __fdividef: both are held at 1e-4 of the gradient's scale.
+// autograd's, and their own divisions are __fdividef (g / x, g / cell) or a
+// reciprocal a pair (the tangent's / cell): both are held at 1e-4 of the
+// gradient's scale.
 
 #include <cuda_runtime.h>
 #include <float.h>
@@ -97,7 +103,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;      // hit pairs a block of the forward and the tangent
+constexpr int kThreads = 256;      // hit pairs a block of the forward
 constexpr int kBackThreads = 128;  // hit pairs a block of the backward
 constexpr int kBackWarps = kBackThreads / 32;
 constexpr int kSegment = 16;   // steps between two opacity checkpoints
@@ -139,7 +145,14 @@ struct Inputs {
   float clip_start, clip_span, clip_rspan, clip_end;
 };
 
-struct Tangents {  // the tangents of Inputs' differentiable fields
+// The tangent's groups of Inputs' differentiable fields: an instantiation
+// of the march carries the tangent terms of its groups only.  The host
+// leaves out a field that carries no tangent (a null pointer); a group is
+// present where any of its fields is.
+constexpr int kTanData = 1, kTanLut = 2, kTanGeometry = 4, kTanScalars = 8;
+constexpr int kTanAll = kTanData | kTanLut | kTanGeometry | kTanScalars;
+
+struct Tangents {  // the tangents of Inputs' differentiable fields (null: none)
   const float* data;
   const float4* luts;
   const float* d0;
@@ -338,63 +351,134 @@ __device__ __forceinline__ void sample(const Inputs& in, const Ray& r, const flo
   s.s.w = lerp(s.row0.w, s.row1.w, s.wl);
 }
 
-// The tangent of one sample (forward mode from the sample's intermediates).
+// What one pair's tangent reads once: its geometry's and the scalars'
+// tangents (0 where a field carries none) and the reciprocal cell size.
+struct RayTangent {
+  float d0, step, dir[3], eye[3], bmin[3], cell[3], rcell[3];
+  float rmin, rinv, pfloor, nmin, ninv;
+};
+
+template <int kGroups>
+__device__ __forceinline__ RayTangent load_ray_tangent(const Tangents& t, const Ray& r, int n,
+                                                       int64_t pair) {
+  RayTangent rt = {};
+  if (kGroups & kTanGeometry) {
+    rt.d0 = t.d0 != nullptr ? t.d0[pair] : 0.0f;
+    rt.step = t.steps != nullptr ? t.steps[r.b] : 0.0f;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      rt.dir[a] = t.dirs != nullptr ? t.dirs[3 * n + a] : 0.0f;
+      rt.eye[a] = t.eye != nullptr ? t.eye[a] : 0.0f;
+      rt.bmin[a] = t.bmin != nullptr ? t.bmin[3 * r.b + a] : 0.0f;
+      rt.cell[a] = t.cell != nullptr ? t.cell[3 * r.b + a] : 0.0f;
+      rt.rcell[a] = 1.0f / r.cell[a];  // one division an axis a pair
+    }
+  }
+  if (kGroups & kTanScalars) {
+    rt.rmin = t.scalars[0];
+    rt.rinv = t.scalars[1];
+    rt.pfloor = t.scalars[2];
+    rt.nmin = t.scalars[3];
+    rt.ninv = t.scalars[4];
+  }
+  return rt;
+}
+
+// The tangent of one sample (forward mode from the sample's intermediates),
+// with the terms of the groups in kGroups only.
+template <int kGroups>
 __device__ __forceinline__ float4 sample_tangent(const Inputs& in, const Tangents& t,
-                                                 const Ray& r, const Sample& s, int b,
-                                                 int n, int64_t pair, float kf,
-                                                 float dist) {
-  const float dist_t = t.d0[pair] + t.steps[b] * kf;
-  float w_t[3];
+                                                 const Ray& r, const RayTangent& rt,
+                                                 const Sample& s, float kf, float dist) {
+  constexpr bool kData = kGroups & kTanData, kGeometry = kGroups & kTanGeometry;
+  constexpr bool kScalars = kGroups & kTanScalars;
+  // the scalar's tangent exists where the data, the geometry or the
+  // transform's scalars carry one
+  constexpr bool kValue = kData || kGeometry || kScalars;
+  float v_t = 0.0f;
+  if (kData || kGeometry) {
+    float w_t[3] = {0.0f, 0.0f, 0.0f};
+    if (kGeometry) {
+      const float dist_t = rt.d0 + rt.step * kf;
 #pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    const float pos_t = t.dirs[3 * n + a] * dist + r.d[a] * dist_t + t.eye[a];
-    const float h_t =
-        ((pos_t - t.bmin[3 * b + a]) - (s.rel[a] / r.cell[a]) * t.cell[3 * b + a]) /
-        r.cell[a];
-    w_t[a] = clip_grad(s.f[a] - static_cast<float>(s.i0[a]), 0.0f, 1.0f) *
-             clip_grad(s.h[a], 0.0f, static_cast<float>(r.top[a])) * h_t;
-  }
-  const float* vol_t = t.data + b * in.cells;
-  float cx_t[4], cy_t[2];
+      for (int a = 0; a < 3; ++a) {
+        const float pos_t = rt.dir[a] * dist + r.d[a] * dist_t + rt.eye[a];
+        // d h / d(position, origin, cell): rel / cell = h + 0.5
+        const float h_t = ((pos_t - rt.bmin[a]) - (s.h[a] + 0.5f) * rt.cell[a]) * rt.rcell[a];
+        w_t[a] = clip_grad(s.f[a] - static_cast<float>(s.i0[a]), 0.0f, 1.0f) *
+                 clip_grad(s.h[a], 0.0f, static_cast<float>(r.top[a])) * h_t;
+      }
+    }
+    float cx_t[4], cy_t[2];
 #pragma unroll
-  for (int zy = 0; zy < 4; ++zy) {
-    const int z = zy >> 1, y = zy & 1;
-    const int o = s.base + z * s.oz + y * s.oy;
-    cx_t[zy] = vol_t[o] * (1.0f - s.w[0]) + vol_t[o + s.ox] * s.w[0] +
-               (s.c[zy * 2 + 1] - s.c[zy * 2]) * w_t[0];
-  }
+    for (int zy = 0; zy < 4; ++zy) {
+      cx_t[zy] = kGeometry ? (s.c[zy * 2 + 1] - s.c[zy * 2]) * w_t[0] : 0.0f;
+      if (kData) {
+        const float* vol_t = t.data + r.b * in.cells;
+        const int o = s.base + (zy >> 1) * s.oz + (zy & 1) * s.oy;
+        cx_t[zy] += vol_t[o] * (1.0f - s.w[0]) + vol_t[o + s.ox] * s.w[0];
+      }
+    }
 #pragma unroll
-  for (int z = 0; z < 2; ++z)
-    cy_t[z] = cx_t[z * 2] * (1.0f - s.w[1]) + cx_t[z * 2 + 1] * s.w[1] +
-              (s.cx[z * 2 + 1] - s.cx[z * 2]) * w_t[1];
-  float v_t = cy_t[0] * (1.0f - s.w[2]) + cy_t[1] * s.w[2] + (s.cy[1] - s.cy[0]) * w_t[2];
-  if (!s.finite) v_t = 0.0f;
-  if (in.flags & kLog) {
-    const float floor_t = t.scalars[2];
-    const float share = s.value0 < r.pfloor ? 0.0f : (s.value0 == r.pfloor ? 0.5f : 1.0f);
-    v_t = s.positive ? share * v_t + (1.0f - share) * floor_t : floor_t;
-    v_t = v_t / s.v1;
+    for (int z = 0; z < 2; ++z)
+      cy_t[z] = cx_t[z * 2] * (1.0f - s.w[1]) + cx_t[z * 2 + 1] * s.w[1] +
+                (kGeometry ? (s.cx[z * 2 + 1] - s.cx[z * 2]) * w_t[1] : 0.0f);
+    v_t = cy_t[0] * (1.0f - s.w[2]) + cy_t[1] * s.w[2] +
+          (kGeometry ? (s.cy[1] - s.cy[0]) * w_t[2] : 0.0f);
+    if (!s.finite) v_t = 0.0f;
   }
-  if (in.flags & kNormalize)
-    v_t = clip_grad(s.q2, 0.0f, 1.0f) *
-          ((v_t - t.scalars[3]) * r.ninv + (s.lv - r.nmin) * t.scalars[4]);
-  if (in.flags & kClip) v_t = clip_grad(s.value, 0.0f, in.clip_end) * v_t;
-  if ((in.flags & kSoft) && s.ins) {
-    const float m_t = v_t * in.clip_rspan;
-    v_t = (m_t * (1.0f - s.m * s.m) + (1.0f - s.m) * (2.0f * s.m) * m_t) * in.clip_span;
+  float wl_t = 0.0f;
+  if (kValue) {
+    if (in.flags & kLog) {
+      const float share = s.value0 < r.pfloor ? 0.0f : (s.value0 == r.pfloor ? 0.5f : 1.0f);
+      v_t = s.positive ? share * v_t + (1.0f - share) * rt.pfloor : rt.pfloor;
+      v_t = __fdividef(v_t, s.v1);  // log's rule
+    }
+    if (in.flags & kNormalize)
+      v_t = clip_grad(s.q2, 0.0f, 1.0f) *
+            ((v_t - rt.nmin) * r.ninv + (s.lv - r.nmin) * rt.ninv);
+    if (in.flags & kClip) v_t = clip_grad(s.value, 0.0f, in.clip_end) * v_t;
+    if ((in.flags & kSoft) && s.ins) {
+      const float m_t = v_t * in.clip_rspan;
+      v_t = (m_t * (1.0f - s.m * s.m) + (1.0f - s.m) * (2.0f * s.m) * m_t) * in.clip_span;
+    }
+    const float q_t = (v_t - rt.rmin) * r.rinv + (s.scalar - r.rmin) * rt.rinv;
+    const float u_t = clip_grad(s.n, 0.0f, 1.0f) * clip_grad(s.q, 0.0f, 1.0f) * q_t *
+                      static_cast<float>(in.lut_entries - 1);
+    wl_t = clip_grad(s.u - static_cast<float>(s.j0), 0.0f, 1.0f) * u_t;
   }
-  const float q_t = (v_t - t.scalars[0]) * r.rinv + (s.scalar - r.rmin) * t.scalars[1];
-  const float u_t = clip_grad(s.n, 0.0f, 1.0f) * clip_grad(s.q, 0.0f, 1.0f) * q_t *
-                    static_cast<float>(in.lut_entries - 1);
-  const float wl_t = clip_grad(s.u - static_cast<float>(s.j0), 0.0f, 1.0f) * u_t;
-  const float4* lut_t = t.luts + static_cast<int64_t>(b) * in.lut_entries;
-  const float4 a0 = lut_t[s.j0], a1 = lut_t[s.j1];
-  float4 st;
-  st.x = a0.x * (1.0f - s.wl) + a1.x * s.wl + (s.row1.x - s.row0.x) * wl_t;
-  st.y = a0.y * (1.0f - s.wl) + a1.y * s.wl + (s.row1.y - s.row0.y) * wl_t;
-  st.z = a0.z * (1.0f - s.wl) + a1.z * s.wl + (s.row1.z - s.row0.z) * wl_t;
-  st.w = a0.w * (1.0f - s.wl) + a1.w * s.wl + (s.row1.w - s.row0.w) * wl_t;
+  float4 st = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (kValue) {
+    st.x = (s.row1.x - s.row0.x) * wl_t;
+    st.y = (s.row1.y - s.row0.y) * wl_t;
+    st.z = (s.row1.z - s.row0.z) * wl_t;
+    st.w = (s.row1.w - s.row0.w) * wl_t;
+  }
+  if (kGroups & kTanLut) {
+    const float4* lut_t = t.luts + static_cast<int64_t>(r.b) * in.lut_entries;
+    const float4 a0 = lut_t[s.j0], a1 = lut_t[s.j1];
+    st.x += a0.x * (1.0f - s.wl) + a1.x * s.wl;
+    st.y += a0.y * (1.0f - s.wl) + a1.y * s.wl;
+    st.z += a0.z * (1.0f - s.wl) + a1.z * s.wl;
+    st.w += a0.w * (1.0f - s.wl) + a1.w * s.wl;
+  }
   return st;
+}
+
+// Threads a block and blocks an SM that each instantiation of the march
+// asks for (__launch_bounds__): the forward 256 x 3 (64 registers); a
+// tangent without the data's and the LUT's terms 256 x 2 (128 registers);
+// the others 128 x 3: every group's 153 registers in 12 warps an SM, where
+// blocks of 256 fit one (8 warps), without the spills that 128 registers
+// cost it (chip_smoke.py --diff-march)
+__host__ __device__ constexpr bool heavy_tangent(int groups) {
+  return (groups & (kTanData | kTanLut)) != 0;
+}
+__host__ __device__ constexpr int march_threads(int groups) {
+  return heavy_tangent(groups) ? 128 : kThreads;
+}
+__host__ __device__ constexpr int march_blocks(int groups) {
+  return groups == 0 ? 3 : (heavy_tangent(groups) ? 3 : 2);
 }
 
 constexpr unsigned kFull = 0xffffffffu;
@@ -444,14 +528,18 @@ __global__ void __launch_bounds__(kListThreads)
   }
 }
 
-// One hit pair's march, from the list: brick b, pixel n.
-template <bool kTangent>
+// One hit pair's march, from the list: brick b, pixel n.  kGroups: the
+// tangent groups carried beside the value (0: the forward alone).
+template <int kGroups>
 __device__ __forceinline__ void march_pair(const Inputs& in, const Tangents& t, int b, int n,
                                            float4* out, float4* out_tangent, float* ckpt) {
+  constexpr bool kTangent = kGroups != 0;
   const int64_t pair = static_cast<int64_t>(b) * in.num_pixels + n;
   float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   float4 acc_t = acc;
   const Ray r = load_ray(in, b, n, pair);
+  RayTangent rt;
+  if (kTangent) rt = load_ray_tangent<kGroups>(t, r, n, pair);
   const bool rising = !(r.step < 0.0f);  // distances never decrease
   int next = 0;  // the next checkpoint to write
   for (int k = 0; k < in.num_steps; ++k) {
@@ -469,7 +557,7 @@ __device__ __forceinline__ void march_pair(const Inputs& in, const Tangents& t, 
     sample(in, r, p, s);
     const float alpha = s.s.w * (1.0f - acc.w);
     if (kTangent) {
-      const float4 st = sample_tangent(in, t, r, s, b, n, pair, kf, dist);
+      const float4 st = sample_tangent<kGroups>(in, t, r, rt, s, kf, dist);
       const float alpha_t = st.w * (1.0f - acc.w) - s.s.w * acc_t.w;
       acc_t.x = acc_t.x + (st.x * alpha + s.s.x * alpha_t);
       acc_t.y = acc_t.y + (st.y * alpha + s.s.y * alpha_t);
@@ -490,15 +578,16 @@ __device__ __forceinline__ void march_pair(const Inputs& in, const Tangents& t, 
 
 // A thread a hit pair of brick blockIdx.y's list, the brick's blocks
 // striding over it; the misses have their zero rows from the list's kernel.
-template <bool kTangent>
-__global__ void __launch_bounds__(kThreads, kTangent ? 1 : 3)
+template <int kGroups>
+__global__ void __launch_bounds__(march_threads(kGroups), march_blocks(kGroups))
     diffmarch_forward_kernel(Inputs in, Tangents t, const int* list, const int* counts,
                              float4* out, float4* out_tangent, float* ckpt) {
+  constexpr int kBlock = march_threads(kGroups);
   const int b = blockIdx.y;
   const int count = counts[b];
   const int64_t row = static_cast<int64_t>(b) * in.num_pixels;
-  for (int i = blockIdx.x * kThreads + threadIdx.x; i < count; i += gridDim.x * kThreads)
-    march_pair<kTangent>(in, t, b, list[row + i], out, out_tangent, ckpt);
+  for (int i = blockIdx.x * kBlock + threadIdx.x; i < count; i += gridDim.x * kBlock)
+    march_pair<kGroups>(in, t, b, list[row + i], out, out_tangent, ckpt);
 }
 
 // The reverse of one active step with opacity ``Aa`` before it: updates the
@@ -824,10 +913,11 @@ dim3 grid_of(int num_bricks, int num_pixels, int per_block) {
 }
 
 // A march kernel's grid: a row of blocks a brick, at most a block a
-// ``per_block`` pixels, about kGridBlocks in all
+// ``per_block`` pixels, about kGridBlocks blocks of kThreads threads in all
 dim3 march_grid(int num_bricks, int num_pixels, int per_block) {
   const int most = (num_pixels + per_block - 1) / per_block;
-  return dim3(max(1, min(most, (kGridBlocks + num_bricks - 1) / num_bricks)), num_bricks);
+  const int total = kGridBlocks * (kThreads / per_block);
+  return dim3(max(1, min(most, (total + num_bricks - 1) / num_bricks)), num_bricks);
 }
 
 Tangents make_tangents(const void* const* p) {
@@ -842,6 +932,23 @@ Tangents make_tangents(const void* const* p) {
   t.cell = static_cast<const float*>(p[7]);
   t.scalars = static_cast<const float*>(p[8]);
   return t;
+}
+
+// The tangent instantiation of ``groups`` (1 to kTanAll).
+template <int kGroups>
+cudaError_t launch_tangent(int groups, cudaStream_t stream, const Inputs& in,
+                           const Tangents& t, const int* list, const int* counts, float4* out,
+                           float4* out_tangent) {
+  if (groups == kGroups) {
+    constexpr int kBlock = march_threads(kGroups);
+    diffmarch_forward_kernel<kGroups>
+        <<<march_grid(in.num_bricks, in.num_pixels, kBlock), kBlock, 0, stream>>>(
+            in, t, list, counts, out, out_tangent, nullptr);
+    return cudaGetLastError();
+  }
+  if constexpr (kGroups < kTanAll)
+    return launch_tangent<kGroups + 1>(groups, stream, in, t, list, counts, out, out_tangent);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -878,7 +985,7 @@ extern "C" int avr_diffmarch_forward_launch(
                                 clip_rspan, clip_end);
   if (num_bricks <= 0 || num_pixels <= 0) return 0;
   const Tangents none = {};
-  diffmarch_forward_kernel<false>
+  diffmarch_forward_kernel<0>
       <<<march_grid(num_bricks, num_pixels, kThreads), kThreads, 0,
          static_cast<cudaStream_t>(stream)>>>(
           in, none, static_cast<const int*>(list), static_cast<const int*>(counts),
@@ -906,13 +1013,16 @@ extern "C" int avr_diffmarch_tangent_launch(
   if (num_bricks <= 0 || num_pixels <= 0) return 0;
   const void* tptrs[9] = {data_t, luts_t, d0_t, dirs_t, eye_t, steps_t, bmin_t, cell_t,
                           scalars_t};
-  diffmarch_forward_kernel<true>
-      <<<march_grid(num_bricks, num_pixels, kThreads), kThreads, 0,
-         static_cast<cudaStream_t>(stream)>>>(
-          in, make_tangents(tptrs), static_cast<const int*>(list),
-          static_cast<const int*>(counts), static_cast<float4*>(out),
-          static_cast<float4*>(out_tangent), nullptr);
-  return static_cast<int>(cudaGetLastError());
+  const int groups = (data_t != nullptr ? kTanData : 0) | (luts_t != nullptr ? kTanLut : 0) |
+                     (d0_t != nullptr || dirs_t != nullptr || eye_t != nullptr ||
+                              steps_t != nullptr || bmin_t != nullptr || cell_t != nullptr
+                          ? kTanGeometry
+                          : 0) |
+                     (scalars_t != nullptr ? kTanScalars : 0);
+  return static_cast<int>(launch_tangent<1>(
+      groups, static_cast<cudaStream_t>(stream), in, make_tangents(tptrs),
+      static_cast<const int*>(list), static_cast<const int*>(counts), static_cast<float4*>(out),
+      static_cast<float4*>(out_tangent)));
 }
 
 extern "C" int avr_diffmarch_backward_launch(

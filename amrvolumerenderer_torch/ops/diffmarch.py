@@ -16,7 +16,9 @@ accumulator of every (brick, pixel) pair.
   (the exact reverse mode of the march, replayed from opacity checkpoints
   the forward keeps every ``CHECKPOINT_EVERY`` steps) and the forward-mode
   rule ``diffmarch_tangent`` (the forward kernel carrying a tangent beside
-  each value).  A failed
+  each value, instantiated for the groups of fields that carry one: ``march``
+  reads them off the dual level on the host, and the others' terms do not
+  exist, as jax.jvp's symbolic zeros).  A failed
   build or launch raises: no input routes the card to the plain versions.
 * On the CPU the same Function runs ``march_forward_reference`` (the step
   the eager loop ran, op for op), ``march_backward_reference`` (the same
@@ -391,17 +393,18 @@ def march_backward_reference(m: MarchInputs, cfg: MarchConfig, grad: Tensor,
 
 
 def march_tangent_reference(m: MarchInputs, cfg: MarchConfig,
-                            tangents: Sequence[Tensor]) -> Tensor:
+                            tangents: Sequence[Optional[Tensor]]) -> Tensor:
     """Forward mode of the march (``jax.jvp``'s counterpart): the tangent
     of the raw accumulator for ``tangents`` of ``MarchInputs``'
-    differentiable fields, by torch's forward mode through
-    ``march_forward_reference``.  Inside the Function's ``jvp`` a dual
-    level is already open (with forward gradients off), and this one runs
-    in it."""
+    differentiable fields (None: a field that carries none, whose terms do
+    not exist, as jax.jvp's symbolic zeros), by torch's forward mode
+    through ``march_forward_reference``.  Inside the Function's ``jvp`` a
+    dual level is already open (with forward gradients off), and this one
+    runs in it."""
     open_level = fwAD._current_level >= 0
     with (contextlib.nullcontext() if open_level else fwAD.dual_level()), \
             fwAD._set_fwd_grad_enabled(True):
-        duals = [fwAD.make_dual(t.detach(), d.to(t.device, t.dtype))
+        duals = [t.detach() if d is None else fwAD.make_dual(t.detach(), d.to(t.device, t.dtype))
                  for t, d in zip(m[:DIFFERENTIABLE], tangents)]
         out = march_forward_reference(MarchInputs(*duals, *m[DIFFERENTIABLE:]), cfg)
         tangent = fwAD.unpack_dual(out).tangent
@@ -554,24 +557,30 @@ diffmarch_forward.launches = 0
 
 
 def diffmarch_tangent(m: MarchInputs, cfg: MarchConfig,
-                      tangents: Sequence[Tensor]) -> Tensor:
+                      tangents: Sequence[Optional[Tensor]]) -> Tensor:
     """The tangent ``[B, P, 4]`` of the raw accumulator for ``tangents``
-    (one a differentiable field of ``MarchInputs``).  A CUDA ``m``
-    launches the pair list (``diffmarch_pairs``, the misses' zero rows) and
-    the forward kernel's tangent instantiation, counted in
-    ``diffmarch_tangent.launches``; a CPU ``m`` runs
-    ``march_tangent_reference``."""
+    (one a differentiable field of ``MarchInputs``, None where the field
+    carries none).  A CUDA ``m`` launches the pair list
+    (``diffmarch_pairs``, the misses' zero rows) and the forward kernel's
+    tangent instantiation for the groups of fields given (data, LUT, the
+    ray and box geometry, the scalars), counted in
+    ``diffmarch_tangent.launches``; with no field given the tangent is 0
+    and nothing launches.  A CPU ``m`` runs ``march_tangent_reference``."""
     dev = m.data.device
     if dev.type == "cpu":
         return march_tangent_reference(m, cfg, tangents)
     if dev.type != "cuda":
         raise ValueError(f"diffmarch_tangent has no kernel for {dev}")
     _check(m)
-    tangents = [t.to(dev, torch.float32).contiguous() for t in tangents]
+    tangents = [None if t is None else t.to(dev, torch.float32).contiguous()
+                for t in tangents]
     for name, t, ref in zip(MarchInputs._fields, tangents, m):
-        require(t, f"{name} tangent", torch.float32, tuple(ref.shape), dev)
-    if tangents[1].data_ptr() % 16:
+        if t is not None:
+            require(t, f"{name} tangent", torch.float32, tuple(ref.shape), dev)
+    if tangents[1] is not None and tangents[1].data_ptr() % 16:
         raise ValueError("the LUT tangent must be 16-byte aligned (float4 reads)")
+    if all(t is None for t in tangents):
+        return torch.zeros((*m.d0.shape, 4), dtype=torch.float32, device=dev)
     out_t = torch.empty((*m.d0.shape, 4), dtype=torch.float32, device=dev)
     if out_t.numel() == 0:
         return out_t
@@ -581,8 +590,8 @@ def diffmarch_tangent(m: MarchInputs, cfg: MarchConfig,
     lib = _build.load("diffmarch")
     _raise(lib.avr_diffmarch_tangent_launch(
         *(t.data_ptr() for t in m), pixels.data_ptr(), counts.data_ptr(),
-        *(t.data_ptr() for t in tangents), None, out_t.data_ptr(), *_launch_args(m, cfg),
-        _stream(dev)), "tangent")
+        *(None if t is None else t.data_ptr() for t in tangents), None, out_t.data_ptr(),
+        *_launch_args(m, cfg), _stream(dev)), "tangent")
     diffmarch_tangent.launches += 1
     return out_t
 
@@ -653,10 +662,10 @@ class _March(torch.autograd.Function):
     kernel on the card and a plain version on the CPU."""
 
     @staticmethod
-    def forward(ctx, cfg, keep, *tensors):
+    def forward(ctx, cfg, keep, carried, *tensors):
         m = MarchInputs(*tensors)
         accum, kept = diffmarch_forward(m, cfg, keep)
-        ctx.cfg = cfg
+        ctx.cfg, ctx.carried = cfg, carried
         ctx.save_for_backward(*m, *(() if kept is None else kept))
         ctx.save_for_forward(*m)
         return accum
@@ -667,22 +676,27 @@ class _March(torch.autograd.Function):
         saved = ctx.saved_tensors
         n = len(MarchInputs._fields)
         kept = Kept(*saved[n:]) if len(saved) > n else None
-        needs = ctx.needs_input_grad[2:2 + DIFFERENTIABLE]
+        needs = ctx.needs_input_grad[3:3 + DIFFERENTIABLE]
         grads = diffmarch_backward(MarchInputs(*saved[:n]), ctx.cfg, grad, kept, needs)
-        return (None, None, *(g if need else None for g, need in zip(grads, needs)),
+        return (None, None, None, *(g if need else None for g, need in zip(grads, needs)),
                 *(None,) * (len(MarchInputs._fields) - DIFFERENTIABLE))
 
     @staticmethod
-    def jvp(ctx, _cfg, _keep, *tangents):
-        # autograd hands zeros for a float input that carries no tangent
+    def jvp(ctx, _cfg, _keep, _carried, *tangents):
+        # autograd hands zeros for a float input that carries no tangent:
+        # those fields go as None, so their terms do not exist
         return diffmarch_tangent(MarchInputs(*ctx.saved_tensors), ctx.cfg,
-                                 tangents[:DIFFERENTIABLE])
+                                 [t if c else None for t, c in zip(tangents, ctx.carried)])
 
 
 def march(m: MarchInputs, cfg: MarchConfig) -> Tensor:
     """The raw accumulator ``[B, P, 4]`` of the march, differentiable in
     reverse and forward mode in ``m``'s first ``DIFFERENTIABLE`` fields.
     The forward keeps the backward kernel's checkpoints only when reverse
-    mode will differentiate it."""
+    mode will differentiate it; under forward mode the tangent takes only
+    the fields that carry one at the current level.  Both are host facts:
+    nothing reads the device."""
     keep = torch.is_grad_enabled() and any(t.requires_grad for t in m[:DIFFERENTIABLE])
-    return _March.apply(cfg, keep, *m)
+    carried = ((True,) * DIFFERENTIABLE if fwAD._current_level < 0 else
+               tuple(fwAD.unpack_dual(t).tangent is not None for t in m[:DIFFERENTIABLE]))
+    return _March.apply(cfg, keep, carried, *m)

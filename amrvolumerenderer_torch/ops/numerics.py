@@ -25,6 +25,8 @@ differentiable path (``diff``).
 from __future__ import annotations
 
 import functools
+import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -162,27 +164,37 @@ _LOW29, _HALF_ULP32 = (1 << 29) - 1, 1 << 28
 def fma_reference(a, b, c) -> Tensor:
     """The plain version of ``fma``'s value, on any device: float32 ``a * b
     + c`` rounded once.  The float64 product of two float32 values is
-    exact.  The float64 sum is rounded to odd before the one float32 cast:
-    truncated towards zero, then its last bit set where it was inexact
-    (TwoSum's error term).  float64 carries 29 bits beyond float32's 24, so
-    a sum rounded to odd casts as the exact sum would; a sum rounded to
-    nearest would round twice where it falls exactly halfway between two
-    float32 values.  Where no sum is such a midpoint, that is the cast.  No
-    derivatives."""
-    a64, b64, c64 = (_f64(v.detach() if isinstance(v, Tensor) else v) for v in (a, b, c))
-    p = a64 * b64  # exact
-    s = torch.as_tensor(p + c64)
-    # the cast rounds twice only at a float32 midpoint: 2^28 in the low 29
-    # bits of a float64 in float32's normal range, or a float32 subnormal
-    mag = s.abs()
-    if not bool(((s.view(torch.int64) & _LOW29) == _HALF_ULP32).logical_or_(
-            (mag < MIN_NORMAL) & (mag > 0.0)).any()):
-        return s.float()
-    back = s - p
-    err = (p - (s - back)) + (c64 - back)  # p + c == s + err exactly (NaN past inf)
-    e = err * torch.sign(s)  # exact: negative where s lies beyond the exact sum
-    bits = (s.view(torch.int64) - (e < 0.0).long()) | (e.abs() > 0.0).long()
-    return bits.view(torch.float64).float()
+    exact, so one float64 ``addcmul`` rounds the exact sum once, and its
+    float32 cast rounds it again.  The two roundings differ from one only
+    where the float64 sum lies exactly halfway between two float32 values:
+    2^28 in its low 29 bits in float32's normal range, or a nonzero sum at
+    or below float32's least normal magnitude.  Only those elements take
+    the exact form: the float64 sum rounded to odd (truncated towards
+    zero, its last bit set where it was inexact, by TwoSum's error term),
+    which float64's 29 bits beyond float32's 24 cast as the exact sum
+    would.  No derivatives."""
+    dev = next((v.device for v in (a, b, c)
+                if isinstance(v, Tensor) and v.device.type != "cpu"), torch.device("cpu"))
+    a64, b64, c64 = (v.detach().to(dev, torch.float64) if isinstance(v, Tensor) else
+                     torch.tensor(float(v), dtype=torch.float64, device=dev) for v in (a, b, c))
+    s = torch.addcmul(c64, a64, b64)  # one rounding: the product is exact
+    if s.dim() == 0:
+        return fma_reference(a64[None], b64[None], c64[None])[0]
+    out = s.float()
+    flag = (s.view(torch.int64) & _LOW29) == _HALF_ULP32
+    flag |= (out.abs() <= MIN_NORMAL) & (s != 0.0)
+    if not bool(flag.any()):
+        return out
+    at = flag.nonzero(as_tuple=True)
+    x, y, z = (v.expand(s.shape)[at] for v in (a64, b64, c64))
+    p = x * y  # exact
+    t = s[at]
+    back = t - p
+    err = (p - (t - back)) + (z - back)  # p + z == t + err exactly (NaN past inf)
+    e = err * torch.sign(t)  # exact: negative where t lies beyond the exact sum
+    bits = (t.view(torch.int64) - (e < 0.0).long()) | (e.abs() > 0.0).long()
+    out[at] = bits.view(torch.float64).float()
+    return out
 
 
 def fma(a, b, c) -> Tensor:
@@ -251,14 +263,10 @@ fma.launches = 0
 
 def fma_layout(ops, dev):
     """How ``fma``'s kernel walks its operands on ``dev``: ``(tensors,
-    values, shape, sizes, strides, flat)``.  ``shape`` is the broadcast
-    of the tensor operands' shapes; each tensor operand on ``dev`` goes as
-    itself with a stride a dimension (0 where it broadcasts), each number
-    (or 0-d tensor elsewhere) as None and its value; ``sizes`` and
-    ``strides`` (row-major, element strides) merge the dimensions that every
-    operand steps across as one run and drop those of size 1; ``flat``:
-    every tensor operand is contiguous in ``shape``.  The walk depends only
-    on the operands' shapes and strides, and is planned once for each."""
+    values, walk)``.  Each tensor operand on ``dev`` goes as itself, each
+    number (or 0-d tensor elsewhere) as None and its value; ``walk`` is the
+    ``FmaWalk`` that ``_fma_plan`` makes from the operands' shapes, strides
+    and 16-byte alignment, once for each."""
     tensors, values, specs = [], [], []
     for v in ops:
         if isinstance(v, Tensor) and (v.device == dev or v.dim() > 0):
@@ -267,7 +275,7 @@ def fma_layout(ops, dev):
                                  f"{v.dtype} tensor on {v.device}")
             tensors.append(v)
             values.append(0.0)
-            specs.append((v.shape, v.stride(), v.is_contiguous()))
+            specs.append((v.shape, v.stride(), v.data_ptr() % 16 == 0))
         else:
             x = float(v)
             if float(np.float32(x)) != x and x == x:
@@ -275,13 +283,100 @@ def fma_layout(ops, dev):
             tensors.append(None)
             values.append(x)
             specs.append(None)
-    return (tensors, values) + _fma_plan(tuple(specs))
+    return tensors, values, _fma_plan(tuple(specs))
+
+
+# how the kernel reads an operand over a thread's run of FMA_RUN outputs
+# (csrc/numerics.cu): one scalar load an output, one 16-byte load, or one
+# load for the whole run
+GENERAL, VECTOR, CONSTANT = 0, 1, 2
+FMA_RUN = 4  # consecutive outputs a thread writes (csrc/numerics.cu kRun)
+_FMA_DIMS = 8  # csrc/numerics.cu kDims
+# threads a launch aims at when it splits a looped dimension into chunks:
+# two waves of 2048 threads on each of the H100's 132 SMs
+_FMA_THREADS = 2 * 2048 * 132
+
+
+class FmaWalk(NamedTuple):
+    """``fma``'s walk of its output, planned on the host.  The output of
+    ``shape`` is ``loop`` rows of ``inner`` = prod(``sizes``) elements
+    (``loop`` is 1 unless an operand repeats along the outermost dimension
+    and ``inner`` is a multiple of FMA_RUN).  A thread writes one run of
+    FMA_RUN consecutive elements of a row (the last run of a row may be
+    shorter: a scalar tail) in ``chunk`` consecutive rows.  Per operand
+    (None for a number): its element strides over ``sizes`` and along the
+    rows, and how it is read over a run (``modes``)."""
+    shape: torch.Size
+    loop: int
+    chunk: int
+    sizes: tuple  # row-major, merged, no dimension of size 1 (at least one)
+    divisors: tuple  # (magic, shift) of each size: fma_divide
+    strides: tuple
+    loop_strides: tuple
+    modes: tuple
+    wide: bool  # 64-bit offsets
+
+    @property
+    def inner(self) -> int:
+        return math.prod(self.sizes)
+
+
+def fma_divisor(d: int):
+    """``(magic, shift)`` such that ``fma_divide(n, magic, shift) == n //
+    d`` for every ``n`` below 2^31 and ``d`` in [1, 2^31): the division the
+    kernel makes with a multiply-high, an add and a shift (PyTorch's
+    ``IntDivider``)."""
+    shift = max(d - 1, 0).bit_length()
+    return ((1 << 32) * ((1 << shift) - d)) // d + 1, shift
+
+
+def fma_divide(n: int, magic: int, shift: int) -> int:
+    """``(__umulhi(n, magic) + n) >> shift`` in 32-bit unsigned arithmetic."""
+    return (((n * magic) >> 32) + n) >> shift
+
+
+def _merge(sizes, strides):
+    """Merge dimension d into d + 1 where every operand steps across both
+    as one run, and drop dimensions of size 1 (keeping one)."""
+    sizes, strides = list(sizes), [list(st) for st in strides]
+    for d in range(len(sizes) - 2, -1, -1):
+        if all(st[d] == st[d + 1] * sizes[d + 1] for st in strides):
+            sizes[d + 1] *= sizes[d]
+            del sizes[d]
+            for st in strides:
+                del st[d]
+    keep = [k for k, n in enumerate(sizes) if n != 1] or [len(sizes) - 1]
+    return [sizes[k] for k in keep], [[st[k] for k in keep] for st in strides]
+
+
+def _mode(sizes, strides, loop_stride, aligned) -> int:
+    """How an operand with ``strides`` over ``sizes`` is read over a run:
+    CONSTANT where the run lies within a block of the innermost dimensions
+    over which its stride is 0, VECTOR where it lies within a block over
+    which the operand is contiguous and every such block starts 16 bytes
+    aligned, GENERAL otherwise."""
+    inner = math.prod(sizes)
+    zero = contiguous = 1
+    for n, st in zip(reversed(sizes), reversed(strides)):
+        if st != 0:
+            break
+        zero *= n
+    if zero % FMA_RUN == 0 or zero == inner:
+        return CONSTANT
+    d = len(sizes) - 1
+    while d >= 0 and strides[d] == contiguous:
+        contiguous *= sizes[d]
+        d -= 1
+    if ((contiguous % FMA_RUN == 0 or contiguous == inner) and aligned
+            and all(st % FMA_RUN == 0 for st in (*strides[:d + 1], loop_stride))):
+        return VECTOR
+    return GENERAL
 
 
 @functools.lru_cache(maxsize=1024)
-def _fma_plan(specs):
-    """``(shape, sizes, strides, flat)`` of ``fma_layout`` from each
-    operand's ``(shape, strides, contiguous)``, or None for a number."""
+def _fma_plan(specs) -> FmaWalk:
+    """``fma_layout``'s ``FmaWalk`` from each operand's ``(shape, strides,
+    16-byte aligned)``, or None for a number."""
     shapes = [sp[0] for sp in specs if sp is not None]
     ndim = max(len(sh) for sh in shapes)
     shape = []
@@ -292,28 +387,45 @@ def _fma_plan(specs):
             raise ValueError(f"fma operands of shapes {shapes} do not broadcast")
         shape.append(n)
     shape = torch.Size(shape)
-    flat = all(sp is None or (sp[2] and sp[0] == shape) for sp in specs)
-    sizes = list(shape) or [1]
+    tensor_specs = [sp for sp in specs if sp is not None]
     strides = []
-    for sp in specs:
-        st = [0] * len(sizes)
-        if sp is not None:
-            for d in range(len(sp[0])):
-                k = d + ndim - len(sp[0])
-                if sp[0][d] == shape[k] and shape[k] != 1:
-                    st[k] = sp[1][d]
+    for sp in tensor_specs:
+        st = [0] * max(ndim, 1)
+        for d in range(len(sp[0])):
+            k = d + ndim - len(sp[0])
+            if sp[0][d] == shape[k] and shape[k] != 1:
+                st[k] = sp[1][d]
         strides.append(st)
-    # merge dimension d into d + 1 where every operand steps across both as
-    # one run
-    for d in range(len(sizes) - 2, -1, -1):
-        if all(st[d] == st[d + 1] * sizes[d + 1] for st in strides):
-            sizes[d + 1] *= sizes[d]
-            del sizes[d]
-            for st in strides:
-                del st[d]
-    keep = [k for k, n in enumerate(sizes) if n != 1] or [0]
-    return (shape, tuple(sizes[k] for k in keep),
-            tuple(tuple(st[k] for k in keep) for st in strides), flat)
+    sizes, strides = _merge(list(shape) or [1], strides)
+    # loop over the outermost dimension where an operand repeats along it
+    # (its values stay in the thread's registers) and rows keep runs aligned
+    loop, loop_strides = 1, [0] * len(strides)
+    if (len(sizes) > 1 and any(st[0] == 0 for st in strides)
+            and math.prod(sizes[1:]) % FMA_RUN == 0):
+        loop, sizes = sizes[0], sizes[1:]
+        loop_strides = [st[0] for st in strides]
+        strides = [st[1:] for st in strides]
+    if len(sizes) > _FMA_DIMS:
+        raise ValueError(f"fma takes at most {_FMA_DIMS} dimensions that do not merge, "
+                         f"not {len(sizes)}")
+    inner = math.prod(sizes)
+    runs = -(-inner // FMA_RUN)
+    chunks = min(loop, max(1, -(-_FMA_THREADS // runs)))
+    chunk = max(-(-loop // chunks), -(-loop // 65535))  # at most 65535 grid rows
+    numel = math.prod(shape)
+    reach = max([numel] + [sum((n - 1) * s for n, s in zip((loop, *sizes), (ls, *st))) + 1
+                           for st, ls in zip(strides, loop_strides)])
+    found = iter(zip(tensor_specs, strides, loop_strides))
+    per_op = []
+    for sp in specs:
+        if sp is None:
+            per_op.append((None, None, None))
+            continue
+        _, st, ls = next(found)
+        per_op.append((tuple(st), ls, _mode(sizes, st, ls, sp[2])))
+    return FmaWalk(shape, loop, chunk, tuple(sizes),
+                   tuple(fma_divisor(n) for n in sizes), *zip(*per_op),
+                   reach >= 2 ** 31)
 
 
 def _fma_launch(*ops) -> Tensor:
@@ -321,17 +433,13 @@ def _fma_launch(*ops) -> Tensor:
     from . import _build
 
     dev = next(v.device for v in ops if isinstance(v, Tensor) and v.device.type == "cuda")
-    tensors, values, shape, sizes, strides, flat = fma_layout(ops, dev)
-    out = torch.empty(shape, dtype=torch.float32, device=dev)
+    tensors, values, walk = fma_layout(ops, dev)
+    out = torch.empty(walk.shape, dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
-    if len(sizes) > _FMA_DIMS:
-        raise ValueError(f"fma on {dev} takes at most {_FMA_DIMS} dimensions that do not "
-                         f"merge, not {len(sizes)}")
     rc = _build.load("numerics").avr_fma_launch(
         *(None if t is None else t.data_ptr() for t in tensors), out.data_ptr(), *values,
-        len(sizes), *_fma_arrays(sizes, strides), int(flat),
-        torch.cuda.current_stream(dev).cuda_stream)
+        _fma_array(walk), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fma kernel launch failed: CUDA error {rc}")
     fma.launches += 1
@@ -339,15 +447,22 @@ def _fma_launch(*ops) -> Tensor:
 
 
 @functools.lru_cache(maxsize=1024)
-def _fma_arrays(sizes, strides):
-    """The kernel's int64 size and stride arrays, made once for each walk."""
+def _fma_array(walk: FmaWalk):
+    """The kernel's plan (csrc/numerics.cu ``avr_fma_launch``): int64 words
+    ndim, loop, chunk, wide; per operand its mode (-1: a number) and its
+    loop stride; then kDims sizes, magics, shifts and each operand's
+    strides."""
     import ctypes
 
-    arr = ctypes.c_int64 * _FMA_DIMS
-    return (arr(*sizes), *(arr(*st) for st in strides))
-
-
-_FMA_DIMS = 8  # csrc/numerics.cu kDims
+    pad = lambda v: list(v) + [0] * (_FMA_DIMS - len(v))  # noqa: E731
+    words = [len(walk.sizes), walk.loop, walk.chunk, int(walk.wide)]
+    words += [-1 if m is None else m for m in walk.modes]
+    words += [ls or 0 for ls in walk.loop_strides]
+    words += pad(walk.sizes) + pad([m for m, _ in walk.divisors])
+    words += pad([s for _, s in walk.divisors])
+    for st in walk.strides:
+        words += pad(st or ())
+    return (ctypes.c_int64 * len(words))(*words)
 
 
 def exp(x: Tensor) -> Tensor:

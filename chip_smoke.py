@@ -2423,11 +2423,17 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated() / 2 ** 30  # what earlier phases hold
     reset_counts()  # counted run: the raymarch route's main path
-    with recorded_folds() as fold_rec, recorded_marches(rnd, "raymarch") as march_rec:
+    with recorded_folds() as fold_rec, recorded_marches(rnd, "raymarch") as march_rec, \
+            recorded_fmas(nm) as ray_fmas:
         wall_ms, rc = synced_ms(lambda: amrvolumerenderer_torch.render(
             plotfile, width=full, height=full, output=png_ray,
             render_method="raymarch"))
     got = counts()
+    assert nm.fma.launches == len(ray_fmas) > 0, (nm.fma.launches, len(ray_fmas))
+    log(f"phase 25: {smi}: the raymarch frame's {len(ray_fmas)} numerics.fma launches "
+        "(its ray set-up) by launch shape (CUDA events, best of 3): "
+        + fma_times_line(fma_launch_times(torch, nm, ray_fmas)))
+    del ray_fmas
     launches["raymarch"] = ray_fn.launches
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     launches["composite_pixels_raymarch"] = got["composite_pixels"]
@@ -2991,17 +2997,131 @@ def diff_sample_flops(cfg) -> int:
     return flops + (13 if cfg.apply_clip else 0)
 
 
-def diff_tangent_flops(cfg) -> int:
+# the tangent kernel's groups of differentiable fields (csrc/diffmarch.cu
+# kTanData, kTanLut, kTanGeometry, kTanScalars), by MarchInputs field
+TANGENT_GROUPS = {"data": "data", "luts": "lut", "d0": "geometry",
+                  "directions": "geometry", "eye": "geometry", "steps": "geometry",
+                  "bmin": "geometry", "cell": "geometry", "scalars": "scalars"}
+ALL_TANGENT_GROUPS = frozenset(TANGENT_GROUPS.values())
+
+
+def tangent_groups(dm, tangents) -> frozenset:
+    """The groups of the fields that carry a tangent (not None)."""
+    return frozenset(TANGENT_GROUPS[f] for f, t in zip(dm.MarchInputs._fields, tangents)
+                     if t is not None)
+
+
+def diff_tangent_flops(cfg, groups=ALL_TANGENT_GROUPS) -> int:
     """float32 operations of one valid sample of diffmarch.cu's tangent
-    instantiation: the forward's sample (``diff_sample_flops``) and its
-    tangent, counted by hand (an FMA counts 2, a compare 1): the distance
-    (2), per axis the position, the cell coordinate and the weight with its
-    two clip rules (78), the seven lerps (49), the range (5), the LUT
-    coordinate and weight with their clip rules (26), the LUT lerp (28) and
-    the dual over step (17); the normalisation adds 13, the log 8 and the
-    soft tail 18."""
-    flops = diff_sample_flops(cfg) + 205 + (13 if cfg.normalize else 0)
-    return flops + (8 if cfg.log_scale else 0) + (18 if cfg.apply_clip else 0)
+    instantiation for ``groups``: the forward's sample
+    (``diff_sample_flops``) and the tangent terms those groups need,
+    counted by hand (an FMA counts 2, a compare 1): the dual over step
+    (17) always; the LUT rows' lerp (14) with the LUT; the scalar's chain
+    where the data, the geometry or the scalars carry a tangent (the LUT
+    coordinate and weight with their clip rules 26, the value's part of the
+    LUT lerp 14, the range 5; the normalisation 13, the log 8 and the soft
+    tail 18 where the march applies them); the three lerps after the first
+    four (21) with the data or the geometry; the first four lerps' data
+    terms (16) with the data; the distance (2), per axis the position, the
+    cell coordinate and the weight with its two clip rules (78) and the
+    first four lerps' weight terms (12) with the geometry.  All four groups
+    give 205 beyond the sample and the transform's terms."""
+    flops = diff_sample_flops(cfg) + 17
+    if "lut" in groups:
+        flops += 14
+    if groups & {"data", "geometry", "scalars"}:
+        flops += 45 + (13 if cfg.normalize else 0) + (8 if cfg.log_scale else 0)
+        flops += 18 if cfg.apply_clip else 0
+    if groups & {"data", "geometry"}:
+        flops += 21
+    if "data" in groups:
+        flops += 16
+    if "geometry" in groups:
+        flops += 92
+    return flops
+
+
+@contextlib.contextmanager
+def recorded_tangents(dm):
+    """``[(m, cfg, tangents, out)]`` of every ``diffmarch_tangent`` call
+    inside the block (the march's ``jvp`` calls it through the module).
+    The wrapper counts its launches on the module's own name, so that name
+    is the wrapper again while each call runs."""
+    inner, seen = dm.diffmarch_tangent, []
+
+    def record(m, cfg, tangents):
+        dm.diffmarch_tangent = inner
+        try:
+            out = inner(m, cfg, tangents)
+        finally:
+            dm.diffmarch_tangent = record
+        seen.append((m, cfg, tangents, out))
+        return out
+
+    dm.diffmarch_tangent = record
+    try:
+        yield seen
+    finally:
+        dm.diffmarch_tangent = inner
+
+
+@contextlib.contextmanager
+def recorded_fmas(nm):
+    """The operands of every ``numerics.fma`` kernel launch inside the
+    block (``nm._fma_launch``), in order; the launches still go through the
+    counted wrapper."""
+    inner, seen = nm._fma_launch, []
+
+    def record(*ops):
+        seen.append(ops)
+        return inner(*ops)
+
+    nm._fma_launch = record
+    try:
+        yield seen
+    finally:
+        nm._fma_launch = inner
+
+
+def fma_launch_times(torch, nm, launches, reps: int = 3) -> list:
+    """Each distinct ``numerics.fma`` launch of ``launches`` (operand
+    shapes, strides and numbers): its count, the kernel's device ms and one
+    ``torch.addcmul``'s on the same operands (numbers as 0-d tensors; it
+    need not round once), both by CUDA events, best of ``reps``, and its
+    byte bound (each tensor operand's elements read once, the output written
+    once)."""
+    shapes = {}
+    for ops in launches:
+        key = tuple((tuple(v.shape), v.stride()) if isinstance(v, torch.Tensor) else "number"
+                    for v in ops)
+        shapes.setdefault(key, [ops, 0])[1] += 1
+    rows = []
+    best = lambda fn: min(event_ms(torch, fn) for _ in range(reps))  # noqa: E731
+    for key, (ops, count) in shapes.items():
+        dev = next(v.device for v in ops if isinstance(v, torch.Tensor))
+        lib = [v if isinstance(v, torch.Tensor) else torch.tensor(v, device=dev) for v in ops]
+        with torch.no_grad():
+            out = nm.fma(*ops)
+            ms = best(lambda: nm.fma(*ops))
+            lib_ms = best(lambda: torch.addcmul(lib[2], lib[0], lib[1]))
+        nbytes = sum(v.numel() * 4 for v in ops if isinstance(v, torch.Tensor))
+        b_ms, _ = bound(nbytes + out.numel() * 4, 2 * out.numel())
+        rows.append(dict(out=tuple(out.shape), ops=[k if k == "number" else list(k[0])
+                                                   for k in key],
+                         count=count, ms=ms, addcmul_ms=lib_ms, bound_ms=b_ms))
+    return rows
+
+
+def fma_times_line(rows) -> str:
+    """``fma_launch_times``' rows as one log line, with the sum a call."""
+    total = sum(r["count"] * r["ms"] for r in rows)
+    lib = sum(r["count"] * r["addcmul_ms"] for r in rows)
+    return ("; ".join(f"{r['out']} from {' x '.join(str(o) for o in r['ops'][:2])} + "
+                      f"{r['ops'][2]} x{r['count']}: {r['ms']:.4f} ms, addcmul "
+                      f"{r['addcmul_ms']:.4f}, bound {r['bound_ms']:.5f} (at "
+                      f"{r['bound_ms'] / r['ms']:.4f})" for r in rows)
+            + f"; sum a call {total:.4f} ms (addcmul {lib:.4f}) over "
+            f"{sum(r['count'] for r in rows)} launches")
 
 
 # the backward's adjoint of one valid sample beyond the forward sample it
@@ -3483,11 +3603,12 @@ def diff_phase(torch, dev, smi: str, reset_counts, counts, diff_counts,
     del image
     (m_full, cfg, _), = forwards
     reset_counts()  # checked run: each fma launch of the same call held at once
-    with checked_fmas() as fmas, torch.no_grad():
+    with checked_fmas() as fmas, recorded_fmas(nm) as fma_ops, torch.no_grad():
         diff.render_image_diff(*args, **static)
     sync()
     expect(f"phase 27: the {full}x{full} forward (checked run)", 1, 0)
     hold_fmas(f"phase 27: the {full}x{full} forward (checked run)", fmas)
+    assert len(fma_ops) == len(fmas), (len(fma_ops), len(fmas))
     _, _, samples_full = hold_forward(f"phase 27: the {full}x{full} frame's march",
                                       m_full, cfg, plain_cpu=False)
     small = dict(static, width=grad_size, height=grad_size)
@@ -3629,6 +3750,11 @@ def diff_phase(torch, dev, smi: str, reset_counts, counts, diff_counts,
             f"{fma_ms:.4f} ms (CUDA events, best of 3), vs its plain version max |diff| "
             f"{d:.3g}, plain {fma_plain_ms:.3f} ms (wall), torch.addcmul {lib_ms:.4f} ms; "
             f"bound {f_ms:.5f} ms ({f_by}: {f_bytes} B), at {f_ms / fma_ms:.4f} of it")
+        # every distinct fma launch of the full-size call, each against its
+        # byte bound and one torch.addcmul on the same operands
+        log(f"phase 27: {smi}: the {len(fma_ops)} numerics.fma launches of the "
+            f"{full}x{full} call by launch shape (CUDA events, best of 3): "
+            + fma_times_line(fma_launch_times(torch, nm, fma_ops)))
         del ops, got_f, want_f
         log(f"phase 27: {smi}: the backward at {grad_size}x{grad_size} by the gradients "
             f"it forms (CUDA events, best of 3, ms): "
@@ -3637,6 +3763,7 @@ def diff_phase(torch, dev, smi: str, reset_counts, counts, diff_counts,
             f"{floor_ms:.4f} ms; diffmarch_pairs alone {pairs_ms:.4f} ms ({hits} hit "
             f"pairs of {m_full.hit.numel()}, {wrong} listed wrong), plain {plain_ms:.3f} "
             f"ms; bound {b_ms:.5f} ms ({by}: {nbytes} B), at {b_ms / pairs_ms:.4f} of it")
+    del fma_ops
     del args, m_full, m_grad, g_out, ckpt, forwards, marches
     if on_card:
         torch.cuda.empty_cache()
@@ -3861,14 +3988,8 @@ def diff_sharded_phase(torch, dev, smi: str, reset_counts, all_counts, diff_coun
              data_rtol=False)
 
     # (b) full width: bench_orbit's field, 8 bricks of 32^3, at size^2
-    bench = runpy.run_path(os.path.join(ROOT, "examples", "bench_orbit_torch.py"))
-    field = bench["turbulence_field"](domain)
-    camera = bench["orbit_cameras"](12)[0]
     box = 32
-    bricks = [(field[i:i + box, j:j + box, k:k + box],
-               np.array([i, j, k]) / domain, np.array([i + box, j + box, k + box]) / domain)
-              for i in range(0, domain, box) for j in range(0, domain, box)
-              for k in range(0, domain, box)]
+    bricks, camera = bench_orbit_scene(ROOT, domain, box)
     targs, static = diff.prepare_scene(bricks, camera, width=size, height=size,
                                        device="cpu")
     args = tuple(a.numpy() for a in targs)
@@ -3936,26 +4057,16 @@ def diff_sharded_phase(torch, dev, smi: str, reset_counts, all_counts, diff_coun
     assert np.array_equal(image, single_image)
     assert ALPHA_FRACTION[0] < covered < ALPHA_FRACTION[1], covered
     reset_counts()  # counted run: forward mode, one tangent launch an eye component
-    # the march's jvp recorded around it (the wrapper it calls counts its
-    # launches under its own name, so it stays in place)
-    inner_jvp, tangent_calls = vars(dm._March)["jvp"], []
-
-    def record_jvp(ctx, *args):
-        out = inner_jvp.__func__(ctx, *args)
-        tangent_calls.append((dm.MarchInputs(*(t.detach() for t in ctx.saved_tensors)),
-                              ctx.cfg, [t.detach().clone()
-                                        for t in args[2:2 + dm.DIFFERENTIABLE]],
-                              out.detach().clone()))
-        return out
-
-    dm._March.jvp = staticmethod(record_jvp)
-    try:
+    # the march's tangent calls recorded around it
+    with recorded_tangents(dm) as seen:
         t0 = time.perf_counter()
         terms = eye_terms(args, static, dev)
         sync()
         march = diff_counts()
-    finally:
-        dm._March.jvp = inner_jvp
+    tangent_calls = [(dm.MarchInputs(*(t.detach() for t in m)), cfg,
+                      [None if t is None else t.detach().clone() for t in tangents],
+                      out.detach().clone()) for m, cfg, tangents, out in seen]
+    del seen
     log(f"phase 29: (b) eye terms' sums {terms} (forward mode on {dev}, "
         f"{time.perf_counter() - t0:.3f} s; march launches {march})")
     assert np.all(terms > 0.0), terms
@@ -3964,37 +4075,61 @@ def diff_sharded_phase(torch, dev, smi: str, reset_counts, all_counts, diff_coun
     assert march["diffmarch_pairs"] == (6 if on_card else 0), march
     assert len(tangent_calls) == 3, len(tangent_calls)
     # each tangent launch (whose output gave ``terms``) against the plain
-    # version on the same inputs at DIFF_GRAD_REL of the tangent's scale
+    # version on the same inputs, the same fields given, at DIFF_GRAD_REL of
+    # the tangent's scale; the eye's terms carry the geometry's tangents
+    # alone (the first distance and the eye)
     record = dict(launches=march["diffmarch_tangent"], max_abs_err=0.0)
     for c, (m, cfg, tangents, got) in enumerate(tangent_calls):
+        carried = [f for f, t in zip(dm.MarchInputs._fields, tangents) if t is not None]
+        assert carried == ["d0", "eye"], carried
         sync()
         t0 = time.perf_counter()
         want = dm.march_tangent_reference(m, cfg, tangents)
         sync()
         plain_ms = (time.perf_counter() - t0) * 1e3
         err, scale = float((got - want).abs().max()), float(want.abs().max())
-        log(f"phase 29: (b) eye component {c}'s tangent launch vs plain on {dev}: "
-            f"max |diff| {err:.3g}, over max |t| {err / scale:.3g}; plain {plain_ms:.3f} "
-            f"ms (wall)")
+        log(f"phase 29: (b) eye component {c}'s tangent launch (fields {carried}) vs "
+            f"plain on {dev}: max |diff| {err:.3g}, over max |t| {err / scale:.3g}; plain "
+            f"{plain_ms:.3f} ms (wall)")
         assert scale > 0.0 and err <= DIFF_GRAD_REL * scale, (c, err, scale)
         record["max_abs_err"] = max(record["max_abs_err"], err)
         record.setdefault("plain_ms", plain_ms)
     if on_card:
+        # the first launch's inputs: the eye's tangent, every field's seeded
+        # tangent (held against the plain version too) and the forward alone
         m, cfg, tangents, _ = tangent_calls[0]
+        rng = np.random.default_rng(23)
+        every = [torch.from_numpy(rng.standard_normal(tuple(t.shape)).astype(np.float32)).to(
+            dev) for t in m[:dm.DIFFERENTIABLE]]
         with torch.no_grad():
             _, samples = dm.march_forward_reference(m, cfg, count_samples=True)
-            kernel_ms = min(event_ms(torch, lambda: dm.diffmarch_tangent(m, cfg, tangents))
-                            for _ in range(3))
-        nbytes = (sum(t.numel() * t.element_size() for t in (*m, *tangents))
-                  + m.d0.numel() * 16)
-        flops = int(samples) * diff_tangent_flops(cfg)
-        b_ms, by = bound(nbytes, flops)
-        record.update(ms=kernel_ms, bound_ms=b_ms, bound_by=by)
+            got = dm.diffmarch_tangent(m, cfg, every)
+            want = dm.march_tangent_reference(m, cfg, every)
+            best = lambda fn: min(event_ms(torch, fn) for _ in range(3))  # noqa: E731
+            times = {"eye": best(lambda: dm.diffmarch_tangent(m, cfg, tangents)),
+                     "every field": best(lambda: dm.diffmarch_tangent(m, cfg, every)),
+                     "forward": best(lambda: dm.diffmarch_forward(m, cfg))}
+        err, scale = float((got - want).abs().max()), float(want.abs().max())
+        assert scale > 0.0 and err <= DIFF_GRAD_REL * scale, (err, scale)
+        bounds = {}
+        for label, given in (("eye", tangents), ("every field", every)):
+            groups = tangent_groups(dm, given)
+            nbytes = (sum(t.numel() * t.element_size() for t in m)
+                      + sum(t.numel() * 4 for t in given if t is not None) + m.d0.numel() * 16)
+            flops = int(samples) * diff_tangent_flops(cfg, groups)
+            bounds[label] = bound(nbytes, flops) + (nbytes, flops, sorted(groups))
+        b_ms, by = bounds["eye"][:2]
+        record.update(ms=times["eye"], bound_ms=b_ms, bound_by=by)
         log(f"phase 29: {smi}: diffmarch_tangent, {m.d0.shape[0]} bricks x "
             f"{m.d0.shape[1]} pixels, {cfg.num_steps} steps, {int(samples)} valid "
-            f"samples: {kernel_ms:.4f} ms (CUDA events, best of 3), plain "
-            f"{record['plain_ms']:.3f} ms (wall); bound {b_ms:.5f} ms ({by}: {nbytes} B, "
-            f"{flops} operations), kernel at {b_ms / kernel_ms:.4f} of its bound")
+            f"samples (CUDA events, best of 3): the eye's tangent {times['eye']:.4f} ms, "
+            f"every field's seeded tangent {times['every field']:.4f} ms (vs plain max "
+            f"|diff| over max |t| {err / scale:.3g}), the forward alone on the same inputs "
+            f"{times['forward']:.4f} ms; plain {record['plain_ms']:.3f} ms (wall); "
+            + "; ".join(f"{label}: groups {g}, bound {bm:.5f} ms ({bb}: {nb} B, {fl} "
+                        f"operations), kernel at {bm / times[label]:.4f} of it"
+                        for label, (bm, bb, nb, fl, g) in bounds.items()))
+        del every, got, want
     del tangent_calls
     assert all(np.abs(g).max() > 0.0 for g in single)
     hold("(b) 8 shards vs the single call", sharded, single, terms)
@@ -4205,6 +4340,19 @@ def band_bytes(torch, bricks, bounds, dims, max_slices, cell_bytes=4) -> int:
 
 
 
+def bench_orbit_scene(tree: str, domain: int = 64, box: int = 32):
+    """``(bricks, camera)`` of phase 29 (b): the field of ``tree``'s
+    examples/bench_orbit_torch.py at ``--domain`` as bricks of ``box``^3,
+    seen from its orbit's first camera."""
+    bench = runpy.run_path(os.path.join(tree, "examples", "bench_orbit_torch.py"))
+    field = bench["turbulence_field"](domain)
+    bricks = [(field[i:i + box, j:j + box, k:k + box], np.array([i, j, k]) / domain,
+               np.array([i + box, j + box, k + box]) / domain)
+              for i in range(0, domain, box) for j in range(0, domain, box)
+              for k in range(0, domain, box)]
+    return bricks, bench["orbit_cameras"](12)[0]
+
+
 def diff_two_process(tree: str, repeats: int) -> list:
     """[[rank 0 s, rank 1 s], ...]: ``repeats`` runs of phase 29 (c) from
     ``tree`` (its ``chip_smoke.py``'s ``DIFF_RANK_RUN``: two processes on
@@ -4220,15 +4368,8 @@ def diff_two_process(tree: str, repeats: int) -> list:
                                                   os.path.join(tree, "chip_smoke.py"))
     tree_smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(tree_smoke)
-    bench = runpy.run_path(os.path.join(tree, "examples", "bench_orbit_torch.py"))
-    domain, box = 64, 32
-    field = bench["turbulence_field"](domain)
-    bricks = [(field[i:i + box, j:j + box, k:k + box], np.array([i, j, k]) / domain,
-               np.array([i + box, j + box, k + box]) / domain)
-              for i in range(0, domain, box) for j in range(0, domain, box)
-              for k in range(0, domain, box)]
-    targs, static = diff.prepare_scene(bricks, bench["orbit_cameras"](12)[0], width=512,
-                                       height=512, device="cpu")
+    targs, static = diff.prepare_scene(*bench_orbit_scene(tree), width=512, height=512,
+                                       device="cpu")
     base = os.path.join(tree, "build", "two_process_ab")
     shutil.rmtree(base, ignore_errors=True)
     os.makedirs(base)
@@ -4261,17 +4402,43 @@ def diff_two_process(tree: str, repeats: int) -> list:
     return walls
 
 
+def diff_tangent_case(torch, tree: str, dev):
+    """``(m, cfg, tangents)`` of phase 29 (b)'s first tangent launch, as the
+    package in ``tree`` makes it: the forward mode of the eye's first
+    component through ``render_image_diff`` on bench_orbit's field at
+    ``--domain 64`` (8 bricks of 32^3) at 512^2."""
+    import torch.autograd.forward_ad as fwAD
+
+    from amrvolumerenderer_torch import diff
+    from amrvolumerenderer_torch.ops import diffmarch as dm
+
+    targs, static = diff.prepare_scene(*bench_orbit_scene(tree), width=512, height=512,
+                                       device=dev)
+    with recorded_tangents(dm) as seen, torch.no_grad(), fwAD.dual_level():
+        full = list(targs)
+        full[6] = fwAD.make_dual(targs[6], torch.eye(3, device=dev)[0])
+        diff.render_image_diff(*full, remat=False, **static)
+    (m, cfg, tangents, _), = seen
+    return (dm.MarchInputs(*(t.detach() for t in m)), cfg,
+            [None if t is None else t.detach() for t in tangents])
+
+
 def diff_march_main(argv) -> int:
     """``--diff-march``: the diff march's kernels of one tree on phase 27's
     inputs (bench.py's 3-level scene through ``diff.prepare_geometry``).
     Prints the build's ptxas lines and the SASS atomics of each kernel;
     device ms by CUDA events, best of five: the forward at 1024^2 under
     ``no_grad``, the same with every ``hit`` false (its floor), the pair
-    list alone, the forward at 512^2 keeping its checkpoints, and the
-    backward at 512^2 (the cotangent of ``mean(image^2)``) under each
-    ``DIFF_NEEDS`` entry; with ``--check`` each kernel against its plain
-    version on the card (the forward at max |diff| 0, the backward at
-    DIFF_GRAD_REL of each gradient's scale, the contention scene too);
+    list alone, the forward at 512^2 keeping its checkpoints, the backward
+    at 512^2 (the cotangent of ``mean(image^2)``) under each
+    ``DIFF_NEEDS`` entry, and the tangent on phase 29 (b)'s first launch
+    (``diff_tangent_case``: the eye's fields, then every field's seeded
+    tangent) beside the forward on the same inputs; best of three, every
+    distinct ``numerics.fma`` launch of the 1024^2 call and of a raymarch
+    frame of the same scene at 1024^2 (``fma_launch_times``); with
+    ``--check`` each kernel against its plain version on the card (the
+    forward at max |diff| 0, the backward and the tangent at DIFF_GRAD_REL
+    of each output's scale, the contention scene too);
     ``--steps`` the active steps a hit pair (``diff_active_steps``);
     ``--two-process N`` ``diff_two_process``; ``--graph-repeats N``
     ``diff_graph_spread``.  The last line is one JSON object of the
@@ -4302,12 +4469,17 @@ def diff_march_main(argv) -> int:
     from amrvolumerenderer_torch import diff
     from amrvolumerenderer_torch.ops import _build
     from amrvolumerenderer_torch.ops import diffmarch as dm
-    from amrvolumerenderer_torch.renderer import auto_orbit_camera, compute_global_bounds
+    from amrvolumerenderer_torch.ops import numerics as nm
+    from amrvolumerenderer_torch.renderer import (auto_orbit_camera, compute_global_bounds,
+                                                  render_scene)
+    from amrvolumerenderer_torch.types import RenderParameters
 
     assert "jax" not in sys.modules and "amrvolumerenderer_tpu" not in sys.modules
     dev = torch.device("cuda", 0)
     result = {"tree": tree, "device": smi}
-    _build.build_all(["diffmarch"])
+    _build.build_all(["diffmarch", "numerics", "raymarch", "composite"])
+    for line in ptxas_lines(_build.build_log.get("numerics", "")):
+        print("  ptxas", line)
     result["ptxas"] = ptxas_lines(_build.build_log.get("diffmarch", ""))
     result["sass_atomics"] = sass_atomics(_build._nvcc(), _build.NVCC_FLAGS, _build._CSRC,
                                           "diffmarch", os.path.join(tree, "build"))
@@ -4338,9 +4510,12 @@ def diff_march_main(argv) -> int:
     camera = auto_orbit_camera(compute_global_bounds(geometry))
     args, static = diff.prepare_geometry(geometry, camera, width=1024, height=1024,
                                          device=dev)
-    with recorded() as seen, torch.no_grad():
+    with recorded() as seen, recorded_fmas(nm) as fma_ops, torch.no_grad():
         diff.render_image_diff(*args, **static)
     (m_full, cfg, _), = seen
+    with recorded_fmas(nm) as ray_fmas:
+        render_scene("", RenderParameters(width=1024, height=1024), geometry, verbose=False,
+                     method="raymarch", device=dev)
     data = args[0].clone().requires_grad_(True)
     table = args[4].clone().requires_grad_(True)
     with recorded() as seen:
@@ -4366,9 +4541,20 @@ def diff_march_main(argv) -> int:
                                                                   keep=True))
     _, ckpt = dm.diffmarch_forward(m_grad, cfg_grad, keep=True)
     times.update(diff_backward_breakdown(torch, dm, m_grad, cfg_grad, g_out, ckpt, best))
+    m_t, cfg_t, eye_t = diff_tangent_case(torch, tree, dev)
+    rng = np.random.default_rng(23)
+    every = [torch.from_numpy(rng.standard_normal(tuple(t.shape)).astype(np.float32)).to(dev)
+             for t in m_t[:dm.DIFFERENTIABLE]]
+    times["tangent_eye_512"] = best(lambda: dm.diffmarch_tangent(m_t, cfg_t, eye_t))
+    times["tangent_every_512"] = best(lambda: dm.diffmarch_tangent(m_t, cfg_t, every))
+    times["forward_tangent_inputs_512"] = best(lambda: dm.diffmarch_forward(m_t, cfg_t))
     result["ms"] = times
     for k, v in times.items():
         print(f"  {k}: {v:.4f} ms", flush=True)
+    for key, launches in (("fma_1024", fma_ops), ("fma_raymarch_1024", ray_fmas)):
+        result[key] = fma_launch_times(torch, nm, launches)
+        print(f"  {key}: " + fma_times_line(result[key]), flush=True)
+    del fma_ops, ray_fmas
     if opts.check:
         checks = {}
         with torch.no_grad():
@@ -4389,10 +4575,16 @@ def diff_march_main(argv) -> int:
                 -1, 1, size=(*m_c.d0.shape, 4)).astype(np.float32)).to(dev)
             for needs, rel in diff_backward_vs_plain(torch, dm, m_c, cfg_c, g_c, ckpt_c):
                 checks[f"contention_backward_{needs}"] = rel
+            for tag, given in (("eye", eye_t), ("every", every)):
+                got = dm.diffmarch_tangent(m_t, cfg_t, given)
+                want = dm.march_tangent_reference(m_t, cfg_t, given)
+                checks[f"tangent_{tag}"] = float((got - want).abs().max()) / float(
+                    want.abs().max())
         result["checks"] = checks
         for k, v in checks.items():
             print(f"  check {k}: {v}", flush=True)
-        assert all(v <= DIFF_GRAD_REL for k, v in checks.items() if "backward" in k), checks
+        assert all(v <= DIFF_GRAD_REL for k, v in checks.items()
+                   if "backward" in k or "tangent" in k), checks
     if opts.steps:
         result["steps"] = diff_active_steps(torch, dm, m_full, cfg)
         print("  active steps a hit pair (1024^2, plain):", result["steps"], flush=True)

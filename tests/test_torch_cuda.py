@@ -1184,6 +1184,13 @@ def diff_march_case(name, dev):
     return case
 
 
+# fields that carry a tangent: the eye's forward mode (the first distance
+# and the eye), the data alone, the LUT alone, every field
+TANGENT_MASKS = {"eye": ("d0", "eye"), "data": ("data",), "lut": ("luts",),
+                 "all": ("data", "luts", "d0", "directions", "eye", "steps", "bmin", "cell",
+                         "scalars")}
+
+
 def assert_rel_close(got, want, rel=1e-4):
     """Each pair at ``rel`` of the reference's scale (``DIFF_GRAD_REL``)."""
     for g, w in zip(got, want):
@@ -1201,7 +1208,9 @@ def test_diffmarch_kernels_match_plain(cuda, name):
     (on the card and on the CPU), the backward (from the forward's
     checkpoints) and the tangent at 1e-4 of each output's scale against the
     plain versions on the card and on the CPU (the kernels add with
-    atomics, in another order)."""
+    atomics, in another order); the tangent for the fields of each of
+    ``TANGENT_MASKS`` (the others None: their terms compiled out), against
+    the plain version given the same fields."""
     from amrvolumerenderer_torch.ops import diffmarch as dm
 
     m, cfg = diff_march_case(name, cuda)
@@ -1218,12 +1227,15 @@ def test_diffmarch_kernels_match_plain(cuda, name):
     assert all(float(g.abs().max()) > 0.0 for g in got[:2])
     assert_rel_close(got, dm.march_backward_reference(m, cfg, grad.to(cuda)))
     assert_rel_close(got, dm.march_backward_reference(mc, cfg, grad))
-    tangents = [torch.from_numpy(rng.standard_normal(tuple(t.shape)).astype(np.float32))
-                for t in mc[:dm.DIFFERENTIABLE]]
-    got_t = dm.diffmarch_tangent(m, cfg, [t.to(cuda) for t in tangents])
-    assert_rel_close([got_t], [dm.march_tangent_reference(
-        m, cfg, [t.to(cuda) for t in tangents])])
-    assert_rel_close([got_t], [dm.march_tangent_reference(mc, cfg, tangents)])
+    every = [torch.from_numpy(rng.standard_normal(tuple(t.shape)).astype(np.float32))
+             for t in mc[:dm.DIFFERENTIABLE]]
+    for fields in TANGENT_MASKS.values():
+        tangents = [t if f in fields else None
+                    for f, t in zip(dm.MarchInputs._fields, every)]
+        on_card = [None if t is None else t.to(cuda) for t in tangents]
+        got_t = dm.diffmarch_tangent(m, cfg, on_card)
+        assert_rel_close([got_t], [dm.march_tangent_reference(m, cfg, on_card)])
+        assert_rel_close([got_t], [dm.march_tangent_reference(mc, cfg, tangents)])
 
 
 @pytest.mark.cuda
@@ -1301,15 +1313,20 @@ def double_rounding_triples(n, seed=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("form", ["ties", "broadcast", "special", "tracked"])
+@pytest.mark.parametrize("form", ["ties", "broadcast", "special", "tracked", "diff-walks",
+                                  "straddle", "unaligned", "scalar-positions"])
 def test_fma_kernel_matches_plain(cuda, form):
     """``numerics.fma`` on the card (``csrc/numerics.cu``, one launch a
     call) against its plain version ``fma_reference`` on the card and on
     the CPU, bit for bit: on constructed double-rounding ties and random
     triples, on broadcast operands (rows, a number, a transposed view, a
-    strided view, 0-d tensors), on special values, and with autograd
-    tracking (the value once rounded, the gradient the float64
-    expression's)."""
+    strided view, 0-d tensors), on special values, with autograd tracking
+    (the value once rounded, the gradient the float64 expression's), on the
+    diff call's walks (the depth's entry over 13 bricks, whose directions
+    repeat along the bricks, the fold step, the depth's dot product, the
+    ray grid's rows), on rows of 3 whose runs straddle a row end, on
+    operands one float off 16-byte alignment, and with a 0-d tensor and a
+    number in each operand position."""
     from amrvolumerenderer_torch.ops import numerics
 
     rng = np.random.default_rng(12)
@@ -1322,6 +1339,29 @@ def test_fma_kernel_matches_plain(cuda, form):
                  (torch.randn(60, 40).t(), torch.randn(40, 60), 1.0),
                  (torch.randn(7, 50, 2, 2)[..., 0], torch.randn(7, 50, 1), torch.randn(())),
                  (torch.tensor(2.0), 3.0, torch.tensor(1.0))]
+    elif form == "diff-walks":
+        n = 1 << 16
+        cases = [(torch.randn(n, 3), torch.randn(13, n, 1), torch.randn(3)),
+                 (torch.randn(n, 4), 1.0 - torch.rand(n, 4)[:, 3:4], torch.randn(n, 4)),
+                 (torch.randn(13, n, 3)[..., 2], torch.tensor(0.25), torch.randn(13, n)),
+                 (torch.randn(1024, 1, 1), torch.randn(3), torch.randn(1, 1024, 3))]
+    elif form == "straddle":
+        cases = [(torch.randn(4097, 3), torch.randn(3), torch.randn(4097, 1)),
+                 (torch.randn(5, 999, 3), torch.randn(999, 1), torch.randn(3)),
+                 (torch.randn(4099), torch.randn(4099), -1.0)]
+    elif form == "unaligned":  # views made on each device, so the card keeps them
+        bases = [torch.randn(4097), torch.randn(4096), torch.randn(4099),
+                 torch.randn(3, 4097), torch.randn(3, 1)]
+        cases = [lambda b: (b[0][1:], b[1], b[2][3:]),
+                 lambda b: (b[2][1:4097], 2.0, b[0][:4096]),
+                 lambda b: (b[3][:, 1:], b[0][1:], b[4])]
+    elif form == "scalar-positions":
+        cases = []
+        for k in range(3):
+            for scalar in (torch.tensor(0.75), 0.75):
+                ops = [torch.randn(33, 5), torch.randn(5), torch.randn(33, 1)]
+                ops[k] = scalar
+                cases.append(tuple(ops))
     else:
         special = torch.tensor([np.inf, -np.inf, np.nan, 0.0, -0.0, 1.0, -1.5, 3.4e38,
                                 -3.4e38, 2.0 ** -60, 1e-40], dtype=f)
@@ -1329,7 +1369,10 @@ def test_fma_kernel_matches_plain(cuda, form):
                                                               indexing="ij"))]
     del rng
     for ops in cases:
-        on_card = [v.to(cuda) if isinstance(v, torch.Tensor) else v for v in ops]
+        if callable(ops):
+            ops, on_card = ops(bases), ops([t.to(cuda) for t in bases])
+        else:
+            on_card = [v.to(cuda) if isinstance(v, torch.Tensor) else v for v in ops]
         before = numerics.fma.launches
         if form == "tracked":
             leaves = [v.clone().requires_grad_(True) for v in on_card]

@@ -196,6 +196,59 @@ def test_tangent_reference_matches_forward_mode(name):
         assert bool(torch.isfinite(g).all())
 
 
+# the tangent kernel's masks: which differentiable fields carry a tangent
+# (the eye's forward mode gives the first distance and the eye one)
+TANGENT_MASKS = {
+    "eye": ("d0", "eye"),
+    "data": ("data",),
+    "lut": ("luts",),
+    "scalars": ("scalars",),
+    "all": dm.MarchInputs._fields[:dm.DIFFERENTIABLE],
+}
+
+
+@pytest.mark.parametrize("mask", list(TANGENT_MASKS))
+@pytest.mark.parametrize("name", list(SCENES))
+def test_tangent_reference_drops_absent_fields(name, mask):
+    """The plain tangent with None for the fields that carry no tangent
+    (their terms do not exist, as the kernel compiles them out) against
+    the same with zero tangents there, within 1e-6 of the tangent's scale,
+    both finite."""
+    m, cfg = SCENES[name]()
+    rng = np.random.default_rng(17)
+    given = [torch.from_numpy(rng.standard_normal(t.shape).astype(np.float32))
+             if f in TANGENT_MASKS[mask] else None
+             for f, t in zip(dm.MarchInputs._fields, m[:dm.DIFFERENTIABLE])]
+    zeros = [torch.zeros_like(t) if g is None else g for g, t in zip(given, m)]
+    got = dm.march_tangent_reference(m, cfg, given)
+    want = dm.march_tangent_reference(m, cfg, zeros)
+    assert bool(torch.isfinite(got).all()) and bool(torch.isfinite(want).all())
+    assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("which", ["eye", "data"])
+def test_forward_mode_carries_only_the_given_fields(which):
+    """Forward mode through ``render_image_diff`` hands the march's tangent
+    only the fields that carry one at the dual level (None for the
+    others): the eye's reaches the first distance and the eye, the data's
+    the data alone."""
+    args, static = CASES["random"]
+    targs = list(port(args))
+    argnum = {"eye": 6, "data": 0}[which]
+    seen, inner = [], dm.diffmarch_tangent
+    dm.diffmarch_tangent = lambda m, cfg, t: (seen.append(t), inner(m, cfg, t))[1]
+    try:
+        with torch.no_grad(), fwAD.dual_level():
+            targs[argnum] = fwAD.make_dual(targs[argnum], torch.ones_like(targs[argnum]))
+            out = fwAD.unpack_dual(diff.render_image_diff(*targs, **static)).tangent
+    finally:
+        dm.diffmarch_tangent = inner
+    (tangents,) = seen
+    carried = {f for f, t in zip(dm.MarchInputs._fields, tangents) if t is not None}
+    assert carried == {"eye": {"d0", "eye"}, "data": {"data"}}[which]
+    assert bool(torch.isfinite(out).all()) and float(out.abs().max()) > 0.0
+
+
 @pytest.mark.parametrize("name", list(SCENES))
 def test_hit_pairs_match_numpy(name):
     """The pair list the kernels walk, on the CPU: each brick's count and

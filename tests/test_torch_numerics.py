@@ -92,37 +92,132 @@ LAYOUT_CASES = {
     "strided-view": lambda: (torch.randn(4, 5, 2, 2)[..., 0], torch.randn(4, 5, 1),
                              torch.randn(())),
     "scalars": lambda: (torch.tensor(2.0), 3.0, torch.tensor(1.0)),
+    # the diff call's three walks (ops/diff.py): the depth's entry, the
+    # fold step, the depth's dot product; then the ray grid's row step
+    "depth-entry": lambda: (torch.randn(64, 3), torch.randn(13, 64, 1), torch.randn(3)),
+    "fold-step": lambda: (torch.randn(64, 4), 1.0 - torch.randn(64, 4)[:, 3:4],
+                          torch.randn(64, 4)),
+    "depth-dot": lambda: (torch.randn(13, 64, 3)[..., 2], torch.tensor(0.25),
+                          torch.randn(13, 64)),
+    "ray-rows": lambda: (torch.randn(8, 1, 1), torch.randn(3), torch.randn(1, 16, 3)),
+    # rows of 3 with an odd count (a scalar tail), an odd length, operands one
+    # float off 16-byte alignment
+    "rows-of-3": lambda: (torch.randn(7, 3), torch.randn(3), torch.randn(7, 1)),
+    "odd-length": lambda: (torch.randn(11), torch.randn(11), -1.0),
+    "unaligned": lambda: (torch.randn(65)[1:], torch.randn(64), torch.randn(66)[2:]),
 }
+# how each walk reads its operands (None: a number), where the case fixes it
+LAYOUT_MODES = {
+    "depth-entry": ("VECTOR", "GENERAL", "GENERAL"),
+    "fold-step": ("VECTOR", "CONSTANT", "VECTOR"),
+    "depth-dot": ("GENERAL", "CONSTANT", "VECTOR"),
+    "ray-rows": ("CONSTANT", "GENERAL", "VECTOR"),
+    "odd-length": ("VECTOR", "VECTOR", None),
+    "unaligned": ("GENERAL", "VECTOR", "GENERAL"),
+}
+
+
+def replay_walk(tensors, values, walk):
+    """``fma``'s kernel (csrc/numerics.cu) replayed on the operands'
+    storage: a thread a run of FMA_RUN outputs of a row in each row of its
+    chunk, each operand read by its mode at offsets divided out with the
+    fast divisors.  Returns the float64 sums in the output's shape and the
+    threads' count of full runs and of scalar tails; asserts that every 16-byte read is
+    aligned and reads the run's own elements, and every constant read
+    stands for the whole run."""
+    from amrvolumerenderer_torch.ops import numerics as nm
+
+    storage = [None if t is None else torch.as_strided(
+        t, (t.untyped_storage().nbytes() // 4 - t.storage_offset(),), (1,)).numpy()
+        for t in tensors]
+    sizes, inner = walk.sizes, walk.inner
+
+    def offsets(e):
+        at = [0] * len(tensors)
+        for d in range(len(sizes) - 1, 0, -1):
+            q = nm.fma_divide(e, *walk.divisors[d])
+            for k, st in enumerate(walk.strides):
+                if st is not None:
+                    at[k] += (e - q * sizes[d]) * st[d]
+            e = q
+        return [a + (0 if st is None else e * st[0]) for a, st in zip(at, walk.strides)]
+
+    out = np.full(walk.loop * inner, np.nan)
+    full_runs = tails = 0
+    for y in range(-(-walk.loop // walk.chunk)):
+        for i0 in range(0, inner, nm.FMA_RUN):
+            n = min(nm.FMA_RUN, inner - i0)
+            full_runs, tails = full_runs + (n == nm.FMA_RUN), tails + (n < nm.FMA_RUN)
+            each = [offsets(i0 + j) for j in range(n)]
+            for row in range(y * walk.chunk, min((y + 1) * walk.chunk, walk.loop)):
+                x = []
+                for k, (t, v, mode) in enumerate(zip(tensors, values, walk.modes)):
+                    if t is None:
+                        x.append(np.full(n, v))
+                        continue
+                    at = [e[k] + row * walk.loop_strides[k] for e in each]
+                    if mode == nm.CONSTANT:
+                        assert len(set(at)) == 1
+                        at = at[:1] * n
+                    elif mode == nm.VECTOR and n == nm.FMA_RUN:
+                        assert (t.data_ptr() + 4 * at[0]) % 16 == 0
+                        assert at == list(range(at[0], at[0] + nm.FMA_RUN))
+                    x.append(storage[k][at].astype(np.float64))
+                out[row * inner + i0:row * inner + i0 + n] = x[0] * x[1] + x[2]
+    return out.reshape(walk.shape), full_runs, tails
 
 
 @pytest.mark.parametrize("name", list(LAYOUT_CASES))
 def test_fma_layout_walks_the_broadcast(name):
     """The walk ``fma``'s kernel makes over its operands (``fma_layout``:
-    merged sizes, per-operand strides, numbers as values), replayed here
-    element by element on the operands' storage, reads what broadcasting
-    reads: ``a * b + c`` in float64 over the broadcast shape."""
-    from amrvolumerenderer_torch.ops.numerics import fma_layout
+    merged sizes, a looped outermost dimension where an operand repeats
+    along it, per-operand strides and read modes, numbers as values),
+    replayed here run by run on the operands' storage (``replay_walk``),
+    reads what broadcasting reads: ``a * b + c`` in float64 over the
+    broadcast shape, every output once; runs of FMA_RUN and one scalar tail
+    where a row's length is not a multiple of it."""
+    from amrvolumerenderer_torch.ops import numerics as nm
 
     ops = LAYOUT_CASES[name]()
-    tensors, values, shape, sizes, strides, flat = fma_layout(ops, torch.device("cpu"))
-    got = np.empty(int(np.prod(shape, dtype=np.int64)))
-    for i in range(got.size):
-        x = []
-        for t, v, st in zip(tensors, values, strides):
-            if t is None:
-                x.append(v)
-                continue
-            at, r = 0, i
-            for d in range(len(sizes) - 1, -1, -1):
-                at, r = at + (r % sizes[d]) * st[d], r // sizes[d]
-            storage = torch.as_strided(t, (t.untyped_storage().nbytes() // 4
-                                           - t.storage_offset(),), (1,))
-            x.append(float(storage[i if flat else at]))
-        got[i] = x[0] * x[1] + x[2]
+    tensors, values, walk = nm.fma_layout(ops, torch.device("cpu"))
+    got, full_runs, tails = replay_walk(tensors, values, walk)
     want = (torch.as_tensor(ops[0]).double() * torch.as_tensor(ops[1]).double()
             + torch.as_tensor(ops[2]).double())
-    np.testing.assert_array_equal(got.reshape(shape), want.numpy())
-    assert len(sizes) <= len(shape) or shape == ()
+    np.testing.assert_array_equal(got, want.numpy())
+    assert len(walk.sizes) <= max(len(walk.shape), 1)
+    threads = -(-walk.loop // walk.chunk)  # threads a run: one a chunk of rows
+    assert full_runs == threads * (walk.inner // nm.FMA_RUN)
+    assert tails == threads * (walk.inner % nm.FMA_RUN > 0)
+    if name in LAYOUT_MODES:
+        assert tuple(None if m is None else ("GENERAL", "VECTOR", "CONSTANT")[m]
+                     for m in walk.modes) == LAYOUT_MODES[name]
+    if name in ("depth-entry", "ray-rows"):  # the directions repeat over the bricks
+        assert walk.loop == walk.shape[0] and walk.inner % nm.FMA_RUN == 0
+
+
+# sizes the diff call (1024^2 and 512^2, 13 bricks) and the raymarch set-up
+# divide by; then 2^31 - 1 and seeded sizes below it
+DIVISOR_SIZES = [1, 2, 3, 4, 8, 13, 512, 1024, 3 * 1024, 262144, 3 * 262144, 1048576,
+                 3 * 1048576, 13 * 1048576, 2 ** 31 - 1]
+
+
+def test_fma_divisors_divide_as_integer_division():
+    """The kernel's fast divisors (``fma_divisor``, ``fma_divide``: a
+    multiply-high, an add and a shift) give ``n // d`` and ``n % d`` for
+    every size the diff call and the raymarch set-up walk, and seeded sizes
+    up to 2^31 - 1, on seeded dividends below 2^31 and the edges."""
+    from amrvolumerenderer_torch.ops.numerics import fma_divide, fma_divisor
+
+    rng = np.random.default_rng(31)
+    sizes = DIVISOR_SIZES + [int(v) for v in rng.integers(1, 2 ** 31, 200)]
+    for d in sizes:
+        magic, shift = fma_divisor(d)
+        assert 0 < magic < 2 ** 32 and 0 <= shift <= 31
+        edges = [0, 1, d - 1, d, d + 1, 2 * d - 1, 2 * d, 2 ** 31 - 1, 2 ** 31 - 1 - d]
+        for n in edges + [int(v) for v in rng.integers(0, 2 ** 31, 200)]:
+            if 0 <= n < 2 ** 31:
+                q = fma_divide(n, magic, shift)
+                assert (q, n - q * d) == divmod(n, d), (n, d)
 
 
 def test_fma_layout_refuses_what_the_kernel_cannot_take():
