@@ -44,6 +44,11 @@ stores no step's activations on either device (its backward recomputes
 them; on the card from opacity checkpoints every 16 steps), so gradient
 memory and results are the same with it on or off.  The bricks render as
 one batch, the counterpart of ``jax.vmap``.
+
+With ``utils.timers.enable_spans`` on, each stage of a view is a span
+(``utils.timers.SPANS``): the ray set-up, the march, the order and the
+fold forward, the fold's and the march's backward; the sharded path's
+shards reuse the names.
 """
 
 from __future__ import annotations
@@ -66,6 +71,7 @@ from .ops.raymarch import (_HALF_FOV_SCALE, _ray_directions, _slab_intersect,
                            half_fov_tan, max_steps_for_bucket)
 from .parallel import directsend as ds
 from .types import ScalarTransform
+from .utils import timers
 
 Tensor = torch.Tensor
 
@@ -193,60 +199,66 @@ def render_layers_diff(
     box-entry hints for ordering).  ``remat`` changes nothing (JAX's
     argument: the march stores no step's activations either way)."""
     dev = data.device
-    f = torch.float32
-    bmin, bmax = min_corner.to(dev, f), max_corner.to(dev, f)
-    dims = cell_dims.to(dev).long()
-    steps = sample_distance.to(dev, f)
-    eye = eye.to(dev, f)
-    basis = tuple(v.to(dev, f) for v in (basis_forward, basis_right, basis_up))
-    fov = _scalar(fov_y_degrees, dev)
+    with timers.span("diff.rays", data):
+        f = torch.float32
+        bmin, bmax = min_corner.to(dev, f), max_corner.to(dev, f)
+        dims = cell_dims.to(dev).long()
+        steps = sample_distance.to(dev, f)
+        eye = eye.to(dev, f)
+        basis = tuple(v.to(dev, f) for v in (basis_forward, basis_right, basis_up))
+        fov = _scalar(fov_y_degrees, dev)
 
-    aspect = f32(f32(width) / f32(max(height, 1)))
-    # a number reads no device value: a call with the field of view as a
-    # number waits for nothing, so a CUDA graph can capture it
-    tan = (_HalfFovTan.apply(fov) if _carries_derivative(fov)
-           else half_fov_tan(float(fov_y_degrees)))
-    directions = _ray_directions(width, height, tan, aspect, basis)  # [N, 3]
-    tmin, tmax = _slab_intersect(eye, directions, bmin, bmax)  # [B, N]
-    hit = tmax >= tmin
+        aspect = f32(f32(width) / f32(max(height, 1)))
+        # a number reads no device value: a call with the field of view as a
+        # number waits for nothing, so a CUDA graph can capture it
+        tan = (_HalfFovTan.apply(fov) if _carries_derivative(fov)
+               else half_fov_tan(float(fov_y_degrees)))
+        directions = _ray_directions(width, height, tan, aspect, basis)  # [N, 3]
+        tmin, tmax = _slab_intersect(eye, directions, bmin, bmax)  # [B, N]
+        hit = tmax >= tmin
 
-    extent = bmax - bmin
-    extent_mag = torch.sqrt(fma(extent[:, 2], extent[:, 2], fma(
-        extent[:, 1], extent[:, 1], extent[:, 0] * extent[:, 0])))  # FMA
-    mesh_eps = (extent_mag * f32(1e-4))[:, None]
-    # miss rays: the slab guard leaves tmin = +inf on rays with a zero
-    # direction component outside the box, and inf * 0 in the position
-    # math would put NaNs into the cotangents, so misses take a finite
-    # dummy distance before any arithmetic
-    tmin_safe = torch.where(hit, tmin, 0.0)
-    d0 = tmin_safe + mesh_eps
-    d0 = torch.where(d0 < 0.0, mesh_eps, d0)
-    cell = torch.where(dims > 0, extent / torch.maximum(
-        dims.to(f), torch.ones((), dtype=f, device=dev)), 1.0)
-    scalars = torch.stack([_scalar(v, dev) for v in (
-        range_min, inverse_range, positive_floor, normalization_min,
-        inverse_normalization_span)])
-    zero = torch.zeros((), dtype=dims.dtype, device=dev)
-    inputs = dm.MarchInputs(
-        data=data.to(f).contiguous(), luts=color_table.to(dev, f).contiguous(),
-        d0=d0.contiguous(), directions=directions.contiguous(), eye=eye,
-        steps=steps.contiguous(), bmin=bmin.contiguous(), cell=cell.contiguous(),
-        scalars=scalars, tmax=tmax.detach().contiguous(), hit=hit.contiguous(),
-        bmax=bmax.detach().contiguous(),
-        top=torch.maximum(dims - 1, zero).to(torch.int32).contiguous(),
-        low=torch.maximum(dims - 2, zero).to(torch.int32).contiguous())
-    accum = dm.march(inputs, dm.MarchConfig(num_steps, log_scale, normalize,
-                                            apply_clip, clip_start))
-    accum = _clip(accum, 0.0, 1.0)
+        extent = bmax - bmin
+        extent_mag = torch.sqrt(fma(extent[:, 2], extent[:, 2], fma(
+            extent[:, 1], extent[:, 1], extent[:, 0] * extent[:, 0])))  # FMA
+        mesh_eps = (extent_mag * f32(1e-4))[:, None]
+        # miss rays: the slab guard leaves tmin = +inf on rays with a zero
+        # direction component outside the box, and inf * 0 in the position
+        # math would put NaNs into the cotangents, so misses take a finite
+        # dummy distance before any arithmetic
+        tmin_safe = torch.where(hit, tmin, 0.0)
+        d0 = tmin_safe + mesh_eps
+        d0 = torch.where(d0 < 0.0, mesh_eps, d0)
+        cell = torch.where(dims > 0, extent / torch.maximum(
+            dims.to(f), torch.ones((), dtype=f, device=dev)), 1.0)
+        scalars = torch.stack([_scalar(v, dev) for v in (
+            range_min, inverse_range, positive_floor, normalization_min,
+            inverse_normalization_span)])
+        zero = torch.zeros((), dtype=dims.dtype, device=dev)
+        inputs = dm.MarchInputs(
+            data=data.to(f).contiguous(), luts=color_table.to(dev, f).contiguous(),
+            d0=d0.contiguous(), directions=directions.contiguous(), eye=eye,
+            steps=steps.contiguous(), bmin=bmin.contiguous(), cell=cell.contiguous(),
+            scalars=scalars, tmax=tmax.detach().contiguous(), hit=hit.contiguous(),
+            bmax=bmax.detach().contiguous(),
+            top=torch.maximum(dims - 1, zero).to(torch.int32).contiguous(),
+            low=torch.maximum(dims - 2, zero).to(torch.int32).contiguous())
+    backward = timers.grad_span("diff.march.backward")
+    with timers.span("diff.march", data):
+        inputs = dm.MarchInputs(*backward.inputs(*inputs[:dm.DIFFERENTIABLE]),
+                                *inputs[dm.DIFFERENTIABLE:])
+        accum = dm.march(inputs, dm.MarchConfig(num_steps, log_scale, normalize,
+                                                apply_clip, clip_start))
+        accum = _clip(accum, 0.0, 1.0)
 
-    with torch.no_grad():
-        rel = fma(directions, tmin_safe[..., None], eye) - eye  # FMA: entry
-        fwd = basis[0]
-        depth = fma(rel[..., 2], fwd[2], fma(rel[..., 1], fwd[1],
-                                             rel[..., 0] * fwd[0]))  # FMA
-        depth = torch.where(hit & (accum[..., 3] > 0.0) & torch.isfinite(depth),
-                            depth, float("inf"))
-    return torch.where(hit[..., None], accum, 0.0), depth
+        with torch.no_grad():
+            rel = fma(directions, tmin_safe[..., None], eye) - eye  # FMA: entry
+            fwd = basis[0]
+            depth = fma(rel[..., 2], fwd[2], fma(rel[..., 1], fwd[1],
+                                                 rel[..., 0] * fwd[0]))  # FMA
+            depth = torch.where(hit & (accum[..., 3] > 0.0) & torch.isfinite(depth),
+                                depth, float("inf"))
+        colors = torch.where(hit[..., None], accum, 0.0)
+    return backward.output(colors), depth
 
 
 def composite_layers_diff(
@@ -256,12 +268,16 @@ def composite_layers_diff(
     """Ordered front-to-back over-composite of layers, differentiable in
     every layer (DirectSendBase.cpp:400-446's accumulation).  ``order`` is
     the visibility permutation, front first.  Returns ``[N, 4]``."""
-    order = torch.as_tensor(np.asarray(order) if not isinstance(order, Tensor)
-                            else order, device=colors.device).long()
-    accum = torch.zeros_like(colors[0])
-    for layer in colors.index_select(0, order):
-        accum = fma(layer, 1.0 - accum[:, 3:4], accum)  # FMA
-    return _clip(accum, 0.0, 1.0)
+    backward = timers.grad_span("diff.fold.backward")
+    with timers.span("diff.fold", colors):
+        (colors,) = backward.inputs(colors)
+        order = torch.as_tensor(np.asarray(order) if not isinstance(order, Tensor)
+                                else order, device=colors.device).long()
+        accum = torch.zeros_like(colors[0])
+        for layer in colors.index_select(0, order):
+            accum = fma(layer, 1.0 - accum[:, 3:4], accum)  # FMA
+        image = _clip(accum, 0.0, 1.0)
+    return backward.output(image)
 
 
 @functools.lru_cache(maxsize=16)
@@ -279,7 +295,7 @@ def default_order(min_corner: Tensor, max_corner: Tensor, eye: Tensor,
     depth over their 8 corners (camera.compute_box_depth_hints,
     VolumeRenderer.cpp:541-553), nearest first; ties keep brick order,
     as ``jnp.argsort`` does."""
-    with torch.no_grad():
+    with torch.no_grad(), timers.span("diff.order", min_corner):
         sel = _corner_mask(min_corner.device)
         corners = torch.where(sel[None], max_corner[:, None, :],
                               min_corner[:, None, :])  # [B, 8, 3]

@@ -54,6 +54,7 @@ _SIGNATURES = {
                   "avr_diffmarch_tangent_launch": [_P] * 27 + [_I] * 8 + [_F] * 4 + [_P],
                   "avr_diffmarch_backward_launch":
                   [_P] * 23 + [_I] * 9 + [_F] * 4 + [_P]},
+    "spans": {"avr_span_mark_launch": [_I, _I, _P]},
 }
 KERNELS = tuple(_SIGNATURES)
 

@@ -3,8 +3,8 @@ tests/test_image.py, tests/test_io.py and tests/test_compositor.py: the
 image algebra (``byte_to_color``, ``Viewport``, the ``ImageBuffer``
 region operations and pixel access, ``CompactImage``), the blend rules on
 tensors, the PPM/PNG readers, the host flat-mode compositor
-(``piece_range``, ``compose_flat_host``, ``assemble_pieces``), the stage
-timers and trace, and the float64 range oracle
+(``piece_range``, ``compose_flat_host``, ``assemble_pieces``), the
+stage spans and trace, and the float64 range oracle
 ``renderer._transformed_range_numpy``.  Every comparison is exact."""
 
 import jax.numpy as jnp
@@ -302,32 +302,32 @@ def test_compose_flat_host_matches_jax(kind, num_ranks):
         same_buffer(compositor.assemble_pieces(got), jcomp.assemble_pieces(want))
 
 
-def test_stage_timers_and_trace(tmp_path, capsys):
-    t = timers.StageTimers()
-    for _ in range(2):
-        with t.stage("composite"):
-            torch.ones(8).sum()
-    with t.stage("render"):
-        pass
-    report = t.report()
-    assert set(report) == {"composite", "render"}
-    assert all(v >= 0.0 for v in report.values())
-    lines = capsys.readouterr().out.splitlines()
-    assert len(lines) == 3 and lines[0].startswith("Render: composite took ")
-    assert report is not t.stages
-
-    quiet = timers.StageTimers(verbose=False)
-    with pytest.raises(ValueError):
-        with quiet.stage("failing"):
-            raise ValueError("stage body failed")
-    assert "failing" in quiet.report() and capsys.readouterr().out == ""
-
-    with timers.device_trace(""):
-        pass
-    trace = tmp_path / "trace"
-    with timers.device_trace(str(trace)):
-        torch.ones(64).cumsum(0)
-    assert (trace / "render_trace.json").stat().st_size > 0
+def test_stage_timers_and_trace(tmp_path):
+    """The stage spans' switch (off by default: a shared no-op; on: a host
+    span named ``avr.<stage>``) and ``device_trace``, which turns them on
+    for its block and writes a Chrome trace that holds them."""
+    before = timers.enable_spans(False)
+    try:
+        x = torch.ones(8)
+        assert timers.span("diff.fold", x) is timers.span("diff.rays", x)
+        assert timers.grad_span("diff.fold.backward").output(x) is x
+        with timers.device_trace(""):
+            assert not timers.spans_enabled()
+        trace = tmp_path / "trace"
+        with timers.device_trace(str(trace)):
+            assert timers.spans_enabled()
+            for _ in range(2):
+                with timers.span("diff.fold", x):
+                    x.cumsum(0)
+        assert not timers.spans_enabled()
+        text = (trace / "render_trace.json").read_text()
+        assert text.count('"avr.diff.fold"') == 2 and "avr.diff.rays" not in text
+        with pytest.raises(ValueError):
+            timers.enable_spans(True)
+            with timers.span("render", x):
+                pass
+    finally:
+        timers.enable_spans(before)
 
 
 @pytest.mark.parametrize("log_scale,normalize", [(False, False), (True, False),
