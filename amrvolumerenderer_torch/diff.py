@@ -9,7 +9,9 @@ differentiate.  Here the ray set-up and what follows the march are plain
 PyTorch under autograd, and the march itself is one autograd node,
 ``ops.diffmarch.march``: on the card a hand-written forward kernel, a
 backward kernel and a tangent kernel (``ops/csrc/diffmarch.cu``), on the
-CPU their plain versions.
+CPU their plain versions.  On the card the ordered fold is one autograd
+node too, ``ops.composite.fold_diff`` (a forward and a backward kernel in
+``ops/csrc/composite.cu``); elsewhere it is an eager loop of ``fma``.
 
 What makes it smooth, as in JAX:
 
@@ -64,6 +66,7 @@ from .camera import camera_basis
 from .colormap import SOFT_CLIP_TOLERANCE, build_color_table
 from .device import DEFAULT_DEVICE, Device, resolve_device
 from .ops import diffmarch as dm
+from .ops.composite import fold_diff
 from .ops.diffmarch import _clip, _constant  # noqa: F401  (_constant: its cache)
 from .ops.march import f32
 from .ops.numerics import fma
@@ -267,17 +270,33 @@ def composite_layers_diff(
 ) -> Tensor:
     """Ordered front-to-back over-composite of layers, differentiable in
     every layer (DirectSendBase.cpp:400-446's accumulation).  ``order`` is
-    the visibility permutation, front first.  Returns ``[N, 4]``."""
+    the visibility permutation, front first.  Returns ``[N, 4]``.
+
+    On the card the fold is ``ops.composite.fold_diff``: a forward and a
+    backward launch, with the eager loop's bits; its kernels stop on an
+    ``order`` of the layers' length that repeats an index.  The eager loop
+    of ``fma`` a layer serves CPU tensors, layers that carry a forward-mode
+    tangent, and an ``order`` of another length than the layers'."""
     backward = timers.grad_span("diff.fold.backward")
     with timers.span("diff.fold", colors):
         (colors,) = backward.inputs(colors)
         order = torch.as_tensor(np.asarray(order) if not isinstance(order, Tensor)
                                 else order, device=colors.device).long()
-        accum = torch.zeros_like(colors[0])
-        for layer in colors.index_select(0, order):
-            accum = fma(layer, 1.0 - accum[:, 3:4], accum)  # FMA
-        image = _clip(accum, 0.0, 1.0)
+        if (colors.device.type == "cuda" and order.shape == colors.shape[:1]
+                and fwAD.unpack_dual(colors).tangent is None):
+            image = fold_diff(colors, order)
+        else:
+            image = _fold_layer_loop(colors, order)
     return backward.output(image)
+
+
+def _fold_layer_loop(colors: Tensor, order: Tensor) -> Tensor:
+    """``composite_layers_diff``'s eager fold: ``fma`` a layer, each
+    differentiated by autograd (``order`` a device tensor of indices)."""
+    accum = torch.zeros_like(colors[0])
+    for layer in colors.index_select(0, order):
+        accum = fma(layer, 1.0 - accum[:, 3:4], accum)  # FMA
+    return _clip(accum, 0.0, 1.0)
 
 
 @functools.lru_cache(maxsize=16)

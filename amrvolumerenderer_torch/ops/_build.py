@@ -46,7 +46,9 @@ _SIGNATURES = {
     "composite": {"avr_composite_launch": [_P] * 7 + [_I, _I, _P],
                   "avr_composite_pixels_launch": [_P] * 4 + [_I, _I, _L, _P],
                   "avr_composite_runs_launch":
-                  [_P] * 4 + [_I, _I, _I, _L, _I, _I, _P]},
+                  [_P] * 4 + [_I, _I, _I, _L, _I, _I, _P],
+                  "avr_fold_diff_forward_launch": [_P] * 5 + [_I, _I, _P],
+                  "avr_fold_diff_backward_launch": [_P] * 6 + [_I, _I, _P]},
     "raymarch": {"avr_raymarch_launch": [_P] * 13 + [_I] * 7 + [_P]},
     "numerics": {"avr_fma_launch": [_P] * 4 + [_F] * 3 + [_P, _P]},
     "diffmarch": {"avr_diffmarch_pairs_launch": [_P] * 4 + [_I, _I, _P],

@@ -31,7 +31,18 @@ Two entries of one CUDA source, ``csrc/composite.cu``:
   closes it into its slot and starts a new one.
   ``composite_runs_reference`` is its plain twin.
 
-Each wrapper launches its kernel for CUDA tensors and runs the plain
+* ``fold_diff`` (the differentiable fold of ``diff.composite_layers_diff``
+  on the card): the front-to-back over-composite of ``[B, P, 4]`` layers
+  in a visibility order, one ``torch.autograd.Function`` whose forward
+  (``fold_diff_forward``) and backward (``fold_diff_backward``) are one
+  launch each.  ``fold_diff_forward_reference`` and
+  ``fold_diff_backward_reference`` are their plain twins, the arithmetic
+  of the eager loop of ``numerics.fma`` and its autograd, op for op.
+  These wrappers take CUDA tensors only: on the CPU the fold is
+  ``diff.composite_layers_diff``'s eager loop, and the plain twins serve
+  the tests.
+
+Each other wrapper launches its kernel for CUDA tensors and runs the plain
 version for CPU tensors.
 """
 
@@ -40,8 +51,11 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
+from .diffmarch import _clip
 from .march import blend, require
+from .numerics import fma_reference
 from .worklist import LANES, SUBLANES, TILE_P
 
 Tensor = torch.Tensor
@@ -338,3 +352,162 @@ def composite_runs(
 
 
 composite_runs.launches = 0
+
+
+def fold_diff_forward_reference(
+    colors: Tensor,  # [B, P, 4] f32 premultiplied RGBA layers
+    order: Tensor,  # [B] int: layer k of the fold is colors[order[k]]
+    keep: bool = False,
+) -> Tuple[Tensor, Optional[Tensor], Optional[Tensor]]:
+    """The differentiable fold's forward in plain PyTorch, as the eager
+    loop computes it: from a zero accumulator, layer by layer front to back,
+    ``t_k = 1 - accum.a`` rounded, ``accum = fma(L_k, t_k, accum)`` rounded
+    once, then the clip to [0, 1].  Returns ``(image [P, 4], t [B, P],
+    unclipped image [P, 4])``, the last two None unless ``keep``.  An
+    ``order`` that is not a permutation of the B layers raises, as the
+    kernel stops on it."""
+    _check_permutation(order, colors.shape[0])
+    accum = torch.zeros_like(colors[0])
+    trans = colors.new_empty(order.shape + colors.shape[1:2]) if keep else None
+    for k, layer in enumerate(order.tolist()):
+        t = 1.0 - accum[:, 3:4]
+        if keep:
+            trans[k] = t[:, 0]
+        accum = fma_reference(colors[layer], t, accum)  # FMA
+    return _clip(accum, 0.0, 1.0), trans, accum if keep else None
+
+
+def fold_diff_backward_reference(
+    grad_image: Tensor,  # [P, 4] f32 the image's gradient
+    colors: Tensor,
+    order: Tensor,
+    trans: Tensor,  # [B, P] f32 from the forward
+    pre: Tensor,  # [P, 4] f32 the unclipped image
+) -> Tensor:
+    """The layers' gradient ``[B, P, 4]`` in plain PyTorch, the sweep that
+    the backward kernel makes: the clip's gradient by autograd's rules
+    (``minimum``'s, then ``maximum``'s), then back to front ``g_L_k = g *
+    t_k + 0``, and for k > 0 ``g_t_k``, the float64 sum of the four exact
+    products ``g_c * L_k,c`` as ``(p0 + p2) + (p1 + p3)`` (the order of
+    PyTorch's CUDA reduction over a row of four) rounded once to float32,
+    with ``g.rgb + 0`` and ``g.a - g_t_k``.  Each ``+ 0`` is a zero that
+    autograd adds into on the eager path, so a -0.0 comes out +0.0 there
+    too.  ``order`` must be a permutation of the B layers."""
+    _check_permutation(order, colors.shape[0])
+    zero = torch.zeros((), dtype=pre.dtype, device=pre.device)
+    y = torch.maximum(pre, zero)
+    g = torch.where(y == 1.0, grad_image / 2, grad_image).masked_fill(y > 1.0, 0.0)
+    g = torch.where(pre == 0.0, g / 2, g).masked_fill(pre < 0.0, 0.0)
+    grad = torch.empty_like(colors)
+    layers = order.tolist()
+    for k in range(len(layers) - 1, -1, -1):
+        grad[layers[k]] = g * trans[k, :, None] + 0.0
+        if k == 0:
+            break
+        prod = g.double() * colors[layers[k]].double()  # exact
+        g_t = ((prod[:, 0] + prod[:, 2]) + (prod[:, 1] + prod[:, 3])).float()
+        g = torch.cat([g[:, :3] + 0.0, g[:, 3:] - g_t[:, None]], dim=1)
+    return grad
+
+
+def _check_permutation(order: Tensor, num_layers: int) -> None:
+    if sorted(order.tolist()) != list(range(num_layers)):
+        raise ValueError(f"order {order.tolist()} is not a permutation of the "
+                         f"{num_layers} layers")
+
+
+def _fold_check(colors: Tensor, order: Tensor) -> None:
+    dev = colors.device
+    if dev.type != "cuda":
+        raise ValueError("fold_diff's kernels take CUDA tensors; on the CPU "
+                         "diff.composite_layers_diff folds with its eager loop")
+    require(colors, "colors", torch.float32, (*colors.shape[:2], 4), dev)
+    require(order, "order", torch.int64, colors.shape[:1], dev)
+
+
+def fold_diff_forward(colors: Tensor, order: Tensor, keep: bool = False):
+    """The fold's forward; arguments and result as
+    ``fold_diff_forward_reference``.  ``colors`` contiguous float32 ``[B,
+    P, 4]`` on the card, ``order`` int64 ``[B]`` on its device, a
+    permutation that is never read on the host (each block of the kernel
+    checks it, and stops on an index out of range or repeated).  One
+    launch of ``fold_diff_forward_kernel`` on the current stream, counted
+    in ``fold_diff_forward.launches``."""
+    _fold_check(colors, order)
+    num_layers, num_pixels = colors.shape[0], colors.shape[1]
+    image = torch.empty_like(colors[0])
+    trans, pre = ((colors.new_empty((num_layers, num_pixels)), torch.empty_like(image))
+                  if keep else (None, None))
+    from . import _build
+
+    rc = _build.load("composite").avr_fold_diff_forward_launch(
+        colors.data_ptr(), order.data_ptr(), image.data_ptr(),
+        None if trans is None else trans.data_ptr(), None if pre is None else pre.data_ptr(),
+        num_layers, num_pixels, torch.cuda.current_stream(colors.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fold_diff_forward kernel launch failed: CUDA error {rc}")
+    fold_diff_forward.launches += 1
+    return image, trans, pre
+
+
+fold_diff_forward.launches = 0
+
+
+def fold_diff_backward(grad_image: Tensor, colors: Tensor, order: Tensor,
+                       trans: Tensor, pre: Tensor) -> Tensor:
+    """The layers' gradient; arguments and result as
+    ``fold_diff_backward_reference``, CUDA tensors.  One launch of
+    ``fold_diff_backward_kernel``, counted in ``fold_diff_backward.launches``;
+    it writes every layer's rows once, so ``order`` must be a permutation,
+    which the kernel checks as the forward's does."""
+    _fold_check(colors, order)
+    num_layers, num_pixels = colors.shape[0], colors.shape[1]
+    dev = colors.device
+    grad_image = grad_image.contiguous()
+    require(grad_image, "grad_image", torch.float32, (num_pixels, 4), dev)
+    require(trans, "trans", torch.float32, (num_layers, num_pixels), dev)
+    require(pre, "pre", torch.float32, (num_pixels, 4), dev)
+    grad = torch.empty_like(colors)
+    from . import _build
+
+    rc = _build.load("composite").avr_fold_diff_backward_launch(
+        grad_image.data_ptr(), colors.data_ptr(), order.data_ptr(), trans.data_ptr(),
+        pre.data_ptr(), grad.data_ptr(), num_layers, num_pixels,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fold_diff_backward kernel launch failed: CUDA error {rc}")
+    fold_diff_backward.launches += 1
+    return grad
+
+
+fold_diff_backward.launches = 0
+
+
+class _FoldDiff(torch.autograd.Function):
+    """``fold_diff`` under reverse mode: the forward keeps each layer's
+    transmittance and the unclipped image for the backward's sweep.  No
+    forward-mode rule: a caller with a tangent on the layers takes the
+    eager loop (``diff.composite_layers_diff``)."""
+
+    @staticmethod
+    def forward(ctx, colors, order):
+        image, trans, pre = fold_diff_forward(colors, order, keep=True)
+        ctx.save_for_backward(colors, order, trans, pre)
+        return image
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad_image):
+        return fold_diff_backward(grad_image, *ctx.saved_tensors), None
+
+
+def fold_diff(colors: Tensor, order: Tensor) -> Tensor:
+    """The front-to-back over-composite of ``colors`` ``[B, P, 4]`` in
+    ``order`` (int64 ``[B]``, a permutation, front first), clipped to [0,
+    1]: ``[P, 4]``, differentiable in ``colors`` (CUDA tensors).  One
+    forward launch a call, and one backward launch under reverse mode;
+    without a gradient to form, the forward keeps nothing."""
+    colors = colors.contiguous()
+    if torch.is_grad_enabled() and colors.requires_grad:
+        return _FoldDiff.apply(colors, order)
+    return fold_diff_forward(colors, order)[0]

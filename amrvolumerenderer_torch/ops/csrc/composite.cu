@@ -74,6 +74,31 @@
 // Numerics: every blend is march.cuh::blend, built with -fmad=false, in the
 // order of the plain versions (ops/composite.py), so the kernels equal
 // them bit for bit on inputs that meet the precondition.
+//
+// The differentiable fold (fold_diff_forward_kernel and
+// fold_diff_backward_kernel) replaces no TPU kernel: JAX differentiates
+// diff.py::composite_layers_diff's loop of FMAs with XLA, and the port's
+// eager loop (a numerics.fma launch a layer, then _Fma's float64 backward
+// op by op: about 110 launches a fold) was the step's largest stage.
+// Layers [B, P, 4] (premultiplied RGBA, layer k of the fold is
+// colors[order[k]], order a permutation of the B layers read on the device
+// and checked by every block), one pixel a thread as a float4, 256 a block,
+// the ragged edge masked.
+// Bytes bound both: the forward reads the layers once and writes the
+// clipped image, and with kKeep each layer's transmittance t_k = 1 - a
+// ([B, P]) and the image before the clip; the backward reads the image's
+// gradient, the layers, t and the unclipped image, and writes each layer's
+// gradient once (no zero fill, no scatter).  The arithmetic is the eager
+// chain's, op for op:
+//   * forward: t_k = 1 - accum.a rounded, accum = __fmaf_rn(L_k, t_k,
+//     accum) from zero, then minimum(maximum(accum, 0), 1) with NaN kept;
+//   * backward: the clip's gradient by autograd's rules for minimum, then
+//     maximum (half at a tie, 0 beyond, the image's NaN passes g); then back
+//     to front g_L_k = g * t_k (+ 0, the zero that index_select's backward
+//     adds into, so -0 reads +0), g_t_k = the sum over channels of the
+//     exact double products g_c * L_k,c in ReduceOp<double>'s order, rounded
+//     once to float, and for k > 0 g.rgb + 0 (the slice's zero rows) and
+//     g.a - g_t_k, which is how autograd adds the two paths into accum.
 
 #include "march.cuh"
 
@@ -400,7 +425,154 @@ __global__ void __launch_bounds__(kFoldThreads) composite_runs_kernel(
   }
 }
 
+constexpr int kFoldDiffThreads = 256;
+
+// minimum(maximum(x, 0), 1) as torch.maximum / torch.minimum give it on the
+// card: a NaN operand comes through
+__device__ __forceinline__ float clip01(float x) {
+  const float y = x != x ? x : fmaxf(x, 0.0f);
+  return y != y ? y : fminf(y, 1.0f);
+}
+
+// d clip01(x) / dx applied to g: minimum's backward rule, then maximum's
+__device__ __forceinline__ float clip01_grad(float g, float x) {
+  const float y = x != x ? x : fmaxf(x, 0.0f);
+  g = y == 1.0f ? g * 0.5f : g;
+  g = y > 1.0f ? 0.0f : g;
+  g = x == 0.0f ? g * 0.5f : g;
+  return x < 0.0f ? 0.0f : g;
+}
+
+// Each block first checks that order is a permutation of the B layers, in
+// a bitmask of B bits in shared memory (fold_order_bytes): an index outside
+// [0, B) or one that comes twice stops the kernel (as index_select's device
+// assert does) before any thread of the block reads a layer.  The backward
+// writes each layer's rows once, so a repeat would leave rows unwritten.
+__device__ __forceinline__ void check_fold_order(const long long* order,
+                                                 int num_layers) {
+  extern __shared__ unsigned seen[];
+  for (int w = threadIdx.x; w < (num_layers + 31) / 32; w += blockDim.x)
+    seen[w] = 0u;
+  __syncthreads();
+  for (int k = threadIdx.x; k < num_layers; k += blockDim.x) {
+    const long long layer = order[k];
+    if (layer < 0 || layer >= num_layers) __trap();
+    const unsigned bit = 1u << (layer & 31);
+    if (atomicOr(seen + (layer >> 5), bit) & bit) __trap();
+  }
+  __syncthreads();
+}
+
+inline size_t fold_order_bytes(int num_layers) {
+  return static_cast<size_t>((num_layers + 31) / 32) * sizeof(unsigned);
+}
+
+// the element of pixel p in layer k of the fold (order checked)
+__device__ __forceinline__ int64_t fold_row(const long long* order, int k,
+                                            int num_pixels, int p) {
+  return order[k] * num_pixels + p;
+}
+
+template <bool kKeep>
+__global__ void __launch_bounds__(kFoldDiffThreads) fold_diff_forward_kernel(
+    const float4* __restrict__ colors, const long long* __restrict__ order,
+    float4* __restrict__ image, float* __restrict__ trans,
+    float4* __restrict__ pre, int num_layers, int num_pixels) {
+  check_fold_order(order, num_layers);
+  const int p = blockIdx.x * kFoldDiffThreads + threadIdx.x;
+  if (p >= num_pixels) return;
+  float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll 4
+  for (int k = 0; k < num_layers; ++k) {
+    const float4 c =
+        __ldg(colors + fold_row(order, k, num_pixels, p));
+    const float t = __fsub_rn(1.0f, acc.w);
+    if (kKeep) trans[static_cast<int64_t>(k) * num_pixels + p] = t;
+    acc = make_float4(__fmaf_rn(c.x, t, acc.x), __fmaf_rn(c.y, t, acc.y),
+                      __fmaf_rn(c.z, t, acc.z), __fmaf_rn(c.w, t, acc.w));
+  }
+  if (kKeep) pre[p] = acc;
+  image[p] = make_float4(clip01(acc.x), clip01(acc.y), clip01(acc.z),
+                         clip01(acc.w));
+}
+
+// the sum of the four exact products g_c * l_c in double, in the order of
+// PyTorch's CUDA reduction over a row of four (ReduceOp<double> of
+// sum_to_size: a lane an element, then shuffles at offsets 2 and 1)
+__device__ __forceinline__ float dot4_rn(float4 g, float4 l) {
+  const double p0 = __dmul_rn(g.x, l.x), p1 = __dmul_rn(g.y, l.y);
+  const double p2 = __dmul_rn(g.z, l.z), p3 = __dmul_rn(g.w, l.w);
+  return __double2float_rn(__dadd_rn(__dadd_rn(p0, p2), __dadd_rn(p1, p3)));
+}
+
+__global__ void __launch_bounds__(kFoldDiffThreads) fold_diff_backward_kernel(
+    const float4* __restrict__ grad_image, const float4* __restrict__ colors,
+    const long long* __restrict__ order, const float* __restrict__ trans,
+    const float4* __restrict__ pre, float4* __restrict__ grad, int num_layers,
+    int num_pixels) {
+  check_fold_order(order, num_layers);
+  const int p = blockIdx.x * kFoldDiffThreads + threadIdx.x;
+  if (p >= num_pixels) return;
+  const float4 x = pre[p];
+  float4 g = grad_image[p];
+  g = make_float4(clip01_grad(g.x, x.x), clip01_grad(g.y, x.y),
+                  clip01_grad(g.z, x.z), clip01_grad(g.w, x.w));
+#pragma unroll 4
+  for (int k = num_layers - 1; k >= 0; --k) {
+    const int64_t row = fold_row(order, k, num_pixels, p);
+    const float t = trans[static_cast<int64_t>(k) * num_pixels + p];
+    grad[row] = make_float4(__fadd_rn(__fmul_rn(g.x, t), 0.0f),
+                            __fadd_rn(__fmul_rn(g.y, t), 0.0f),
+                            __fadd_rn(__fmul_rn(g.z, t), 0.0f),
+                            __fadd_rn(__fmul_rn(g.w, t), 0.0f));
+    if (k == 0) break;  // the first layer's transmittance is the constant 1
+    const float gt = dot4_rn(g, __ldg(colors + row));
+    g = make_float4(__fadd_rn(g.x, 0.0f), __fadd_rn(g.y, 0.0f),
+                    __fadd_rn(g.z, 0.0f), __fsub_rn(g.w, gt));
+  }
+}
+
 }  // namespace
+
+extern "C" int avr_fold_diff_forward_launch(const void* colors,
+                                            const void* order, void* image,
+                                            void* trans, void* pre,
+                                            int num_layers, int num_pixels,
+                                            void* stream) {
+  if (num_pixels <= 0) return 0;
+  const int blocks = (num_pixels + kFoldDiffThreads - 1) / kFoldDiffThreads;
+  const auto* c = static_cast<const float4*>(colors);
+  const auto* o = static_cast<const long long*>(order);
+  auto* out = static_cast<float4*>(image);
+  const size_t shared = fold_order_bytes(num_layers);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (trans != nullptr)
+    fold_diff_forward_kernel<true><<<blocks, kFoldDiffThreads, shared, s>>>(
+        c, o, out, static_cast<float*>(trans), static_cast<float4*>(pre),
+        num_layers, num_pixels);
+  else
+    fold_diff_forward_kernel<false><<<blocks, kFoldDiffThreads, shared, s>>>(
+        c, o, out, nullptr, nullptr, num_layers, num_pixels);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int avr_fold_diff_backward_launch(const void* grad_image,
+                                             const void* colors,
+                                             const void* order,
+                                             const void* trans, const void* pre,
+                                             void* grad, int num_layers,
+                                             int num_pixels, void* stream) {
+  if (num_pixels <= 0) return 0;
+  const int blocks = (num_pixels + kFoldDiffThreads - 1) / kFoldDiffThreads;
+  fold_diff_backward_kernel<<<blocks, kFoldDiffThreads,
+                              fold_order_bytes(num_layers),
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(grad_image),
+      static_cast<const float4*>(colors), static_cast<const long long*>(order),
+      static_cast<const float*>(trans), static_cast<const float4*>(pre),
+      static_cast<float4*>(grad), num_layers, num_pixels);
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int avr_composite_launch(const void* colors, const void* depths,
                                     const void* order, const void* owners,

@@ -107,14 +107,20 @@ the forward at 1024^2 under ``no_grad`` and ``loss.backward()`` with
 respect to data and LUT at 512^2 with ``remat=True``, each timed with its
 peak memory, with the launch counts read around each call (one forward
 launch after one launch of the pair list, and one backward launch over
-that list with the gradient, 30 ``numerics.fma`` launches, no other
+that list with the gradient, one fold forward and, with the gradient,
+one fold backward launch, 17 ``numerics.fma`` launches, no other
 kernel), each march launch held once against its plain version, every
 fma launch of a checked rerun of each call held as it returns against
-``fma_reference`` at max |diff| 0, and the kernels timed against their
-bounds, the backward
+``fma_reference`` at max |diff| 0, every fold launch of those reruns
+likewise against its plain version (the forward without its kept outputs
+at 1024^2, with them and the backward at 512^2), and the kernels timed
+against their bounds, the backward
 also by the gradients it forms (both, no LUT, no data, neither), the
 forward with every pair a miss (its floor) and the pair list alone
-against its byte bound; and both fitting examples with their defaults on
+against its byte bound; the differentiable fold's two kernels at 512^2
+and 8 layers against their plain versions and the eager loop they
+replace (bit for bit), timed against their byte bounds and beside that
+loop; and both fitting examples with their defaults on
 the card, run together, each replaying its step as a CUDA graph (the loss
 must fall below half its first value, and each example must reach its own
 goal).
@@ -173,7 +179,8 @@ the JAX package.
     python3 chip_smoke.py --diff-march [--tree DIR] [--check] [--steps]
         [--graph-repeats N] [--two-process N]
 
-times only the diff march's kernels (``ops/csrc/diffmarch.cu``) of the
+times only the diff march's kernels (``ops/csrc/diffmarch.cu``), and the
+fold's where the tree has them, of the
 package in ``--tree`` (default: this checkout) on phase 27's inputs, with
 this file's helpers (``diff_march_main``).  Run it once a tree,
 alternating (parent, change, change, parent), to compare two trees on one
@@ -497,7 +504,10 @@ def main() -> int:
     diff_fns = {"diffmarch_forward": dmk.diffmarch_forward,
                 "diffmarch_backward": dmk.diffmarch_backward,
                 "diffmarch_tangent": dmk.diffmarch_tangent,
-                "diffmarch_pairs": dmk.diffmarch_pairs}  # the kernels' pair list
+                "diffmarch_pairs": dmk.diffmarch_pairs,  # the kernels' pair list
+                # the differentiable fold (a forward and a backward launch a call)
+                "fold_diff_forward": comp.fold_diff_forward,
+                "fold_diff_backward": comp.fold_diff_backward}
 
     def reset_counts():
         for fn in counters.values():
@@ -2662,7 +2672,11 @@ def main() -> int:
             library_ms[name] = rec.get("library_ms")
 
     # ---- phase 27: the differentiable path ---------------------------------
-    take(diff_phase(torch, dev, smi, reset_counts, counts, diff_counts))
+    diff_records = diff_phase(torch, dev, smi, reset_counts, counts, diff_counts)
+    for name, rec in fold_phase(torch, dev, smi).items():  # the fold's unit timings
+        worst_fold = max(diff_records[name]["max_abs_err"], rec.pop("max_abs_err"))
+        diff_records[name].update(rec, max_abs_err=worst_fold)
+    take(diff_records)
 
     # ---- phase 28: the one-shot tile-march route; two processes ------------
     # (i) renderer_fast.render_composited_tilemarch (JAX's route: the
@@ -2770,7 +2784,13 @@ def main() -> int:
                             "amrvolumerenderer_tpu/diff.py:113"),
         "fma": ("ops/csrc/numerics.cu",
                 "none: XLA's contracted a * b + c (the FMA sites of the plain "
-                "versions and of diff.py's eager ray set-up and fold)"),
+                "versions and of diff.py's eager ray set-up)"),
+        "fold_diff_forward": ("ops/csrc/composite.cu",
+                              "none: amrvolumerenderer_tpu/diff.py's fold, "
+                              "differentiated by XLA"),
+        "fold_diff_backward": ("ops/csrc/composite.cu",
+                               "none: amrvolumerenderer_tpu/diff.py's fold, "
+                               "differentiated by XLA"),
     }
     for prec, name in batch_name.items():
         times[name] = batch_times[prec][:2]
@@ -3171,9 +3191,130 @@ DIFF_NEEDS = {"both": (True, True), "no_lut": (True, False), "no_data": (False, 
 
 
 # numerics.fma launches of one call of the diff path on the 3-level scene,
-# with or without the gradient: the eager ray set-up's FMA sites and the
-# 13-layer fold's (the march has its own kernels)
-DIFF_FMA_LAUNCHES = 30
+# with or without the gradient: the eager ray set-up's FMA sites (the march
+# and the 13-layer fold have their own kernels)
+DIFF_FMA_LAUNCHES = 17
+
+
+class HeldLaunch:
+    """A stand-in for a counted kernel wrapper under its module name: calls
+    the wrapper, then ``check(result, *args, **kwargs)``.  The wrapper
+    counts its launch under its module name, which is this stand-in, so
+    ``launches`` reads and writes the wrapper's own counter."""
+
+    def __init__(self, inner, check):
+        self.inner, self.check = inner, check
+
+    def __call__(self, *args, **kwargs):
+        out = self.inner(*args, **kwargs)
+        self.check(out, *args, **kwargs)
+        return out
+
+    @property
+    def launches(self):
+        return self.inner.launches
+
+    @launches.setter
+    def launches(self, n):
+        self.inner.launches = n
+
+
+def fold_phase(torch, dev, smi: str, pixels: int = 512 * 512, num_layers: int = 8,
+               reps: int = 5) -> dict:
+    """Phase 27 (d): the differentiable fold's two kernels
+    (``ops.composite.fold_diff``) at ``pixels`` pixels of ``num_layers``
+    seeded layers (in a tenth of the pixels one layer opaque, so the alpha
+    reaches the clip's tie at 1; a permuted order) and the cotangent of
+    ``sum(image * w)``, w seeded: each kernel (the forward with and
+    without its kept outputs) against its plain version on the card at max
+    |diff| 0, and the image and the layers' gradient against the eager
+    loop it replaces (``diff._fold_layer_loop``: an ``fma`` launch a layer,
+    then ``_Fma``'s float64 backward), bit for bit (no gradient value may
+    differ); device ms by CUDA
+    events (best of ``reps``) of each kernel beside its byte bound and of
+    the eager loop's forward and backward, the yardstick.  Bytes: the
+    forward reads the layers and writes t ([B, P]), the unclipped and the
+    clipped image; the backward reads the image's gradient, the unclipped
+    image, t and the B - 1 layers behind the first, and writes the layers'
+    gradient.  Returns the kernels' times and max |diff| for the
+    ``kernels`` line, whose launch counts are the main path's (phase 27
+    (b))."""
+    from amrvolumerenderer_torch import diff
+    from amrvolumerenderer_torch.ops import composite as comp
+
+    rng = np.random.default_rng(21)
+    host = rng.uniform(0.0, 0.4, size=(num_layers, pixels, 4)).astype(np.float32)
+    opaque = np.flatnonzero(rng.random(pixels) < 0.1)
+    host[rng.integers(0, num_layers, opaque.size), opaque, 3] = 1.0
+    colors = torch.from_numpy(host).to(dev)
+    order = torch.from_numpy(rng.permutation(num_layers)).to(dev)
+    g = torch.from_numpy(rng.uniform(-1, 1, (pixels, 4)).astype(np.float32)).to(dev)
+
+    def run(fold):
+        layers = colors.clone().requires_grad_(True)
+        image = fold(layers, order)
+        image.backward(g)
+        return image.detach(), layers.grad
+
+    comp.fold_diff_forward.launches = comp.fold_diff_backward.launches = 0
+    image, grad = run(comp.fold_diff)
+    torch.cuda.synchronize()
+    launches = (comp.fold_diff_forward.launches, comp.fold_diff_backward.launches)
+    assert launches == (1, 1), launches
+    want_image, want_grad = run(diff._fold_layer_loop)
+    assert torch.equal(image.view(torch.int32), want_image.view(torch.int32))
+    assert float(want_image[:, 3].max()) == 1.0
+    differ = int((grad.view(torch.int32) != want_grad.view(torch.int32)).sum())
+    grad_d = float((grad - want_grad).abs().max())
+    log(f"phase 27: (d) the fold against the eager loop on the card: image bit for bit; "
+        f"layers' gradient: {differ} values differ, max |diff| {grad_d:.3g}")
+    assert differ == 0, (differ, grad_d)
+    with torch.no_grad():
+        out = comp.fold_diff_forward(colors, order, keep=True)
+        ref = comp.fold_diff_forward_reference(colors, order, keep=True)
+        fwd_d = max(float((a - b).abs().max()) for a, b in zip(out, ref))
+        (bare, *none), (bare_ref, *_) = (comp.fold_diff_forward(colors, order),
+                                         comp.fold_diff_forward_reference(colors, order))
+        assert none == [None, None]
+        fwd_d = max(fwd_d, float((bare - bare_ref).abs().max()))
+        bwd_d = float((comp.fold_diff_backward(g, colors, order, *out[1:])
+                       - comp.fold_diff_backward_reference(g, colors, order, *ref[1:]))
+                      .abs().max())
+    assert fwd_d == 0.0 and bwd_d == 0.0, (fwd_d, bwd_d)
+
+    def best(fn):
+        fn()
+        return min(event_ms(torch, fn) for _ in range(reps))
+
+    def best_backward(fold):
+        times = []
+        for _ in range(reps + 1):
+            layers = colors.clone().requires_grad_(True)
+            image = fold(layers, order)
+            times.append(event_ms(torch, lambda: image.backward(g)))
+        return min(times[1:])
+
+    with torch.no_grad():
+        fwd_ms = best(lambda: comp.fold_diff_forward(colors, order, keep=True))
+        bwd_ms = best(lambda: comp.fold_diff_backward(g, colors, order, *out[1:]))
+    leaf = colors.detach().requires_grad_(True)  # the loop records its graph
+    loop_fwd_ms = best(lambda: diff._fold_layer_loop(leaf, order))
+    loop_bwd_ms = best_backward(diff._fold_layer_loop)
+    layer, plane = pixels * 16, pixels * 4
+    fwd_bytes = num_layers * layer + num_layers * plane + 2 * layer
+    bwd_bytes = 2 * layer + num_layers * plane + (num_layers - 1) * layer + num_layers * layer
+    records = {}
+    for name, ms, loop_ms, nbytes, d in (
+            ("fold_diff_forward", fwd_ms, loop_fwd_ms, fwd_bytes, fwd_d),
+            ("fold_diff_backward", bwd_ms, loop_bwd_ms, bwd_bytes, bwd_d)):
+        b_ms, by = bound(nbytes, 0)
+        records[name] = dict(max_abs_err=d, ms=ms, plain_ms=loop_ms, bound_ms=b_ms,
+                             bound_by=by)
+        log(f"phase 27: {smi}: (d) {name}, {num_layers} layers x {pixels} pixels: "
+            f"{ms:.4f} ms (CUDA events, best of {reps}), vs its plain version max "
+            f"|diff| {d:.3g}; the eager loop {loop_ms:.4f} ms; bound {b_ms:.5f} ms "
+            f"({by}: {nbytes} B), at {b_ms / ms:.4f} of it")
+    return records
 
 
 def diff_needs(dm, which: str):
@@ -3326,10 +3467,11 @@ def diff_phase(torch, dev, smi: str, reset_counts, counts, diff_counts,
     ``grad_size``^2 with ``remat=True``, each timed with its peak memory,
     driven with the launch counts set to 0 just before and read just after
     (one forward launch a call, one backward launch with the gradient, one
-    pair list, DIFF_FMA_LAUNCHES fma launches, no other kernel); each march
+    pair list, as many fold launches, DIFF_FMA_LAUNCHES fma launches, no
+    other kernel); each march
     launch of those runs held once against its plain version (untimed, with
-    the valid-sample count), each fma launch of a checked rerun of each
-    call held as it returns against ``fma_reference``, then the kernels
+    the valid-sample count), each fma and fold launch of a checked rerun of
+    each call held as it returns against its plain version, then the kernels
     timed by CUDA events and the plain versions by wall clock, beside
     their bounds; (c) both fitting examples, run together with their
     defaults.  Returns the kernels' records for the ``kernels`` line.
@@ -3345,7 +3487,7 @@ def diff_phase(torch, dev, smi: str, reset_counts, counts, diff_counts,
 
     records = {name: dict(launches=0, max_abs_err=0.0)
                for name in ("diffmarch_forward", "diffmarch_backward", "diffmarch_pairs",
-                            "fma")}
+                            "fma", "fold_diff_forward", "fold_diff_backward")}
 
     def run(args, static, weights, argnums, device):
         targs = list(diff.args_from_arrays(args, device))
@@ -3437,6 +3579,55 @@ def diff_phase(torch, dev, smi: str, reset_counts, counts, diff_counts,
             (label, len(fmas), nm.fma.launches)
         assert not off, (label, off)
         records["fma"]["max_abs_err"] = max(records["fma"]["max_abs_err"], worst)
+
+    @contextlib.contextmanager
+    def checked_folds():
+        """``{name: [(keep, same non-finite pattern, max |diff|)]}`` of every
+        launch of the fold's two kernels inside the block, each held as it
+        returns against its plain version on the same card operands (the
+        forward's kept t and unclipped image too); the calls still go
+        through the counted wrappers, which ``fold_diff`` looks up when it
+        calls them."""
+        from amrvolumerenderer_torch.ops import composite as comp
+
+        inner_f, inner_b = comp.fold_diff_forward, comp.fold_diff_backward
+        seen = {"fold_diff_forward": [], "fold_diff_backward": []}
+
+        def forward(out, colors, order, keep=False):
+            with torch.no_grad():
+                ref = comp.fold_diff_forward_reference(colors, order, keep)
+                held = [device_diff(a, b) for a, b in zip(out, ref) if a is not None]
+            assert (out[1] is None) == (ref[1] is None) == (not keep)
+            seen["fold_diff_forward"].append(
+                (keep, all(h[0] for h in held), max(h[1] for h in held)))
+
+        def backward(out, grad_image, colors, order, trans, pre):
+            with torch.no_grad():
+                same, d = device_diff(out, comp.fold_diff_backward_reference(
+                    grad_image, colors, order, trans, pre))
+            seen["fold_diff_backward"].append((True, same, d))
+
+        comp.fold_diff_forward = HeldLaunch(inner_f, forward)
+        comp.fold_diff_backward = HeldLaunch(inner_b, backward)
+        try:
+            yield seen
+        finally:
+            comp.fold_diff_forward, comp.fold_diff_backward = inner_f, inner_b
+
+    def hold_folds(label, folds, got):
+        """The fold launches ``checked_folds`` saw, as many as the counters
+        in ``got`` say, the forward's with ``keep`` (its kept outputs) only
+        with the gradient, each at max |diff| 0."""
+        for name, seen in folds.items():
+            worst = max((d for _, _, d in seen), default=0.0)
+            off = [f for f in seen if not (f[1] and f[2] == 0.0)]
+            log(f"{label}: {len(seen)} {name} launches ({got[name]} counted, keep "
+                f"{[f[0] for f in seen]}), each against its plain version on the same "
+                f"operands: max |diff| {worst:.3g}, {len(off)} off")
+            assert len(seen) == got[name] and not off, (label, name, seen, got)
+            records[name]["max_abs_err"] = max(records[name]["max_abs_err"], worst)
+        assert [f[0] for f in folds["fold_diff_forward"]] == (
+            [bool(got["fold_diff_backward"])] * got["fold_diff_forward"]), (label, folds)
 
     def rel_errors(got, want):
         """Per output, max |got - want| over max |want| (0 where both are
@@ -3531,7 +3722,9 @@ def diff_phase(torch, dev, smi: str, reset_counts, counts, diff_counts,
         want = {"diffmarch_forward": forward if on_card else 0,
                 "diffmarch_backward": backward if on_card else 0,
                 "diffmarch_tangent": 0,
-                "diffmarch_pairs": forward if on_card else 0}
+                "diffmarch_pairs": forward if on_card else 0,
+                "fold_diff_forward": forward if on_card else 0,
+                "fold_diff_backward": backward if on_card else 0}
         log(f"{label}: launches {got}, other kernels {others}")
         assert got == want and not any(others.values()), (label, got, others)
         return got
@@ -3602,12 +3795,14 @@ def diff_phase(torch, dev, smi: str, reset_counts, counts, diff_counts,
     assert ALPHA_FRACTION[0] < covered < ALPHA_FRACTION[1], covered
     del image
     (m_full, cfg, _), = forwards
-    reset_counts()  # checked run: each fma launch of the same call held at once
-    with checked_fmas() as fmas, recorded_fmas(nm) as fma_ops, torch.no_grad():
+    reset_counts()  # checked run: each fma and fold launch of the same call held at once
+    with checked_fmas() as fmas, recorded_fmas(nm) as fma_ops, checked_folds() as folds, \
+            torch.no_grad():
         diff.render_image_diff(*args, **static)
     sync()
-    expect(f"phase 27: the {full}x{full} forward (checked run)", 1, 0)
+    got = expect(f"phase 27: the {full}x{full} forward (checked run)", 1, 0)
     hold_fmas(f"phase 27: the {full}x{full} forward (checked run)", fmas)
+    hold_folds(f"phase 27: the {full}x{full} forward (checked run)", folds, got)
     assert len(fma_ops) == len(fmas), (len(fma_ops), len(fmas))
     _, _, samples_full = hold_forward(f"phase 27: the {full}x{full} frame's march",
                                       m_full, cfg, plain_cpu=False)
@@ -3638,7 +3833,7 @@ def diff_phase(torch, dev, smi: str, reset_counts, counts, diff_counts,
             f"{held:.3f} GiB held before it")
         got = expect(f"phase 27: the {grad_size}x{grad_size} gradient (run "
                      f"{attempt + 1})", 1, 1)
-        # numerics.fma: the eager ray set-up's and the fold's FMA sites
+        # numerics.fma: the eager ray set-up's FMA sites
         got["fma"] = nm.fma.launches
         log(f"phase 27: the {grad_size}x{grad_size} gradient (run {attempt + 1}): "
             f"fma launches {got['fma']}")
@@ -3651,15 +3846,16 @@ def diff_phase(torch, dev, smi: str, reset_counts, counts, diff_counts,
     (m_grad, cfg_grad, g_out), = marches
     data = args[0].clone().requires_grad_(True)
     table = args[4].clone().requires_grad_(True)
-    reset_counts()  # checked run: each fma launch of the same call held at once
-    with checked_fmas() as fmas:
+    reset_counts()  # checked run: each fma and fold launch of the same call held at once
+    with checked_fmas() as fmas, checked_folds() as folds:
         image = diff.render_image_diff(data, *args[1:4], table, *args[5:], remat=True,
                                        **small)
         (image * image).mean().backward()
     sync()
-    expect(f"phase 27: the {grad_size}x{grad_size} gradient (checked run)", 1, 1)
+    got = expect(f"phase 27: the {grad_size}x{grad_size} gradient (checked run)", 1, 1)
     hold_fmas(f"phase 27: the {grad_size}x{grad_size} gradient (checked run)", fmas)
-    del data, table, image, fmas
+    hold_folds(f"phase 27: the {grad_size}x{grad_size} gradient (checked run)", folds, got)
+    del data, table, image, fmas, folds
     needs = tuple(t.requires_grad for t in m_grad[:dm.DIFFERENTIABLE])
     # the forward is deterministic: its rerun keeps the same checkpoints
     _, ckpt, samples_grad = hold_forward(f"phase 27: the {grad_size}x{grad_size} "
@@ -3822,7 +4018,8 @@ for i in (4, 6):
     args[i].requires_grad_(True)
 (data,) = ds.shard_leading(mesh, args[0])
 data = [None if d is None else d.clone().requires_grad_(True) for d in data]
-march = (dmk.diffmarch_forward, dmk.diffmarch_backward, dmk.diffmarch_pairs)
+march = (dmk.diffmarch_forward, dmk.diffmarch_backward, dmk.diffmarch_pairs,
+         comp.fold_diff_forward, comp.fold_diff_backward)
 for fn in counted + march:
     fn.launches = 0
 if cuda:
@@ -4032,7 +4229,9 @@ def diff_sharded_phase(torch, dev, smi: str, reset_counts, all_counts, diff_coun
         assert march == {"diffmarch_forward": calls if on_card else 0,
                          "diffmarch_backward": calls if on_card else 0,
                          "diffmarch_tangent": 0,
-                         "diffmarch_pairs": calls if on_card else 0}, march
+                         "diffmarch_pairs": calls if on_card else 0,
+                         "fold_diff_forward": calls if on_card else 0,
+                         "fold_diff_backward": calls if on_card else 0}, march
     # each march launch of (b), the single call's and each shard's, held
     # once against the plain version
     for mode, seen in marches.items():
@@ -4173,10 +4372,11 @@ def diff_sharded_phase(torch, dev, smi: str, reset_counts, all_counts, diff_coun
             f"shards {saved['local'].tolist()}: forward + backward() "
             f"{rec['wall_s'] * 1e3:.3f} ms wall, peak device memory "
             f"{rec['peak_gib']} GiB, other kernels' launches {rec['launches']}, the "
-            f"march's (forward, backward, pair list) {rec['march']}")
+            f"march's (forward, backward, pair list) and the fold's (forward, "
+            f"backward) {rec['march']}")
         assert list(saved["local"]) == list(range(4 * r, 4 * r + 4))
         assert rec["launches"] == 0, rec
-        assert rec["march"] == ([4, 4, 4] if on_card else [0, 0, 0]), rec
+        assert rec["march"] == ([4] * 5 if on_card else [0] * 5), rec
         assert np.array_equal(saved["image"], single_image), r
         hold(f"(c) rank {r}'s rows vs (b)'s single call",
              [saved["data"], saved["lut"], saved["eye"]],
@@ -4468,6 +4668,7 @@ def diff_march_main(argv) -> int:
     print(f"{tree}: {smi}", flush=True)
     from amrvolumerenderer_torch import diff
     from amrvolumerenderer_torch.ops import _build
+    from amrvolumerenderer_torch.ops import composite as comp
     from amrvolumerenderer_torch.ops import diffmarch as dm
     from amrvolumerenderer_torch.ops import numerics as nm
     from amrvolumerenderer_torch.renderer import (auto_orbit_camera, compute_global_bounds,
@@ -4548,6 +4749,8 @@ def diff_march_main(argv) -> int:
     times["tangent_eye_512"] = best(lambda: dm.diffmarch_tangent(m_t, cfg_t, eye_t))
     times["tangent_every_512"] = best(lambda: dm.diffmarch_tangent(m_t, cfg_t, every))
     times["forward_tangent_inputs_512"] = best(lambda: dm.diffmarch_forward(m_t, cfg_t))
+    if hasattr(comp, "fold_diff"):  # a tree with the fold kernels
+        result["fold"] = fold_phase(torch, dev, smi)
     result["ms"] = times
     for k, v in times.items():
         print(f"  {k}: {v:.4f} ms", flush=True)

@@ -58,6 +58,8 @@ from amrvolumerenderer_torch.renderer_fast import (
 from amrvolumerenderer_torch.scene import LevelBox, LevelGeometry, build_brick_buckets
 from amrvolumerenderer_torch.types import CameraParameters, RenderParameters
 
+from test_torch_fold_diff import fold_case, fold_counters, fold_run, same_bits
+
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden",
                       "manifest_pixels.npz")
 ATOL = 2e-6
@@ -1404,7 +1406,9 @@ def test_diffmarch_launch_counts(cuda):
     forward mode launches the forward and its tangent instantiation; a
     sharded call one of each a shard; the forward and the tangent each
     launch one pair list before them, and the backward walks the
-    forward's."""
+    forward's.  The fold likewise: one ``fold_diff`` forward launch a call
+    or a shard, one backward launch under reverse mode, none under forward
+    mode (the layers carry a tangent, so the eager loop folds them)."""
     import torch.autograd.forward_ad as fwAD
 
     from amrvolumerenderer_torch import diff
@@ -1412,7 +1416,7 @@ def test_diffmarch_launch_counts(cuda):
     from amrvolumerenderer_torch.parallel import directsend as ds
 
     fns = (dm.diffmarch_forward, dm.diffmarch_backward, dm.diffmarch_tangent,
-           dm.diffmarch_pairs)
+           dm.diffmarch_pairs, comp.fold_diff_forward, comp.fold_diff_backward)
 
     def counted(fn):
         for f in fns:
@@ -1424,10 +1428,10 @@ def test_diffmarch_launch_counts(cuda):
     args, static = diff_scene("test_diff")
     targs = list(diff.args_from_arrays(args, cuda))
     with torch.no_grad():
-        assert counted(lambda: diff.render_image_diff(*targs, **static)) == [1, 0, 0, 1]
+        assert counted(lambda: diff.render_image_diff(*targs, **static)) == [1, 0, 0, 1, 1, 0]
     lut = targs[4].clone().requires_grad_(True)
     assert counted(lambda: diff.render_image_diff(
-        *targs[:4], lut, *targs[5:], **static).sum().backward()) == [1, 1, 0, 1]
+        *targs[:4], lut, *targs[5:], **static).sum().backward()) == [1, 1, 0, 1, 1, 1]
 
     def forward_mode():
         with fwAD.dual_level():
@@ -1435,12 +1439,12 @@ def test_diffmarch_launch_counts(cuda):
             out = diff.render_image_diff(*targs[:6], eye, *targs[7:], **static)
             assert float(fwAD.unpack_dual(out).tangent.abs().max()) > 0.0
 
-    assert counted(forward_mode) == [1, 0, 1, 2]
+    assert counted(forward_mode) == [1, 0, 1, 2, 0, 0]
     bargs, bstatic = sharded_diff_scene(cuda)
     data = bargs[0].clone().requires_grad_(True)
     mesh = ds.make_mesh(4, "cuda")
     assert counted(lambda: diff.render_image_diff(
-        data, *bargs[1:], mesh=mesh, **bstatic).mean().backward()) == [4, 4, 0, 4]
+        data, *bargs[1:], mesh=mesh, **bstatic).mean().backward()) == [4, 4, 0, 4, 4, 4]
 
 
 @pytest.mark.cuda
@@ -1449,7 +1453,8 @@ def test_diff_fitting_step_replays_as_cuda_graph(cuda):
     the backward kernel, an SGD step), captured as a CUDA graph after two
     warm-up steps on a side stream and replayed three times, against the
     same steps run eagerly: losses and parameters at 1e-5 (the backward's
-    atomics add in another order each run); the loss falls."""
+    atomics add in another order each run); the loss falls.  The capture
+    holds one launch of each fold kernel."""
     from amrvolumerenderer_torch import diff
 
     args, static = diff_scene("test_diff")
@@ -1488,14 +1493,135 @@ def test_diff_fitting_step_replays_as_cuda_graph(cuda):
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     opt_g.zero_grad(set_to_none=True)
+    folds = (comp.fold_diff_forward.launches, comp.fold_diff_backward.launches)
     with torch.cuda.graph(graph):
         loss = step_g()
+    assert (comp.fold_diff_forward.launches, comp.fold_diff_backward.launches) == (
+        folds[0] + 1, folds[1] + 1)
     for _ in range(3):
         graph.replay()
         graphed.append(float(loss))
     np.testing.assert_allclose(graphed, eager, rtol=1e-5)
     assert eager[-1] < eager[0]
     assert float((lut_g - lut_e).abs().max()) <= 1e-5 * float(lut_e.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order_kind", ["identity", "permuted"])
+@pytest.mark.parametrize("num_layers", [1, 8, 13])
+def test_fold_diff_kernels_match_layer_loop(cuda, num_layers, order_kind):
+    """``diff.composite_layers_diff`` on the card (``comp.fold_diff``: one
+    forward and one backward launch, no ``numerics.fma`` launch) against
+    the eager loop on the same card (a ``numerics.fma`` launch a layer and
+    ``_Fma``'s float64 backward), over 1000 pixels (not a multiple of the
+    kernels' 256-pixel block): the image and the layers' gradient equal
+    bit for bit, clip ties, opaque layers and -0.0 products included.
+    Each kernel also equals its plain version run on the card."""
+    from amrvolumerenderer_torch import diff
+
+    colors, order, weights = fold_case(num_layers, 1000, order_kind)
+    before = fold_counters()
+    image, grad = fold_run(diff.composite_layers_diff, colors, order, weights, cuda)
+    assert fold_counters() == (before[0] + 1, before[1] + 1, before[2])
+    want_image, want_grad = fold_run(diff._fold_layer_loop, colors, order, weights, cuda)
+    assert fold_counters() == (before[0] + 1, before[1] + 1, before[2] + num_layers)
+    assert float(want_image[:, 3].max()) == 1.0
+    assert same_bits(image, want_image)
+    differ = grad.view(torch.int32) != want_grad.view(torch.int32)
+    assert int(differ.sum()) == 0, (int(differ.sum()), float((grad - want_grad).abs().max()))
+
+    c, o = colors.to(cuda), order.to(cuda)
+    got = comp.fold_diff_forward(c, o, keep=True)
+    ref = comp.fold_diff_forward_reference(c, o, keep=True)
+    assert all(same_bits(a, b) for a, b in zip(got, ref))
+    g = weights.to(cuda)
+    assert same_bits(comp.fold_diff_backward(g, c, o, *got[1:]),
+                     comp.fold_diff_backward_reference(g, c, o, *ref[1:]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["tangent", "short_order", "long_order"])
+def test_fold_diff_routing_on_card(cuda, case):
+    """Layers with a forward-mode tangent, and an order of another length
+    than the layers', take the eager loop on the card: a ``numerics.fma``
+    launch a folded layer and no fold kernel; the result is the loop's."""
+    import torch.autograd.forward_ad as fwAD
+
+    from amrvolumerenderer_torch import diff
+
+    colors, order, _ = fold_case(8, 1000, "permuted")
+    colors, order = colors.to(cuda), order.to(cuda)
+    if case != "tangent":
+        order = order[:5] if case == "short_order" else torch.cat([order, order[:3]])
+    before = fold_counters()
+    if case == "tangent":
+        with fwAD.dual_level():
+            dual = fwAD.make_dual(colors, torch.ones_like(colors))
+            image, tangent = fwAD.unpack_dual(diff.composite_layers_diff(dual, order))
+        assert float(tangent.abs().max()) > 0.0
+    else:
+        layers = colors.clone().requires_grad_(True)
+        image = diff.composite_layers_diff(layers, order)
+        image.sum().backward()
+        assert layers.grad is not None
+    assert fold_counters() == (before[0], before[1], before[2] + order.shape[0])
+    with torch.no_grad():
+        assert same_bits(image.detach(), diff._fold_layer_loop(colors, order))
+
+
+FOLD_STOP = """
+import os, sys
+import torch
+from test_torch_fold_diff import fold_case
+from amrvolumerenderer_torch.ops import composite as comp
+
+which, value = sys.argv[1], int(sys.argv[2])
+colors, order, weights = fold_case(8, 1000, "permuted")
+c, o, g = colors.cuda(), order.cuda(), weights.cuda()
+_, trans, pre = comp.fold_diff_forward(c, o, keep=True)
+comp.fold_diff_backward(g, c, o, trans, pre)
+torch.cuda.synchronize()
+print("a permutation folds", flush=True)
+bad = o.clone()
+bad[5] = int(order[0]) if value < 0 else value
+try:
+    if which == "backward":
+        comp.fold_diff_backward(g, c, bad, trans, pre)
+    else:
+        comp.fold_diff_forward(c, bad, keep=which == "forward_keep")
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    print("stopped:", str(e).splitlines()[0], flush=True)
+    os._exit(3)
+print("ran to its end", flush=True)
+os._exit(0)
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which, value", [
+    ("forward", -1), ("forward_keep", -1), ("backward", -1), ("forward", 8)],
+    ids=["forward-repeat", "forward_keep-repeat", "backward-repeat",
+         "forward-out_of_range"])
+def test_fold_diff_kernels_stop_on_an_order_that_is_no_permutation(cuda, which, value):
+    """An order of the layers' length that repeats an index (``value`` -1:
+    layer ``order[0]`` again) or holds one out of range stops each fold
+    kernel (both instantiations of the forward, and the backward), which
+    would otherwise leave a layer's gradient rows unwritten: the launch
+    traps and the process's next synchronisation raises.  A trap loses the
+    process's CUDA context, so each case runs in a process of its own,
+    which first folds the sound order forward and backward."""
+    import subprocess
+    import sys
+
+    tests = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([os.path.dirname(tests), tests]))
+    env["CUDA_VISIBLE_DEVICES"] = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+    proc = subprocess.run([sys.executable, "-c", FOLD_STOP, which, str(value)], env=env,
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                          timeout=300)
+    assert proc.returncode == 3, proc.stdout[-3000:]
+    assert "a permutation folds" in proc.stdout and "stopped:" in proc.stdout, proc.stdout
 
 
 @pytest.mark.cuda

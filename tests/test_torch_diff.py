@@ -15,6 +15,8 @@ forward mode) at 1e-4 x max |J|.  The first group mirrors every case of
 ``tests/test_diff.py`` on the port alone, at that file's tolerances.
 """
 
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -31,12 +33,14 @@ from amrvolumerenderer_torch import diff
 from amrvolumerenderer_torch.camera import camera_basis, compute_box_depth_hints
 from amrvolumerenderer_torch.colormap import build_color_table
 from amrvolumerenderer_torch.driver import load_plotfile_geometry
+from amrvolumerenderer_torch.ops import composite as comp
 from amrvolumerenderer_torch.ops import numerics
 from amrvolumerenderer_torch.ops.raymarch import render_bucket_impl
 from amrvolumerenderer_torch.scene import set_scene_normalization_range
 from amrvolumerenderer_torch.types import CameraParameters, ScalarTransform
 
 from test_diff import STATIC, make_args, smooth_lut
+from test_torch_fold_diff import fold_case, plain_kernels
 from test_torch_worklist import one_torch_thread  # noqa: F401
 
 WIDTH = HEIGHT = 12
@@ -414,23 +418,55 @@ def test_lut_lookup_linear_matches_jax():
     assert_grads_close([tl.grad.numpy(), tu.grad.numpy()], [np.asarray(g) for g in jg])
 
 
-def test_composite_layers_diff_matches_jax():
-    """Values and layer gradients, including pixels that saturate at
-    alpha exactly 1 (the clip's tie)."""
+def fold_inputs(which):
+    """(layers [B, P, 4], order [B], weights [P, 4]) as numpy arrays: "few",
+    five layers of 40 pixels with opaque front pixels; or "ties",
+    ``fold_case``'s eight layers of 1000 (clip ties at 0 and 1, values
+    beyond the clip, -0.0 weights)."""
+    if which == "ties":
+        return tuple(t.numpy() for t in fold_case(8, 1000, "permuted", seed=33))
     rng = np.random.default_rng(33)
     layers = rng.uniform(0.0, 0.6, size=(5, 40, 4)).astype(np.float32)
     layers[0, :8] = [0.5, 0.25, 0.125, 1.0]  # opaque front pixels
     order = np.array([0, 3, 1, 4, 2])
     w = rng.uniform(-1, 1, size=(40, 4)).astype(np.float32)
+    return layers, order, w
+
+
+def check_fold_matches_jax(route, layers, order, w):
+    """The port's fold by ``route`` against JAX's: values at FORWARD_ATOL
+    and the layers' gradient of ``sum(image * w)`` at GRAD_REL.  "loop" is
+    ``diff.composite_layers_diff`` on the CPU (its eager loop); "sweep" is
+    ``ops.composite.fold_diff`` through the plain versions of its kernels
+    (the card's back-to-front sweep and its order of the float64 sum)."""
     jv = np.asarray(jax.jit(jdiff.composite_layers_diff)(layers, order))
     (jg,) = jax.jit(jax.grad(lambda c: jnp.sum(jdiff.composite_layers_diff(c, order)
                                                * w), argnums=(0,)))(layers)
     tc = torch.from_numpy(layers).requires_grad_(True)
-    tv = diff.composite_layers_diff(tc, order)
-    (tv * torch.from_numpy(w)).sum().backward()
+    with plain_kernels() if route == "sweep" else contextlib.nullcontext():
+        if route == "loop":
+            tv = diff.composite_layers_diff(tc, order)
+        else:
+            tv = comp.fold_diff(tc, torch.from_numpy(order))
+        (tv * torch.from_numpy(w)).sum().backward()
     assert np.any(jv[:, 3] == 1.0)
     np.testing.assert_allclose(tv.detach().numpy(), jv, rtol=0, atol=FORWARD_ATOL)
     assert_grads_close([tc.grad.numpy()], [np.asarray(jg)])
+
+
+def test_composite_layers_diff_matches_jax():
+    """Values and layer gradients, including pixels that saturate at
+    alpha exactly 1 (the clip's tie)."""
+    check_fold_matches_jax("loop", *fold_inputs("few"))
+
+
+@pytest.mark.parametrize("route, inputs", [("sweep", "few"), ("sweep", "ties"),
+                                           ("loop", "ties")])
+def test_composite_layers_diff_matches_jax_by_route(route, inputs):
+    """As ``test_composite_layers_diff_matches_jax``, by the plain versions
+    of the card's fold kernels too, and on inputs with clip ties at 0 and
+    1, values beyond the clip and -0.0 weights."""
+    check_fold_matches_jax(route, *fold_inputs(inputs))
 
 
 def grid_bricks(seed, camera):
