@@ -9,9 +9,14 @@ differentiate.  Here the ray set-up and what follows the march are plain
 PyTorch under autograd, and the march itself is one autograd node,
 ``ops.diffmarch.march``: on the card a hand-written forward kernel, a
 backward kernel and a tangent kernel (``ops/csrc/diffmarch.cu``), on the
-CPU their plain versions.  On the card the ordered fold is one autograd
-node too, ``ops.composite.fold_diff`` (a forward and a backward kernel in
-``ops/csrc/composite.cu``); elsewhere it is an eager loop of ``fma``.
+CPU their plain versions.  On the card ``render_image_diff`` keeps its
+state a row a (brick, pixel) pair whose ray meets the brick
+(``render_image_pairs``: one pair-list build a view, the march over the
+list's rows, ``ops.composite.fold_pairs``); the dense layers of
+``render_layers_diff`` serve the CPU, forward mode and the sharded path,
+where the ordered fold is ``ops.composite.fold_diff`` on the card (a
+forward and a backward kernel in ``ops/csrc/composite.cu``) and an eager
+loop of ``fma`` elsewhere.
 
 What makes it smooth, as in JAX:
 
@@ -48,14 +53,15 @@ memory and results are the same with it on or off.  The bricks render as
 one batch, the counterpart of ``jax.vmap``.
 
 With ``utils.timers.enable_spans`` on, each stage of a view is a span
-(``utils.timers.SPANS``): the ray set-up, the march, the order and the
-fold forward, the fold's and the march's backward; the sharded path's
-shards reuse the names.
+(``utils.timers.SPANS``): the ray set-up, the pair build, the march, the
+order and the fold forward, the fold's and the march's backward; the
+sharded path's shards reuse the names.
 """
 
 from __future__ import annotations
 
 import functools
+from types import SimpleNamespace
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -66,7 +72,7 @@ from .camera import camera_basis
 from .colormap import SOFT_CLIP_TOLERANCE, build_color_table
 from .device import DEFAULT_DEVICE, Device, resolve_device
 from .ops import diffmarch as dm
-from .ops.composite import fold_diff
+from .ops.composite import fold_diff, fold_pairs
 from .ops.diffmarch import _clip, _constant  # noqa: F401  (_constant: its cache)
 from .ops.march import f32
 from .ops.numerics import fma
@@ -164,6 +170,49 @@ def lut_lookup_linear(lut: Tensor, normalized: Tensor) -> Tensor:
     return dm.lut_terms(lut, normalized).s
 
 
+def _rays(data, min_corner, max_corner, cell_dims, color_table, sample_distance, eye,
+          basis_forward, basis_right, basis_up, fov_y_degrees, range_min, inverse_range,
+          positive_floor, normalization_min, inverse_normalization_span, width: int,
+          height: int) -> SimpleNamespace:
+    """The ray set-up both paths share, on ``data``'s device: the eye, the
+    basis and the rays' directions ``[P, 3]``, the boxes and each box's
+    first-sample nudge ``mesh_eps`` ``[B]``, and ``inputs``, the march's
+    inputs but for the per-(brick, pixel) fields (``d0``, ``tmax`` and
+    ``hit`` None)."""
+    dev = data.device
+    f = torch.float32
+    bmin, bmax = min_corner.to(dev, f), max_corner.to(dev, f)
+    dims = cell_dims.to(dev).long()
+    eye = eye.to(dev, f)
+    basis = tuple(v.to(dev, f) for v in (basis_forward, basis_right, basis_up))
+    fov = _scalar(fov_y_degrees, dev)
+    aspect = f32(f32(width) / f32(max(height, 1)))
+    # a number reads no device value: a call with the field of view as a
+    # number waits for nothing, so a CUDA graph can capture it
+    tan = (_HalfFovTan.apply(fov) if _carries_derivative(fov)
+           else half_fov_tan(float(fov_y_degrees)))
+    directions = _ray_directions(width, height, tan, aspect, basis)  # [P, 3]
+    extent = bmax - bmin
+    extent_mag = torch.sqrt(fma(extent[:, 2], extent[:, 2], fma(
+        extent[:, 1], extent[:, 1], extent[:, 0] * extent[:, 0])))  # FMA
+    cell = torch.where(dims > 0, extent / torch.maximum(
+        dims.to(f), torch.ones((), dtype=f, device=dev)), 1.0)
+    scalars = torch.stack([_scalar(v, dev) for v in (
+        range_min, inverse_range, positive_floor, normalization_min,
+        inverse_normalization_span)])
+    zero = torch.zeros((), dtype=dims.dtype, device=dev)
+    inputs = dm.MarchInputs(
+        data=data.to(f).contiguous(), luts=color_table.to(dev, f).contiguous(), d0=None,
+        directions=directions.contiguous(), eye=eye,
+        steps=sample_distance.to(dev, f).contiguous(), bmin=bmin.contiguous(),
+        cell=cell.contiguous(), scalars=scalars, tmax=None, hit=None,
+        bmax=bmax.detach().contiguous(),
+        top=torch.maximum(dims - 1, zero).to(torch.int32).contiguous(),
+        low=torch.maximum(dims - 2, zero).to(torch.int32).contiguous())
+    return SimpleNamespace(eye=eye, basis=basis, directions=directions, bmin=bmin, bmax=bmax,
+                           mesh_eps=extent_mag * f32(1e-4), inputs=inputs)
+
+
 def render_layers_diff(
     data: Tensor,  # [B, nx, ny, nz] float32 padded raw values
     min_corner: Tensor,  # [B, 3] float32 world lower corners
@@ -201,29 +250,15 @@ def render_layers_diff(
     4], depths [B, H*W])``; the depths carry no gradient (they are
     box-entry hints for ordering).  ``remat`` changes nothing (JAX's
     argument: the march stores no step's activations either way)."""
-    dev = data.device
     with timers.span("diff.rays", data):
-        f = torch.float32
-        bmin, bmax = min_corner.to(dev, f), max_corner.to(dev, f)
-        dims = cell_dims.to(dev).long()
-        steps = sample_distance.to(dev, f)
-        eye = eye.to(dev, f)
-        basis = tuple(v.to(dev, f) for v in (basis_forward, basis_right, basis_up))
-        fov = _scalar(fov_y_degrees, dev)
-
-        aspect = f32(f32(width) / f32(max(height, 1)))
-        # a number reads no device value: a call with the field of view as a
-        # number waits for nothing, so a CUDA graph can capture it
-        tan = (_HalfFovTan.apply(fov) if _carries_derivative(fov)
-               else half_fov_tan(float(fov_y_degrees)))
-        directions = _ray_directions(width, height, tan, aspect, basis)  # [N, 3]
-        tmin, tmax = _slab_intersect(eye, directions, bmin, bmax)  # [B, N]
+        r = _rays(data, min_corner, max_corner, cell_dims, color_table, sample_distance, eye,
+                  basis_forward, basis_right, basis_up, fov_y_degrees, range_min,
+                  inverse_range, positive_floor, normalization_min,
+                  inverse_normalization_span, width, height)
+        eye, basis, directions = r.eye, r.basis, r.directions
+        tmin, tmax = _slab_intersect(eye, directions, r.bmin, r.bmax)  # [B, N]
         hit = tmax >= tmin
-
-        extent = bmax - bmin
-        extent_mag = torch.sqrt(fma(extent[:, 2], extent[:, 2], fma(
-            extent[:, 1], extent[:, 1], extent[:, 0] * extent[:, 0])))  # FMA
-        mesh_eps = (extent_mag * f32(1e-4))[:, None]
+        mesh_eps = r.mesh_eps[:, None]
         # miss rays: the slab guard leaves tmin = +inf on rays with a zero
         # direction component outside the box, and inf * 0 in the position
         # math would put NaNs into the cotangents, so misses take a finite
@@ -231,20 +266,8 @@ def render_layers_diff(
         tmin_safe = torch.where(hit, tmin, 0.0)
         d0 = tmin_safe + mesh_eps
         d0 = torch.where(d0 < 0.0, mesh_eps, d0)
-        cell = torch.where(dims > 0, extent / torch.maximum(
-            dims.to(f), torch.ones((), dtype=f, device=dev)), 1.0)
-        scalars = torch.stack([_scalar(v, dev) for v in (
-            range_min, inverse_range, positive_floor, normalization_min,
-            inverse_normalization_span)])
-        zero = torch.zeros((), dtype=dims.dtype, device=dev)
-        inputs = dm.MarchInputs(
-            data=data.to(f).contiguous(), luts=color_table.to(dev, f).contiguous(),
-            d0=d0.contiguous(), directions=directions.contiguous(), eye=eye,
-            steps=steps.contiguous(), bmin=bmin.contiguous(), cell=cell.contiguous(),
-            scalars=scalars, tmax=tmax.detach().contiguous(), hit=hit.contiguous(),
-            bmax=bmax.detach().contiguous(),
-            top=torch.maximum(dims - 1, zero).to(torch.int32).contiguous(),
-            low=torch.maximum(dims - 2, zero).to(torch.int32).contiguous())
+        inputs = r.inputs._replace(d0=d0.contiguous(), tmax=tmax.detach().contiguous(),
+                                   hit=hit.contiguous())
     backward = timers.grad_span("diff.march.backward")
     with timers.span("diff.march", data):
         inputs = dm.MarchInputs(*backward.inputs(*inputs[:dm.DIFFERENTIABLE]),
@@ -332,6 +355,12 @@ def render_image_diff(data, min_corner, max_corner, *args, order=None,
     ``default_order``, the product renderer's hint ordering; pass a
     visibility permutation for graph-exact order.  Returns ``[H*W, 4]``.
 
+    On the card the call takes the pair path (``render_image_pairs``): its
+    state and its layers are a row a (brick, pixel) pair whose ray meets
+    the brick, not ``[B, H*W]``, with the dense fold's image bit for bit.
+    CPU tensors, forward mode and an ``order`` of another length than the
+    bricks' take the dense layers of ``render_layers_diff``.
+
     ``mesh`` (a ``parallel.directsend.Mesh`` from ``make_mesh``) shards
     the brick axis over its shards, the counterpart of calling the JAX
     function on brick-sharded data: the frame is the single call's bit for
@@ -340,12 +369,115 @@ def render_image_diff(data, min_corner, max_corner, *args, order=None,
     if mesh is not None:
         return _render_image_sharded(mesh, data, min_corner, max_corner, *args,
                                      order=order, **kwargs)
+    if (data.device.type == "cuda" and fwAD._current_level < 0
+            and (order is None or len(order) == min_corner.shape[0])):
+        return render_image_pairs(data, min_corner, max_corner, *args, order=order, **kwargs)
     colors, _ = render_layers_diff(data, min_corner, max_corner, *args, **kwargs)
     if order is None:
         dev = colors.device
         order = default_order(min_corner.to(dev), max_corner.to(dev),
                               args[3].to(dev), args[4].to(dev))
     return composite_layers_diff(colors, order)
+
+
+def render_image_pairs(
+    data: Tensor,
+    min_corner: Tensor,
+    max_corner: Tensor,
+    cell_dims: Tensor,
+    color_table: Tensor,
+    sample_distance: Tensor,
+    eye: Tensor,
+    basis_forward: Tensor,
+    basis_right: Tensor,
+    basis_up: Tensor,
+    fov_y_degrees,
+    range_min,
+    inverse_range,
+    positive_floor=0.0,
+    normalization_min=0.0,
+    inverse_normalization_span=1.0,
+    *,
+    width: int,
+    height: int,
+    num_steps: int,
+    log_scale: bool = False,
+    normalize: bool = False,
+    clip_start: float = 1.0,
+    apply_clip: bool = False,
+    remat: bool = True,
+    order=None,
+) -> Tensor:
+    """``render_image_diff`` over the view's hit pairs: the state of the
+    march and the fold is a row a (brick, pixel) pair whose ray meets the
+    brick (``ops.diffmarch.Pairs``), so it grows with the pairs a view
+    has, not with bricks x pixels.  The image equals the dense path's bit
+    for bit (a miss layer of the dense fold is exactly 0, which changes no
+    sum), and so does the gradient of each pair's march inputs.
+
+    The ray set-up as ``render_layers_diff``'s, per pixel and per brick;
+    the fold's ``order`` (``default_order`` unless given: a permutation of
+    the bricks); the pair list (``ops.diffmarch.diffpairs_build``: the slab
+    test, the distances and the list, one launch on the card); the march
+    over the list (``ops.diffmarch.march_pairs``) and the fold of its rows
+    (``ops.composite.fold_pairs``, which takes the march's clip).  Where
+    the eye, the ray directions or the boxes carry a gradient, the pairs'
+    first distances are formed again under autograd from the list, with
+    the same bits.  Reverse mode only; on the CPU the plain versions."""
+    dev = data.device
+    with timers.span("diff.rays", data):
+        r = _rays(data, min_corner, max_corner, cell_dims, color_table, sample_distance, eye,
+                  basis_forward, basis_right, basis_up, fov_y_degrees, range_min,
+                  inverse_range, positive_floor, normalization_min,
+                  inverse_normalization_span, width, height)
+    if order is None:
+        order = default_order(r.bmin.detach(), r.bmax.detach(), r.eye.detach(),
+                              r.basis[0].detach())
+    order = torch.as_tensor(np.asarray(order) if not isinstance(order, Tensor) else order,
+                            device=dev).long()
+    with timers.span("diff.pairs", data):
+        geometry = (r.eye, r.directions, r.bmin, r.bmax, r.mesh_eps)
+        pairs = dm.diffpairs_build(*(t.detach().contiguous() for t in geometry), order)
+        d0 = pairs.d0
+        if torch.is_grad_enabled() and any(t.requires_grad for t in geometry):
+            d0 = _pair_d0(*geometry, pairs)
+    backward = timers.grad_span("diff.march.backward")
+    with timers.span("diff.march", data):
+        inputs = r.inputs._replace(d0=d0, tmax=pairs.tmax,
+                                   hit=torch.empty(0, dtype=torch.bool, device=dev))
+        inputs = dm.MarchInputs(*backward.inputs(*inputs[:dm.DIFFERENTIABLE]),
+                                *inputs[dm.DIFFERENTIABLE:])
+        raw = backward.output(dm.march_pairs(inputs, pairs, dm.MarchConfig(
+            num_steps, log_scale, normalize, apply_clip, clip_start)))
+    fold_backward = timers.grad_span("diff.fold.backward")
+    with timers.span("diff.fold", raw):
+        (raw,) = fold_backward.inputs(raw)
+        image = fold_pairs(raw, pairs)
+    return fold_backward.output(image)
+
+
+def _pair_d0(eye: Tensor, directions: Tensor, bmin: Tensor, bmax: Tensor,
+             mesh_eps: Tensor, pairs) -> Tensor:
+    """The pairs' first sample distance under autograd: ``_slab_intersect``'s
+    entry distance and ``render_layers_diff``'s nudge for each pair of the
+    list, op for op (so the bits of the list's own ``d0``), gathered from
+    the pixel's direction and the brick's box (rows of no pair take pair
+    0's operands, and no gradient reaches them)."""
+    rows = pairs.brick.shape[0]
+    valid = torch.arange(rows, device=eye.device) < pairs.total
+    brick = torch.where(valid, pairs.brick, 0).long()
+    d = directions[torch.where(valid, pairs.pixel, 0).long()]
+    lo, hi = bmin[brick], bmax[brick]
+    parallel = torch.abs(d) < f32(1e-8)
+    inv = 1.0 / torch.where(parallel, 1.0, d)
+    t1, t2 = (lo - eye) * inv, (hi - eye) * inv
+    inside = (eye >= lo) & (eye <= hi)
+    inf = float("inf")
+    tmin = torch.where(parallel, torch.where(inside, -inf, inf),
+                       torch.minimum(t1, t2)).amax(dim=-1)
+    eps = mesh_eps[brick]
+    d0 = tmin + eps
+    return torch.where(d0 < 0.0, eps, d0).contiguous()
 
 
 def _render_image_sharded(mesh, data, min_corner, max_corner, cell_dims,

@@ -48,14 +48,19 @@ _SIGNATURES = {
                   "avr_composite_runs_launch":
                   [_P] * 4 + [_I, _I, _I, _L, _I, _I, _P],
                   "avr_fold_diff_forward_launch": [_P] * 5 + [_I, _I, _P],
-                  "avr_fold_diff_backward_launch": [_P] * 6 + [_I, _I, _P]},
+                  "avr_fold_diff_backward_launch": [_P] * 6 + [_I, _I, _P],
+                  "avr_diffpairs_fold_forward_launch": [_P] * 7 + [_I, _P],
+                  "avr_diffpairs_fold_backward_launch": [_P] * 8 + [_I, _P]},
     "raymarch": {"avr_raymarch_launch": [_P] * 13 + [_I] * 7 + [_P]},
     "numerics": {"avr_fma_launch": [_P] * 4 + [_F] * 3 + [_P, _P]},
     "diffmarch": {"avr_diffmarch_pairs_launch": [_P] * 4 + [_I, _I, _P],
-                  "avr_diffmarch_forward_launch": [_P] * 18 + [_I] * 8 + [_F] * 4 + [_P],
+                  "avr_diffpairs_build_launch": [_P] * 6 + [_I] * 3 + [_L] + [_P] * 12,
+                  # the march's 14 inputs, then its walk (6 pointers, tiles, rows)
+                  "avr_diffmarch_forward_launch":
+                  [_P] * 20 + [_I, _L] + [_P] * 2 + [_I] * 8 + [_F] * 4 + [_P],
                   "avr_diffmarch_tangent_launch": [_P] * 27 + [_I] * 8 + [_F] * 4 + [_P],
                   "avr_diffmarch_backward_launch":
-                  [_P] * 23 + [_I] * 9 + [_F] * 4 + [_P]},
+                  [_P] * 20 + [_I, _L] + [_P] * 7 + [_I] * 9 + [_F] * 4 + [_P]},
     "spans": {"avr_span_mark_launch": [_I, _I, _P]},
 }
 KERNELS = tuple(_SIGNATURES)

@@ -41,6 +41,12 @@ Two entries of one CUDA source, ``csrc/composite.cu``:
   These wrappers take CUDA tensors only: on the CPU the fold is
   ``diff.composite_layers_diff``'s eager loop, and the plain twins serve
   the tests.
+* ``fold_pairs`` (the fold of ``diff.render_image_pairs``): the same
+  fold over a view's pair list (``diffmarch.Pairs``: each pixel's hit
+  pairs in fold order), each raw march row clipped first, one
+  ``torch.autograd.Function`` over ``diffpairs_fold_forward`` and
+  ``diffpairs_fold_backward`` (one launch each on the card);
+  ``diffpairs_fold_*_reference`` are their plain twins, which the CPU runs.
 
 Each other wrapper launches its kernel for CUDA tensors and runs the plain
 version for CPU tensors.
@@ -377,6 +383,14 @@ def fold_diff_forward_reference(
     return _clip(accum, 0.0, 1.0), trans, accum if keep else None
 
 
+def _clip01_grad(g: Tensor, x: Tensor) -> Tensor:
+    """``g`` through ``minimum(maximum(x, 0), 1)``'s backward by autograd's
+    rules: ``minimum``'s, then ``maximum``'s (half at a tie, 0 beyond)."""
+    y = torch.maximum(x, torch.zeros((), dtype=x.dtype, device=x.device))
+    g = torch.where(y == 1.0, g / 2, g).masked_fill(y > 1.0, 0.0)
+    return torch.where(x == 0.0, g / 2, g).masked_fill(x < 0.0, 0.0)
+
+
 def fold_diff_backward_reference(
     grad_image: Tensor,  # [P, 4] f32 the image's gradient
     colors: Tensor,
@@ -394,10 +408,7 @@ def fold_diff_backward_reference(
     autograd adds into on the eager path, so a -0.0 comes out +0.0 there
     too.  ``order`` must be a permutation of the B layers."""
     _check_permutation(order, colors.shape[0])
-    zero = torch.zeros((), dtype=pre.dtype, device=pre.device)
-    y = torch.maximum(pre, zero)
-    g = torch.where(y == 1.0, grad_image / 2, grad_image).masked_fill(y > 1.0, 0.0)
-    g = torch.where(pre == 0.0, g / 2, g).masked_fill(pre < 0.0, 0.0)
+    g = _clip01_grad(grad_image, pre)
     grad = torch.empty_like(colors)
     layers = order.tolist()
     for k in range(len(layers) - 1, -1, -1):
@@ -511,3 +522,179 @@ def fold_diff(colors: Tensor, order: Tensor) -> Tensor:
     if torch.is_grad_enabled() and colors.requires_grad:
         return _FoldDiff.apply(colors, order)
     return fold_diff_forward(colors, order)[0]
+
+
+# ---- the pair fold: the fold of a pair list's rows ---------------------------
+
+
+def _dot4(g: Tensor, layer: Tensor) -> Tensor:
+    """The float64 sum of the four exact products ``g_c * layer_c`` a row,
+    rounded once: in the card's order ``(p0 + p2) + (p1 + p3)`` on a CUDA
+    tensor (the kernels', and PyTorch's CUDA ``sum_to_size``), else by the
+    sum the CPU's autograd of the eager loop forms."""
+    prod = g.double() * layer.double()  # exact
+    if g.device.type == "cuda":
+        return ((prod[:, 0] + prod[:, 2]) + (prod[:, 1] + prod[:, 3])).float()[:, None]
+    return prod.sum_to_size(prod.shape[0], 1).float()
+
+
+def diffpairs_fold_forward_reference(
+    raw: Tensor,  # [N, 4] f32 the march's raw rows, a row a pair
+    fold_index: Tensor,  # [N] int32
+    pixel_start: Tensor,  # [P] int32
+    pixel_count: Tensor,  # [P] int32
+    keep: bool = False,
+) -> Tuple[Tensor, Optional[Tensor], Optional[Tensor]]:
+    """The pair fold's forward in plain PyTorch: each pixel's pairs in fold
+    order (``diffmarch.Pairs``), each row clipped to [0, 1], then folded as
+    ``fold_diff_forward_reference`` folds a layer; then the clip.  Returns
+    ``(image [P, 4], t [N] a pair's transmittance, unclipped image)``, the
+    last two None unless ``keep``; a pixel whose count is -1 is NaN."""
+    counts = pixel_count.long()
+    acc = torch.zeros((pixel_start.shape[0], 4), dtype=torch.float32, device=raw.device)
+    trans = torch.zeros(fold_index.shape, dtype=torch.float32, device=raw.device) if keep else None
+    for s in range(int(counts.max()) if counts.numel() else 0):
+        at = (counts > s).nonzero()[:, 0]
+        slot = pixel_start[at].long() + s
+        layer = _clip(raw[fold_index[slot].long()], 0.0, 1.0)
+        a = acc[at]
+        t = 1.0 - a[:, 3:4]
+        if keep:
+            trans[slot] = t[:, 0]
+        acc[at] = fma_reference(layer, t, a)  # FMA
+    image = _clip(acc, 0.0, 1.0)
+    image[counts < 0] = float("nan")
+    if keep:
+        acc[counts < 0] = float("nan")
+    return image, trans, acc if keep else None
+
+
+def diffpairs_fold_backward_reference(grad_image: Tensor, raw: Tensor, fold_index: Tensor,
+                                      pixel_start: Tensor, pixel_count: Tensor,
+                                      trans: Tensor, pre: Tensor) -> Tensor:
+    """The raw rows' gradient ``[N, 4]`` in plain PyTorch, as the backward
+    kernel sweeps it: the image clip's rule, then each pixel's pairs back
+    to front, ``g * t + 0`` through the row's clip, and for every pair but
+    the pixel's first ``g.rgb + 0``, ``g.a - g_t`` (``_dot4`` against the
+    clipped row).  Rows of no pair are 0."""
+    counts = pixel_count.long()
+    g = _clip01_grad(grad_image, pre)
+    grad = torch.zeros_like(raw)
+    for s in range(int(counts.max()) - 1 if counts.numel() else -1, -1, -1):
+        at = (counts > s).nonzero()[:, 0]
+        slot = pixel_start[at].long() + s
+        q = fold_index[slot].long()
+        row = raw[q]
+        gs = g[at]
+        grad[q] = _clip01_grad(gs * trans[slot][:, None] + 0.0, row)
+        if s > 0:
+            g_t = _dot4(gs, _clip(row, 0.0, 1.0))
+            g[at] = torch.cat([gs[:, :3] + 0.0, gs[:, 3:] - g_t], dim=1)
+    return grad
+
+
+def _pairs_fold_check(raw: Tensor, fold_index: Tensor, pixel_start: Tensor,
+                      pixel_count: Tensor) -> None:
+    dev = raw.device
+    if dev.type != "cuda":
+        raise ValueError("the pair fold's kernels take CUDA tensors")
+    rows, pixels = raw.shape[0], pixel_start.shape[0]
+    require(raw, "raw", torch.float32, (rows, 4), dev)
+    require(fold_index, "fold_index", torch.int32, (rows,), dev)
+    require(pixel_start, "pixel_start", torch.int32, (pixels,), dev)
+    require(pixel_count, "pixel_count", torch.int32, (pixels,), dev)
+
+
+def diffpairs_fold_forward(raw: Tensor, fold_index: Tensor, pixel_start: Tensor,
+                           pixel_count: Tensor, keep: bool = False):
+    """The pair fold's forward; arguments and result as
+    ``diffpairs_fold_forward_reference``, CUDA tensors.  One launch of
+    ``diffpairs_fold_forward_kernel``, a thread a pixel, counted in
+    ``diffpairs_fold_forward.launches``."""
+    _pairs_fold_check(raw, fold_index, pixel_start, pixel_count)
+    pixels = pixel_start.shape[0]
+    image = torch.empty((pixels, 4), dtype=torch.float32, device=raw.device)
+    trans, pre = ((torch.empty_like(fold_index, dtype=torch.float32), torch.empty_like(image))
+                  if keep else (None, None))
+    from . import _build
+
+    rc = _build.load("composite").avr_diffpairs_fold_forward_launch(
+        raw.data_ptr(), fold_index.data_ptr(), pixel_start.data_ptr(), pixel_count.data_ptr(),
+        image.data_ptr(), None if trans is None else trans.data_ptr(),
+        None if pre is None else pre.data_ptr(), pixels,
+        torch.cuda.current_stream(raw.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"diffpairs_fold_forward kernel launch failed: CUDA error {rc}")
+    diffpairs_fold_forward.launches += 1
+    return image, trans, pre
+
+
+diffpairs_fold_forward.launches = 0
+
+
+def diffpairs_fold_backward(grad_image: Tensor, raw: Tensor, fold_index: Tensor,
+                            pixel_start: Tensor, pixel_count: Tensor, trans: Tensor,
+                            pre: Tensor) -> Tensor:
+    """The raw rows' gradient; arguments and result as
+    ``diffpairs_fold_backward_reference``, CUDA tensors, the rows of no
+    pair left unwritten.  One launch of ``diffpairs_fold_backward_kernel``,
+    counted in ``diffpairs_fold_backward.launches``."""
+    _pairs_fold_check(raw, fold_index, pixel_start, pixel_count)
+    pixels = pixel_start.shape[0]
+    dev = raw.device
+    grad_image = grad_image.contiguous()
+    require(grad_image, "grad_image", torch.float32, (pixels, 4), dev)
+    require(trans, "trans", torch.float32, fold_index.shape, dev)
+    require(pre, "pre", torch.float32, (pixels, 4), dev)
+    grad = torch.empty_like(raw)
+    from . import _build
+
+    rc = _build.load("composite").avr_diffpairs_fold_backward_launch(
+        grad_image.data_ptr(), raw.data_ptr(), fold_index.data_ptr(), pixel_start.data_ptr(),
+        pixel_count.data_ptr(), trans.data_ptr(), pre.data_ptr(), grad.data_ptr(), pixels,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"diffpairs_fold_backward kernel launch failed: CUDA error {rc}")
+    diffpairs_fold_backward.launches += 1
+    return grad
+
+
+diffpairs_fold_backward.launches = 0
+
+
+class _FoldPairs(torch.autograd.Function):
+    """``fold_pairs`` under reverse mode: the forward keeps each pair's
+    transmittance and the unclipped image for the backward's sweep."""
+
+    @staticmethod
+    def forward(ctx, raw, fold_index, pixel_start, pixel_count):
+        args = (raw, fold_index, pixel_start, pixel_count)
+        if raw.device.type == "cuda":
+            image, trans, pre = diffpairs_fold_forward(*args, keep=True)
+        else:
+            image, trans, pre = diffpairs_fold_forward_reference(*args, keep=True)
+        ctx.save_for_backward(*args, trans, pre)
+        return image
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad_image):
+        saved = ctx.saved_tensors
+        fn = (diffpairs_fold_backward if grad_image.device.type == "cuda"
+              else diffpairs_fold_backward_reference)
+        return fn(grad_image, *saved), None, None, None
+
+
+def fold_pairs(raw: Tensor, pairs) -> Tensor:
+    """The front-to-back over-composite of a pair list's raw march rows
+    ``raw`` ``[N, 4]`` (``diffmarch.Pairs``: each pixel's pairs in fold
+    order), each row clipped to [0, 1] first, the image clipped after:
+    ``[P, 4]``, differentiable in ``raw``; the dense fold's image bit for
+    bit.  On the card one forward launch, and one backward launch under
+    reverse mode; on the CPU the plain versions."""
+    args = (raw.contiguous(), pairs.fold_index, pairs.pixel_start, pairs.pixel_count)
+    if torch.is_grad_enabled() and raw.requires_grad:
+        return _FoldPairs.apply(*args)
+    if raw.device.type == "cuda":
+        return diffpairs_fold_forward(*args)[0]
+    return diffpairs_fold_forward_reference(*args)[0]

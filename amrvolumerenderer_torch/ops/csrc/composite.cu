@@ -532,6 +532,79 @@ __global__ void __launch_bounds__(kFoldDiffThreads) fold_diff_backward_kernel(
   }
 }
 
+// The pair fold (diffpairs_fold_forward_kernel, diffpairs_fold_backward_kernel):
+// the differentiable fold of one view's pair list (ops/diffmarch.py's
+// Pairs), which holds a row for each (brick, pixel) pair whose ray meets the
+// brick and none for a miss.  Pixel p's layers, front first, are the raw
+// march rows raw[fold_index[pixel_start[p] + s]] for s below
+// pixel_count[p]; each is clipped here (diff.render_layers_diff's clip,
+// minimum(maximum(x, 0), 1)) and folded as fold_diff_forward_kernel folds
+// a layer.  A miss layer of the dense fold is 0 and fma(0, t, acc) = acc,
+// so the image is the dense fold's bit for bit; the backward writes the
+// raw rows' gradient (the layer's g * t + 0 through the clip's rule) once
+// a pair, and for every layer but a pixel's first the dense fold's g_t
+// (a miss's adds only a signed zero, which g * t + 0 turns to +0).
+// pixel_count -1 marks a tile whose pairs passed the list's capacity (a
+// view captured in a CUDA graph with a smaller list): its pixels come out
+// NaN, and their gradient is not written.
+template <bool kKeep>
+__global__ void __launch_bounds__(kFoldDiffThreads) diffpairs_fold_forward_kernel(
+    const float4* __restrict__ raw, const int* __restrict__ fold_index,
+    const int* __restrict__ pixel_start, const int* __restrict__ pixel_count,
+    float4* __restrict__ image, float* __restrict__ trans, float4* __restrict__ pre,
+    int num_pixels) {
+  const int p = blockIdx.x * kFoldDiffThreads + threadIdx.x;
+  if (p >= num_pixels) return;
+  const int count = pixel_count[p];
+  if (count < 0) {
+    image[p] = make_float4(NAN, NAN, NAN, NAN);
+    if (kKeep) pre[p] = image[p];
+    return;
+  }
+  const int start = pixel_start[p];
+  float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int s = 0; s < count; ++s) {
+    const float4 r = __ldg(raw + fold_index[start + s]);
+    const float4 c = make_float4(clip01(r.x), clip01(r.y), clip01(r.z), clip01(r.w));
+    const float t = __fsub_rn(1.0f, acc.w);
+    if (kKeep) trans[start + s] = t;
+    acc = make_float4(__fmaf_rn(c.x, t, acc.x), __fmaf_rn(c.y, t, acc.y),
+                      __fmaf_rn(c.z, t, acc.z), __fmaf_rn(c.w, t, acc.w));
+  }
+  if (kKeep) pre[p] = acc;
+  image[p] = make_float4(clip01(acc.x), clip01(acc.y), clip01(acc.z), clip01(acc.w));
+}
+
+__global__ void __launch_bounds__(kFoldDiffThreads) diffpairs_fold_backward_kernel(
+    const float4* __restrict__ grad_image, const float4* __restrict__ raw,
+    const int* __restrict__ fold_index, const int* __restrict__ pixel_start,
+    const int* __restrict__ pixel_count, const float* __restrict__ trans,
+    const float4* __restrict__ pre, float4* __restrict__ grad_raw, int num_pixels) {
+  const int p = blockIdx.x * kFoldDiffThreads + threadIdx.x;
+  if (p >= num_pixels) return;
+  const int count = pixel_count[p];
+  if (count <= 0) return;
+  const int start = pixel_start[p];
+  const float4 x = pre[p];
+  float4 g = grad_image[p];
+  g = make_float4(clip01_grad(g.x, x.x), clip01_grad(g.y, x.y),
+                  clip01_grad(g.z, x.z), clip01_grad(g.w, x.w));
+  for (int s = count - 1; s >= 0; --s) {
+    const int q = fold_index[start + s];
+    const float t = trans[start + s];
+    const float4 r = __ldg(raw + q);
+    grad_raw[q] = make_float4(clip01_grad(__fadd_rn(__fmul_rn(g.x, t), 0.0f), r.x),
+                              clip01_grad(__fadd_rn(__fmul_rn(g.y, t), 0.0f), r.y),
+                              clip01_grad(__fadd_rn(__fmul_rn(g.z, t), 0.0f), r.z),
+                              clip01_grad(__fadd_rn(__fmul_rn(g.w, t), 0.0f), r.w));
+    if (s == 0) break;  // the layers in front of it are misses
+    const float gt =
+        dot4_rn(g, make_float4(clip01(r.x), clip01(r.y), clip01(r.z), clip01(r.w)));
+    g = make_float4(__fadd_rn(g.x, 0.0f), __fadd_rn(g.y, 0.0f),
+                    __fadd_rn(g.z, 0.0f), __fsub_rn(g.w, gt));
+  }
+}
+
 }  // namespace
 
 extern "C" int avr_fold_diff_forward_launch(const void* colors,
@@ -571,6 +644,45 @@ extern "C" int avr_fold_diff_backward_launch(const void* grad_image,
       static_cast<const float4*>(colors), static_cast<const long long*>(order),
       static_cast<const float*>(trans), static_cast<const float4*>(pre),
       static_cast<float4*>(grad), num_layers, num_pixels);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int avr_diffpairs_fold_forward_launch(const void* raw, const void* fold_index,
+                                                 const void* pixel_start,
+                                                 const void* pixel_count, void* image,
+                                                 void* trans, void* pre, int num_pixels,
+                                                 void* stream) {
+  if (num_pixels <= 0) return 0;
+  const int blocks = (num_pixels + kFoldDiffThreads - 1) / kFoldDiffThreads;
+  auto s = static_cast<cudaStream_t>(stream);
+  const auto* r = static_cast<const float4*>(raw);
+  const auto* fi = static_cast<const int*>(fold_index);
+  const auto* ps = static_cast<const int*>(pixel_start);
+  const auto* pc = static_cast<const int*>(pixel_count);
+  if (trans != nullptr)
+    diffpairs_fold_forward_kernel<true><<<blocks, kFoldDiffThreads, 0, s>>>(
+        r, fi, ps, pc, static_cast<float4*>(image), static_cast<float*>(trans),
+        static_cast<float4*>(pre), num_pixels);
+  else
+    diffpairs_fold_forward_kernel<false><<<blocks, kFoldDiffThreads, 0, s>>>(
+        r, fi, ps, pc, static_cast<float4*>(image), nullptr, nullptr, num_pixels);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int avr_diffpairs_fold_backward_launch(const void* grad_image, const void* raw,
+                                                  const void* fold_index,
+                                                  const void* pixel_start,
+                                                  const void* pixel_count, const void* trans,
+                                                  const void* pre, void* grad_raw,
+                                                  int num_pixels, void* stream) {
+  if (num_pixels <= 0) return 0;
+  const int blocks = (num_pixels + kFoldDiffThreads - 1) / kFoldDiffThreads;
+  diffpairs_fold_backward_kernel<<<blocks, kFoldDiffThreads, 0,
+                                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(grad_image), static_cast<const float4*>(raw),
+      static_cast<const int*>(fold_index), static_cast<const int*>(pixel_start),
+      static_cast<const int*>(pixel_count), static_cast<const float*>(trans),
+      static_cast<const float4*>(pre), static_cast<float4*>(grad_raw), num_pixels);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -528,13 +528,328 @@ __global__ void __launch_bounds__(kListThreads)
   }
 }
 
+// How a brick's blocks find their hit pairs, and where a pair's rows sit.
+//   * Dense rows (diffmarch_pairs_kernel's list; the sharded path, forward
+//     mode): brick b's hits are the pixels list[b * P + i] for i below
+//     counts[b], and a pair's rows (d0, tmax, the output, the gradient) sit
+//     at b * P + pixel.
+//   * Pair rows (diffpairs_build_kernel's list): brick b's pairs are one run
+//     a tile of pixels, pairs run_off[b * T + t] onwards, run_cnt[b * T + t]
+//     of them, brick_count[b] in all; a pair's rows sit at its index in the
+//     view's pair list, and pixel[index] is its pixel.
+// Checkpoints are [C, rows]: rows is B * P or the pair list's capacity.
+struct Walk {
+  const int* list;
+  const int* counts;
+  const int* run_off;
+  const int* run_cnt;
+  const int* brick_count;
+  const int* pixel;
+  int num_tiles;
+  int64_t rows;
+};
+
+__device__ __forceinline__ int walk_count(const Walk& w, int b) {
+  return w.run_cnt != nullptr ? w.brick_count[b] : w.counts[b];
+}
+
+// Pair rows: s_first[t] = brick b's pairs in the tiles before t, t <= T; a
+// block-wide exclusive scan of the brick's run counts (every thread of the
+// block calls it).
+__device__ void scan_runs(const Walk& w, int b, int* s_first) {
+  __shared__ int s_part[32];
+  const int T = w.num_tiles;
+  const int* cnt = w.run_cnt + static_cast<int64_t>(b) * T;
+  const int per = (T + blockDim.x - 1) / blockDim.x;
+  const int lo = min(T, static_cast<int>(threadIdx.x) * per), hi = min(T, lo + per);
+  int sum = 0;
+  for (int i = lo; i < hi; ++i) sum += cnt[i];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int inc = sum;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(kFull, inc, o);
+    if (lane >= o) inc += y;
+  }
+  if (lane == 31) s_part[warp] = inc;
+  __syncthreads();
+  if (warp == 0) {
+    const int v = lane < static_cast<int>(blockDim.x >> 5) ? s_part[lane] : 0;
+    int all = v;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(kFull, all, o);
+      if (lane >= o) all += y;
+    }
+    if (lane < static_cast<int>(blockDim.x >> 5)) s_part[lane] = all - v;
+  }
+  __syncthreads();
+  int run = s_part[warp] + inc - sum;
+  for (int i = lo; i < hi; ++i) {
+    s_first[i] = run;
+    run += cnt[i];
+  }
+  if (threadIdx.x == 0) s_first[T] = w.brick_count[b];
+  __syncthreads();
+}
+
+// Brick b's i-th hit pair: its pixel n and its rows' index.
+__device__ __forceinline__ void walk_at(const Walk& w, int num_pixels, int b, int i,
+                                        const int* s_first, int& n, int64_t& pair) {
+  if (w.run_cnt == nullptr) {
+    const int64_t row = static_cast<int64_t>(b) * num_pixels;
+    n = w.list[row + i];
+    pair = row + n;
+    return;
+  }
+  int lo = 0, hi = w.num_tiles;  // s_first[lo] <= i < s_first[hi]
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) >> 1;
+    if (s_first[mid] <= i) lo = mid;
+    else hi = mid;
+  }
+  pair = w.run_off[static_cast<int64_t>(b) * w.num_tiles + lo] + (i - s_first[lo]);
+  n = w.pixel[pair];
+}
+
+// ---- the pair list: diffpairs_build_kernel ----------------------------------
+//
+// Replaces diff.py's eager ray set-up over every (brick, pixel) pair: the
+// slab test (ops/raymarch.py::_slab_intersect), the hit mask, the first
+// sample distance d0 and the pair list, one launch a view.  A block is a
+// tile of per_thread x 256 pixels, a thread one pixel in each of its
+// per_thread rows; the bricks are walked in the fold's order (order[k],
+// front first, a permutation that each block checks and traps on, as the
+// fold kernels do).
+//   * First walk: each pixel counts its hits; a brick any pixel of the
+//     tile hits is marked in shared memory.  The tile's pixels take their
+//     first slot by a block scan, the tile its offset in the list by one
+//     atomicAdd (the tiles' order in the list is the order they finish).
+//   * Second walk, over the marked bricks alone: each hit's pair is
+//     written brick-major within the tile (one run a brick, in fold order,
+//     each run in pixel order: run_off / run_cnt, brick_count), and its
+//     index into the pixel's own slots (fold_index from pixel_start, in
+//     fold order: what the pair fold walks).
+// A tile whose pairs would pass the capacity writes no pair: its pixels'
+// counts read -1 and its runs 0, and *total still counts what it needed,
+// so that ops/diffmarch.py grows the list and runs again (eagerly), or the
+// pair fold writes NaN there (inside a CUDA graph).  Every arithmetic step
+// is the eager path's on the card, op for op (-fmad=false, IEEE division):
+// d0 and tmax equal what diff.render_layers_diff computes for the pair.
+constexpr int kBuildThreads = 256;
+constexpr int kBuildWarps = kBuildThreads / 32;
+constexpr int kBuildRows = 4;  // pixels a thread, at most
+
+struct SlabRay {  // what a pixel's slab tests share: the direction's reciprocal
+  float inv[3];
+  bool par[3];
+};
+
+__device__ __forceinline__ float nan_min(float a, float b) {
+  return a != a ? a : (b != b ? b : fminf(a, b));
+}
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return a != a ? a : (b != b ? b : fmaxf(a, b));
+}
+
+// _slab_intersect for one (box, ray): the entry and exit distances
+__device__ __forceinline__ void slab(const float e[3], const SlabRay& r, const float lo[3],
+                                     const float hi[3], float& tmin, float& tmax) {
+  float near[3], far[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float t1 = __fmul_rn(__fsub_rn(lo[a], e[a]), r.inv[a]);
+    const float t2 = __fmul_rn(__fsub_rn(hi[a], e[a]), r.inv[a]);
+    const bool inside = e[a] >= lo[a] && e[a] <= hi[a];
+    near[a] = r.par[a] ? (inside ? -INFINITY : INFINITY) : nan_min(t1, t2);
+    far[a] = r.par[a] ? (inside ? INFINITY : -INFINITY) : nan_max(t1, t2);
+  }
+  tmin = nan_max(nan_max(near[0], near[1]), near[2]);
+  tmax = nan_min(nan_min(far[0], far[1]), far[2]);
+}
+
+// a block-wide exclusive scan of v (every thread calls it); *total the sum
+__device__ __forceinline__ int block_scan(int v, int* s_warp, int& total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int inc = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(kFull, inc, o);
+    if (lane >= o) inc += y;
+  }
+  if (lane == 31) s_warp[warp] = inc;
+  __syncthreads();
+  int before = 0;
+  total = 0;
+#pragma unroll
+  for (int w = 0; w < kBuildWarps; ++w) {
+    before += w < warp ? s_warp[w] : 0;
+    total += s_warp[w];
+  }
+  __syncthreads();
+  return before + inc - v;
+}
+
+__global__ void __launch_bounds__(kBuildThreads)
+    diffpairs_build_kernel(const float* eye, const float* dirs, const float* bmin,
+                           const float* bmax, const float* eps, const long long* order,
+                           int num_bricks, int num_pixels, int per_thread, long long capacity,
+                           unsigned long long* total, int* brick_count, int* pair_brick,
+                           int* pair_pixel, float* pair_d0, float* pair_tmax, int* fold_index,
+                           int* pixel_start, int* pixel_count, int* run_off, int* run_cnt) {
+  extern __shared__ unsigned s_bits[];  // [2][words]: bricks seen in order; ranks marked
+  __shared__ int s_warp[kBuildWarps];
+  __shared__ int s_cnt[kBuildRows * kBuildWarps];
+  __shared__ long long s_base;
+  const int words = (num_bricks + 31) / 32;
+  unsigned* seen = s_bits;
+  unsigned* marked = s_bits + words;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int tile = blockIdx.x, num_tiles = gridDim.x;
+  for (int w = threadIdx.x; w < 2 * words; w += kBuildThreads) s_bits[w] = 0u;
+  __syncthreads();
+  for (int k = threadIdx.x; k < num_bricks; k += kBuildThreads) {  // order: a permutation
+    const long long b = order[k];
+    if (b < 0 || b >= num_bricks) __trap();
+    const unsigned bit = 1u << (b & 31);
+    if (atomicOr(seen + (b >> 5), bit) & bit) __trap();
+  }
+  __syncthreads();  // no thread reads a brick before the order is checked
+  const float e[3] = {eye[0], eye[1], eye[2]};
+  SlabRay ray[kBuildRows] = {};
+  int hits[kBuildRows];
+  const int first = tile * per_thread * kBuildThreads + threadIdx.x;
+#pragma unroll
+  for (int j = 0; j < kBuildRows; ++j) {
+    hits[j] = 0;
+    const int p = first + j * kBuildThreads;
+    if (j < per_thread && p < num_pixels) {
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        const float d = dirs[3 * p + a];
+        ray[j].par[a] = fabsf(d) < 1e-8f;
+        ray[j].inv[a] = __fdiv_rn(1.0f, ray[j].par[a] ? 1.0f : d);
+      }
+    }
+  }
+  // first walk: counts, and the bricks the tile meets
+  for (int k = 0; k < num_bricks; ++k) {
+    const int b = static_cast<int>(order[k]);
+    const float lo[3] = {bmin[3 * b], bmin[3 * b + 1], bmin[3 * b + 2]};
+    const float hi[3] = {bmax[3 * b], bmax[3 * b + 1], bmax[3 * b + 2]};
+    bool any = false;
+#pragma unroll
+    for (int j = 0; j < kBuildRows; ++j) {
+      if (j < per_thread && first + j * kBuildThreads < num_pixels) {
+        float tmin, tmax;
+        slab(e, ray[j], lo, hi, tmin, tmax);
+        const bool h = tmax >= tmin;
+        hits[j] += h;
+        any |= h;
+      }
+    }
+    if (__any_sync(kFull, any) && lane == 0) atomicOr(marked + (k >> 5), 1u << (k & 31));
+  }
+  // the pixels' first slots, in pixel order (row j, then thread)
+  int slot0[kBuildRows] = {};
+  int tile_total = 0;
+#pragma unroll
+  for (int j = 0; j < kBuildRows; ++j) {
+    if (j < per_thread) {
+      int row_total;
+      slot0[j] = tile_total + block_scan(hits[j], s_warp, row_total);
+      tile_total += row_total;
+    }
+  }
+  if (threadIdx.x == 0)
+    s_base = tile_total > 0 ? static_cast<long long>(atomicAdd(
+                                  total, static_cast<unsigned long long>(tile_total)))
+                            : 0;
+  __syncthreads();  // also: every rank is marked
+  const long long base = s_base;
+  const bool over = base + tile_total > capacity;
+#pragma unroll
+  for (int j = 0; j < kBuildRows; ++j) {
+    const int p = first + j * kBuildThreads;
+    if (j < per_thread && p < num_pixels) {
+      pixel_start[p] = over ? 0 : static_cast<int>(base + slot0[j]);
+      pixel_count[p] = over ? -1 : hits[j];
+    }
+  }
+  for (int k = threadIdx.x; k < num_bricks; k += kBuildThreads) {  // runs, 0 unless marked
+    const int b = static_cast<int>(order[k]);
+    if (over || !((marked[k >> 5] >> (k & 31)) & 1u)) {
+      run_off[static_cast<int64_t>(b) * num_tiles + tile] = 0;
+      run_cnt[static_cast<int64_t>(b) * num_tiles + tile] = 0;
+    }
+  }
+  if (over) return;
+  // second walk, the marked bricks in fold order: the pairs
+  int filled[kBuildRows];
+#pragma unroll
+  for (int j = 0; j < kBuildRows; ++j) filled[j] = 0;
+  long long run = base;  // the next run's first pair
+  for (int w = 0; w < words; ++w) {
+    unsigned bits = marked[w];
+    while (bits) {
+      const int k = 32 * w + __ffs(bits) - 1;
+      bits &= bits - 1u;
+      const int b = static_cast<int>(order[k]);
+      const float lo[3] = {bmin[3 * b], bmin[3 * b + 1], bmin[3 * b + 2]};
+      const float hi[3] = {bmax[3 * b], bmax[3 * b + 1], bmax[3 * b + 2]};
+      const float eb = eps[b];
+      bool hit[kBuildRows];
+      float tmin[kBuildRows], tmax[kBuildRows];
+      unsigned mask[kBuildRows];
+#pragma unroll
+      for (int j = 0; j < kBuildRows; ++j) {
+        hit[j] = false;
+        if (j < per_thread && first + j * kBuildThreads < num_pixels) {
+          slab(e, ray[j], lo, hi, tmin[j], tmax[j]);
+          hit[j] = tmax[j] >= tmin[j];
+        }
+        mask[j] = __ballot_sync(kFull, hit[j]);
+        if (j < per_thread && lane == 0) s_cnt[j * kBuildWarps + warp] = __popc(mask[j]);
+      }
+      __syncthreads();
+      int before = 0, cnt = 0;  // the run's pairs before row j, warp w; the run's total
+      for (int i = 0; i < per_thread * kBuildWarps; ++i) cnt += s_cnt[i];
+#pragma unroll
+      for (int j = 0; j < kBuildRows; ++j) {
+        if (j >= per_thread) continue;
+        int at = before;
+        for (int v = 0; v < warp; ++v) at += s_cnt[j * kBuildWarps + v];
+        if (hit[j]) {
+          const long long q = run + at + __popc(mask[j] & ((1u << lane) - 1u));
+          const int p = first + j * kBuildThreads;
+          float d0 = tmin[j] + eb;  // hit: the entry distance, plus mesh_eps
+          d0 = d0 < 0.0f ? eb : d0;
+          pair_brick[q] = b;
+          pair_pixel[q] = p;
+          pair_d0[q] = d0;
+          pair_tmax[q] = tmax[j];
+          fold_index[base + slot0[j] + filled[j]++] = static_cast<int>(q);
+        }
+        for (int v = 0; v < kBuildWarps; ++v) before += s_cnt[j * kBuildWarps + v];
+      }
+      if (threadIdx.x == 0) {
+        run_off[static_cast<int64_t>(b) * num_tiles + tile] = static_cast<int>(run);
+        run_cnt[static_cast<int64_t>(b) * num_tiles + tile] = cnt;
+        atomicAdd(brick_count + b, cnt);
+      }
+      run += cnt;
+      __syncthreads();  // s_cnt is read before the next brick writes it
+    }
+  }
+}
+
 // One hit pair's march, from the list: brick b, pixel n.  kGroups: the
 // tangent groups carried beside the value (0: the forward alone).
 template <int kGroups>
 __device__ __forceinline__ void march_pair(const Inputs& in, const Tangents& t, int b, int n,
-                                           float4* out, float4* out_tangent, float* ckpt) {
+                                           int64_t pair, int64_t rows, float4* out,
+                                           float4* out_tangent, float* ckpt) {
   constexpr bool kTangent = kGroups != 0;
-  const int64_t pair = static_cast<int64_t>(b) * in.num_pixels + n;
   float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   float4 acc_t = acc;
   const Ray r = load_ray(in, b, n, pair);
@@ -544,7 +859,7 @@ __device__ __forceinline__ void march_pair(const Inputs& in, const Tangents& t, 
   int next = 0;  // the next checkpoint to write
   for (int k = 0; k < in.num_steps; ++k) {
     if (ckpt != nullptr && k == next * kSegment)
-      ckpt[next++ * static_cast<int64_t>(in.num_bricks) * in.num_pixels + pair] = acc.w;
+      ckpt[next++ * rows + pair] = acc.w;
     if (!(acc.w < 1.0f)) break;  // never active again
     const float kf = static_cast<float>(k);
     float dist, p[3];
@@ -571,23 +886,30 @@ __device__ __forceinline__ void march_pair(const Inputs& in, const Tangents& t, 
   }
   if (ckpt != nullptr)  // the rest: no later step changes the opacity
     for (; next * kSegment < in.num_steps; ++next)
-      ckpt[next * static_cast<int64_t>(in.num_bricks) * in.num_pixels + pair] = acc.w;
+      ckpt[next * rows + pair] = acc.w;
   if (out != nullptr) out[pair] = acc;
   if (kTangent) out_tangent[pair] = acc_t;
 }
 
 // A thread a hit pair of brick blockIdx.y's list, the brick's blocks
-// striding over it; the misses have their zero rows from the list's kernel.
+// striding over it; in dense rows the misses have their zero rows from the
+// list's kernel, in pair rows they have no row.
 template <int kGroups>
 __global__ void __launch_bounds__(march_threads(kGroups), march_blocks(kGroups))
-    diffmarch_forward_kernel(Inputs in, Tangents t, const int* list, const int* counts,
-                             float4* out, float4* out_tangent, float* ckpt) {
+    diffmarch_forward_kernel(Inputs in, Tangents t, Walk walk, float4* out,
+                             float4* out_tangent, float* ckpt) {
+  extern __shared__ int s_first_fwd[];  // pair rows: [num_tiles + 1] (scan_runs)
   constexpr int kBlock = march_threads(kGroups);
   const int b = blockIdx.y;
-  const int count = counts[b];
-  const int64_t row = static_cast<int64_t>(b) * in.num_pixels;
-  for (int i = blockIdx.x * kBlock + threadIdx.x; i < count; i += gridDim.x * kBlock)
-    march_pair<kGroups>(in, t, b, list[row + i], out, out_tangent, ckpt);
+  const int count = walk_count(walk, b);
+  if (static_cast<int>(blockIdx.x) * kBlock >= count) return;  // the whole block
+  if (walk.run_cnt != nullptr) scan_runs(walk, b, s_first_fwd);
+  for (int i = blockIdx.x * kBlock + threadIdx.x; i < count; i += gridDim.x * kBlock) {
+    int n;
+    int64_t pair;
+    walk_at(walk, in.num_pixels, b, i, s_first_fwd, n, pair);
+    march_pair<kGroups>(in, t, b, n, pair, walk.rows, out, out_tangent, ckpt);
+  }
 }
 
 // The reverse of one active step with opacity ``Aa`` before it: updates the
@@ -745,26 +1067,26 @@ __device__ __forceinline__ void add_lut_rows(double* lut_sum, bool own, int j0, 
 // The backward: brick blockIdx.y's blocks stride over its hit pairs,
 // kBackThreads at a time; a warp's lanes walk their 32 pairs back in step.
 __global__ void __launch_bounds__(kBackThreads)
-    diffmarch_backward_kernel(Inputs in, const int* list, const int* counts,
-                              const float4* grad, const float* ckpt, float* g_data,
-                              double* g_luts, float* g_d0, float* g_dirs, float* g_partial,
-                              int lut_copies) {
-  // the LUT gradient's float64 sums, a copy a warp (warp % lut_copies)
+    diffmarch_backward_kernel(Inputs in, Walk walk, const float4* grad, const float* ckpt,
+                              float* g_data, double* g_luts, float* g_d0, float* g_dirs,
+                              float* g_partial, int lut_copies) {
+  // the LUT gradient's float64 sums, a copy a warp (warp % lut_copies), then
+  // in pair rows scan_runs' [num_tiles + 1] ints
   extern __shared__ double s_lut[];  // [lut_copies][lut_entries * 4] when g_luts is given
   __shared__ float s_before[kSegment][kBackThreads];  // a segment's opacity before each step
   __shared__ float s_red[kPartials][kBackWarps];
   const int b = blockIdx.y;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int count = counts[b];
+  const int count = walk_count(walk, b);
   if (static_cast<int>(blockIdx.x) * kBackThreads >= count) return;  // the whole block
   const int lut_floats = g_luts != nullptr ? in.lut_entries * 4 : 0;
+  int* s_first = reinterpret_cast<int*>(s_lut + lut_floats * lut_copies);
   for (int i = threadIdx.x; i < lut_floats * lut_copies; i += kBackThreads) s_lut[i] = 0.0;
+  if (walk.run_cnt != nullptr) scan_runs(walk, b, s_first);
   __syncthreads();
   double* lut_sum = g_luts != nullptr ? s_lut + (warp % lut_copies) * lut_floats : nullptr;
   const bool lut_private = lut_copies == kBackWarps;  // a copy of the warp's own
   float* g_vol = g_data != nullptr ? g_data + b * in.cells : nullptr;
-  const int64_t row = static_cast<int64_t>(b) * in.num_pixels;
-  const int64_t pairs = static_cast<int64_t>(in.num_bricks) * in.num_pixels;
   const int segments = (in.num_steps + kSegment - 1) / kSegment;
   float part[kPartials];
 #pragma unroll
@@ -773,8 +1095,10 @@ __global__ void __launch_bounds__(kBackThreads)
        start += gridDim.x * kBackThreads) {
     if (start + warp * 32 >= count) continue;  // the warp: no pair in this chunk
     const bool valid = start + static_cast<int>(threadIdx.x) < count;
-    const int n = list[row + start + (valid ? static_cast<int>(threadIdx.x) : warp * 32)];
-    const int64_t pair = row + n;
+    int n;
+    int64_t pair;
+    walk_at(walk, in.num_pixels, b, start + (valid ? static_cast<int>(threadIdx.x) : warp * 32),
+            s_first, n, pair);
     const Ray r = load_ray(in, b, n, pair);
     const bool rising = !(r.step < 0.0f);
     float4 lam = valid ? grad[pair] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
@@ -787,7 +1111,7 @@ __global__ void __launch_bounds__(kBackThreads)
       bool live = valid && !(rising && !(r.d0 + r.step * static_cast<float>(k0) < r.tmax));
       float a = 1.0f;
       if (live) {
-        a = ckpt[seg * pairs + pair];
+        a = ckpt[seg * walk.rows + pair];
         live = a < 1.0f;
       }
       if (!__any_sync(kFull, live)) continue;
@@ -937,18 +1261,39 @@ Tangents make_tangents(const void* const* p) {
 // The tangent instantiation of ``groups`` (1 to kTanAll).
 template <int kGroups>
 cudaError_t launch_tangent(int groups, cudaStream_t stream, const Inputs& in,
-                           const Tangents& t, const int* list, const int* counts, float4* out,
+                           const Tangents& t, const Walk& walk, float4* out,
                            float4* out_tangent) {
   if (groups == kGroups) {
     constexpr int kBlock = march_threads(kGroups);
     diffmarch_forward_kernel<kGroups>
         <<<march_grid(in.num_bricks, in.num_pixels, kBlock), kBlock, 0, stream>>>(
-            in, t, list, counts, out, out_tangent, nullptr);
+            in, t, walk, out, out_tangent, nullptr);
     return cudaGetLastError();
   }
   if constexpr (kGroups < kTanAll)
-    return launch_tangent<kGroups + 1>(groups, stream, in, t, list, counts, out, out_tangent);
+    return launch_tangent<kGroups + 1>(groups, stream, in, t, walk, out, out_tangent);
   return cudaErrorInvalidValue;
+}
+
+// The walk of the dense rows (list, counts) or of the pair rows (the
+// others); the checkpoints' stride ``rows``.
+Walk make_walk(const void* list, const void* counts, const void* run_off, const void* run_cnt,
+               const void* brick_count, const void* pixel, int num_tiles, long long rows) {
+  Walk w;
+  w.list = static_cast<const int*>(list);
+  w.counts = static_cast<const int*>(counts);
+  w.run_off = static_cast<const int*>(run_off);
+  w.run_cnt = static_cast<const int*>(run_cnt);
+  w.brick_count = static_cast<const int*>(brick_count);
+  w.pixel = static_cast<const int*>(pixel);
+  w.num_tiles = num_tiles;
+  w.rows = rows;
+  return w;
+}
+
+// scan_runs' shared memory in pair rows
+size_t walk_shared_bytes(const Walk& w) {
+  return w.run_cnt != nullptr ? static_cast<size_t>(w.num_tiles + 1) * sizeof(int) : 0;
 }
 
 }  // namespace
@@ -965,15 +1310,42 @@ extern "C" int avr_diffmarch_pairs_launch(const void* hit, void* list, void* cou
   return static_cast<int>(cudaGetLastError());
 }
 
+// The pair list of one view (``diffpairs_build_kernel``): ``total`` and
+// ``brick_count`` must hold 0; ``capacity`` pairs fit in the pair buffers.
+extern "C" int avr_diffpairs_build_launch(
+    const void* eye, const void* dirs, const void* bmin, const void* bmax, const void* eps,
+    const void* order, int num_bricks, int num_pixels, int per_thread, long long capacity,
+    void* total, void* brick_count, void* pair_brick, void* pair_pixel, void* pair_d0,
+    void* pair_tmax, void* fold_index, void* pixel_start, void* pixel_count, void* run_off,
+    void* run_cnt, void* stream) {
+  if (num_bricks <= 0 || num_pixels <= 0) return 0;
+  if (per_thread < 1 || per_thread > kBuildRows) return static_cast<int>(cudaErrorInvalidValue);
+  const int tiles = (num_pixels + per_thread * kBuildThreads - 1) / (per_thread * kBuildThreads);
+  const size_t shared = 2 * static_cast<size_t>((num_bricks + 31) / 32) * sizeof(unsigned);
+  diffpairs_build_kernel<<<tiles, kBuildThreads, shared, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(eye), static_cast<const float*>(dirs),
+      static_cast<const float*>(bmin), static_cast<const float*>(bmax),
+      static_cast<const float*>(eps), static_cast<const long long*>(order), num_bricks,
+      num_pixels, per_thread, capacity, static_cast<unsigned long long*>(total),
+      static_cast<int*>(brick_count), static_cast<int*>(pair_brick), static_cast<int*>(pair_pixel),
+      static_cast<float*>(pair_d0), static_cast<float*>(pair_tmax), static_cast<int*>(fold_index),
+      static_cast<int*>(pixel_start), static_cast<int*>(pixel_count), static_cast<int*>(run_off),
+      static_cast<int*>(run_cnt));
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The march entry points take the 14 fields of ops/diffmarch.py's
-// MarchInputs in order, the pair list and its counts, then their own
-// buffers, the sizes and flags, and the stream.
+// MarchInputs in order, the walk (the dense list and its counts, or the
+// pair rows' runs, counts and pixels, the tile count and the rows), then
+// their own buffers, the sizes and flags, and the stream.
 
 extern "C" int avr_diffmarch_forward_launch(
     const void* data, const void* luts, const void* d0, const void* dirs, const void* eye,
     const void* steps, const void* bmin, const void* cell, const void* scalars,
     const void* tmax, const void* hit, const void* bmax, const void* top, const void* low,
-    const void* list, const void* counts, void* out, void* checkpoints,
+    const void* list, const void* counts, const void* run_off, const void* run_cnt,
+    const void* brick_count, const void* pixel, int num_tiles, long long rows,
+    void* out, void* checkpoints,
     int num_bricks, int num_pixels, int pad_x, int pad_y, int pad_z, int lut_entries,
     int num_steps, int flags, float clip_start, float clip_span, float clip_rspan,
     float clip_end,
@@ -985,11 +1357,11 @@ extern "C" int avr_diffmarch_forward_launch(
                                 clip_rspan, clip_end);
   if (num_bricks <= 0 || num_pixels <= 0) return 0;
   const Tangents none = {};
+  const Walk walk = make_walk(list, counts, run_off, run_cnt, brick_count, pixel, num_tiles, rows);
   diffmarch_forward_kernel<0>
-      <<<march_grid(num_bricks, num_pixels, kThreads), kThreads, 0,
+      <<<march_grid(num_bricks, num_pixels, kThreads), kThreads, walk_shared_bytes(walk),
          static_cast<cudaStream_t>(stream)>>>(
-          in, none, static_cast<const int*>(list), static_cast<const int*>(counts),
-          static_cast<float4*>(out), nullptr, static_cast<float*>(checkpoints));
+          in, none, walk, static_cast<float4*>(out), nullptr, static_cast<float*>(checkpoints));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1019,17 +1391,20 @@ extern "C" int avr_diffmarch_tangent_launch(
                           ? kTanGeometry
                           : 0) |
                      (scalars_t != nullptr ? kTanScalars : 0);
+  const Walk walk = make_walk(list, counts, nullptr, nullptr, nullptr, nullptr, 0,
+                             static_cast<long long>(num_bricks) * num_pixels);
   return static_cast<int>(launch_tangent<1>(
-      groups, static_cast<cudaStream_t>(stream), in, make_tangents(tptrs),
-      static_cast<const int*>(list), static_cast<const int*>(counts), static_cast<float4*>(out),
-      static_cast<float4*>(out_tangent)));
+      groups, static_cast<cudaStream_t>(stream), in, make_tangents(tptrs), walk,
+      static_cast<float4*>(out), static_cast<float4*>(out_tangent)));
 }
 
 extern "C" int avr_diffmarch_backward_launch(
     const void* data, const void* luts, const void* d0, const void* dirs, const void* eye,
     const void* steps, const void* bmin, const void* cell, const void* scalars,
     const void* tmax, const void* hit, const void* bmax, const void* top, const void* low,
-    const void* list, const void* counts, const void* grad, const void* checkpoints,
+    const void* list, const void* counts, const void* run_off, const void* run_cnt,
+    const void* brick_count, const void* pixel, int num_tiles, long long rows,
+    const void* grad, const void* checkpoints,
     void* g_data, void* g_luts, void* g_d0, void* g_dirs, void* g_partial, int blocks,
     int num_bricks, int num_pixels, int pad_x, int pad_y, int pad_z, int lut_entries,
     int num_steps, int flags, float clip_start, float clip_span, float clip_rspan,
@@ -1063,14 +1438,18 @@ extern "C" int avr_diffmarch_backward_launch(
     max_dynamic[device] = optin - static_cast<int>(attr.sharedSizeBytes);
   }
   // the LUT gradient's copies: one a warp while they fit in kLutCopyBytes
+  // and beside the pair rows' scan
+  const Walk walk = make_walk(list, counts, run_off, run_cnt, brick_count, pixel, num_tiles, rows);
+  const int scan = static_cast<int>(walk_shared_bytes(walk));
   const int lut_bytes = lut_entries * 4 * static_cast<int>(sizeof(double));
-  const int copies = max(1, min(kBackWarps, kLutCopyBytes / lut_bytes));
-  const int smem = g_luts != nullptr ? copies * lut_bytes : 0;
+  int copies = max(1, min(kBackWarps, kLutCopyBytes / lut_bytes));
+  if (g_luts != nullptr && copies * lut_bytes + scan > max_dynamic[device])
+    copies = max(1, (max_dynamic[device] - scan) / lut_bytes);
+  const int smem = (g_luts != nullptr ? copies * lut_bytes : 0) + scan;
   if (smem > max_dynamic[device]) return static_cast<int>(cudaErrorInvalidValue);
   diffmarch_backward_kernel<<<dim3(blocks, num_bricks), kBackThreads,
                               smem, static_cast<cudaStream_t>(stream)>>>(
-      in, static_cast<const int*>(list), static_cast<const int*>(counts),
-      static_cast<const float4*>(grad), static_cast<const float*>(checkpoints),
+      in, walk, static_cast<const float4*>(grad), static_cast<const float*>(checkpoints),
       static_cast<float*>(g_data), static_cast<double*>(g_luts), static_cast<float*>(g_d0),
       static_cast<float*>(g_dirs), static_cast<float*>(g_partial), copies);
   return static_cast<int>(cudaGetLastError());

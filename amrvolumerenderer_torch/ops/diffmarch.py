@@ -31,6 +31,13 @@ Both devices therefore keep one ``[B, P, 4]`` accumulator (and, on the
 card, the checkpoints) whatever ``remat`` says: the step's activations are
 recomputed in the backward, never stored.
 
+``march_pairs`` is the same march over a view's pair list (``Pairs``, one
+``diffpairs_build`` launch a view on the card: the slab test, each hit's
+first and last distance and the list), its rows a pair each: the kernels
+above walk the list's runs (``diffmarch_forward_pairs``,
+``diffmarch_backward_pairs``), and the plain versions march a brick at a
+time (``march_pairs_forward_reference``, ``march_pairs_backward_reference``).
+
 The gradients follow JAX's rules: ``jnp.clip`` and ``jnp.maximum`` give
 half a gradient at a tie (``_clip_grad``), ``log`` gives ``g / x``.  No
 gradient flows through the gate (hit, distance below the box exit, inside
@@ -414,26 +421,32 @@ def march_tangent_reference(m: MarchInputs, cfg: MarchConfig,
 # ---- the kernels -----------------------------------------------------------
 
 
-def _check(m: MarchInputs) -> None:
+def _check(m: MarchInputs, pairs: Optional["Pairs"] = None) -> None:
     """Raise unless ``m`` is what the kernels take: contiguous tensors of
-    the right types and shapes on one CUDA device."""
+    the right types and shapes on one CUDA device; with ``pairs``, ``d0``
+    and ``tmax`` a row a pair of the list (and ``hit`` unread)."""
     dev = m.data.device
     if m.data.dim() != 4 or m.luts.dim() != 3:
         raise ValueError("data must be [B, nx, ny, nz] and luts [B, size, 4]")
-    num_bricks, num_pixels = m.d0.shape
+    num_bricks, num_pixels = m.luts.shape[0], m.directions.shape[0]
+    rows = ((num_bricks, num_pixels) if pairs is None else (pairs.brick.shape[0],))
     size = m.luts.shape[1]
     f, i = torch.float32, torch.int32
     for name, dtype, shape in (
             ("data", f, (num_bricks,) + tuple(m.data.shape[1:])),
-            ("luts", f, (num_bricks, size, 4)), ("d0", f, (num_bricks, num_pixels)),
+            ("luts", f, (num_bricks, size, 4)), ("d0", f, rows),
             ("directions", f, (num_pixels, 3)), ("eye", f, (3,)),
             ("steps", f, (num_bricks,)), ("bmin", f, (num_bricks, 3)),
             ("cell", f, (num_bricks, 3)), ("scalars", f, (5,)),
-            ("tmax", f, (num_bricks, num_pixels)),
-            ("hit", torch.bool, (num_bricks, num_pixels)),
-            ("bmax", f, (num_bricks, 3)), ("top", i, (num_bricks, 3)),
-            ("low", i, (num_bricks, 3))):
+            ("tmax", f, rows), ("bmax", f, (num_bricks, 3)), ("top", i, (num_bricks, 3)),
+            ("low", i, (num_bricks, 3))) + (
+            (("hit", torch.bool, (num_bricks, num_pixels)),) if pairs is None else ()):
         require(getattr(m, name), name, dtype, shape, dev)
+    if pairs is not None:
+        tiles = pairs.run_cnt.shape[1]
+        for name, shape in (("brick", rows), ("pixel", rows), ("run_off", (num_bricks, tiles)),
+                            ("run_cnt", (num_bricks, tiles)), ("brick_count", (num_bricks,))):
+            require(getattr(pairs, name), name, i, shape, dev)
     if size < 1 or m.luts.data_ptr() % 16:
         raise ValueError("luts must hold an entry and be 16-byte aligned (float4 reads)")
     if math.prod(m.data.shape[1:]) >= 2 ** 31:
@@ -452,8 +465,21 @@ def _launch_args(m: MarchInputs, cfg: MarchConfig) -> tuple:
              | int(soft is not None) << 3)
     start, span, rspan, _ = soft if soft is not None else (0.0, 1.0, 1.0, 0.0)
     end = f32(max(cfg.clip_start, 1.0))  # the clamp's bound, with or without the tail
-    return (m.d0.shape[0], m.d0.shape[1], *m.data.shape[1:], m.luts.shape[1],
+    return (m.luts.shape[0], m.directions.shape[0], *m.data.shape[1:], m.luts.shape[1],
             cfg.num_steps, flags, start, span, rspan, end)
+
+
+def _dense_walk(m: MarchInputs, pixels: Tensor, counts: Tensor) -> tuple:
+    """The march kernels' walk over dense rows: the list, its counts, no
+    pair rows, and the checkpoints' stride B * P."""
+    return (pixels.data_ptr(), counts.data_ptr(), None, None, None, None, 0, m.hit.numel())
+
+
+def _pair_walk(pairs: "Pairs") -> tuple:
+    """The march kernels' walk over a pair list's rows."""
+    return (None, None, pairs.run_off.data_ptr(), pairs.run_cnt.data_ptr(),
+            pairs.brick_count.data_ptr(), pairs.pixel.data_ptr(), pairs.run_cnt.shape[1],
+            pairs.brick.shape[0])
 
 
 def _stream(dev) -> int:
@@ -546,7 +572,7 @@ def diffmarch_forward(m: MarchInputs, cfg: MarchConfig, keep: bool = False):
     pixels, counts = diffmarch_pairs(m.hit, accum)
     lib = _build.load("diffmarch")
     _raise(lib.avr_diffmarch_forward_launch(
-        *(t.data_ptr() for t in m), pixels.data_ptr(), counts.data_ptr(), accum.data_ptr(),
+        *(t.data_ptr() for t in m), *_dense_walk(m, pixels, counts), accum.data_ptr(),
         None if ckpt is None else ckpt.data_ptr(), *_launch_args(m, cfg), _stream(dev)),
         "forward")
     diffmarch_forward.launches += 1
@@ -643,7 +669,7 @@ def diffmarch_backward(m: MarchInputs, cfg: MarchConfig, grad: Tensor,
 
         lib = _build.load("diffmarch")
         _raise(lib.avr_diffmarch_backward_launch(
-            *(t.data_ptr() for t in m), kept.pixels.data_ptr(), kept.counts.data_ptr(),
+            *(t.data_ptr() for t in m), *_dense_walk(m, kept.pixels, kept.counts),
             grad.data_ptr(), kept.checkpoints.data_ptr(),
             g_data.data_ptr() if needs[0] else None,
             g_luts.data_ptr() if needs[1] else None, g_d0.data_ptr(), g_dirs.data_ptr(),
@@ -700,3 +726,338 @@ def march(m: MarchInputs, cfg: MarchConfig) -> Tensor:
     carried = ((True,) * DIFFERENTIABLE if fwAD._current_level < 0 else
                tuple(fwAD.unpack_dual(t).tangent is not None for t in m[:DIFFERENTIABLE]))
     return _March.apply(cfg, keep, carried, *m)
+
+
+# ---- the pair list: rows for the hit (brick, pixel) pairs alone -------------
+
+
+class Pairs(NamedTuple):
+    """One view's (brick, pixel) pairs whose ray meets the brick, as
+    ``diffpairs_build`` lays them out: the rows of the march over pairs
+    (``march_pairs``) and of the pair fold (``composite.fold_pairs``).  The
+    buffers hold ``N`` pairs (the list's capacity); the first ``total`` of
+    the indices ``run_off`` and ``fold_index`` name hold a pair each, the
+    rest is never read.
+
+    Pairs lie brick-major within each tile of ``tile_pixels(P)``
+    neighbouring pixels: one run a brick the tile meets, in fold order,
+    each run in pixel order (the tiles' own order is the order they
+    finished).  Pixel p's pairs in fold order, front first, are
+    ``fold_index[pixel_start[p] + s]`` for s below ``pixel_count[p]``."""
+    brick: Tensor  # [N] int32
+    pixel: Tensor  # [N] int32
+    d0: Tensor  # [N] float32 first sample distance (no gradient)
+    tmax: Tensor  # [N] float32 box exit distance
+    fold_index: Tensor  # [N] int32 pairs by pixel, then fold order
+    pixel_start: Tensor  # [P] int32
+    pixel_count: Tensor  # [P] int32; -1 where the list overflowed its capacity
+    run_off: Tensor  # [B, T] int32 first pair of brick b in tile t (0 for an empty run)
+    run_cnt: Tensor  # [B, T] int32
+    brick_count: Tensor  # [B] int32
+    total: Tensor  # [1] int64 the view's pairs (more than N where the list overflowed)
+
+
+_BUILD_THREADS = 256  # pixels a row of the build's tile (csrc/diffmarch.cu kBuildThreads)
+_BUILD_ROWS = 4  # rows a tile at most (kBuildRows)
+_MAX_TILES = 8192  # the march kernels scan a brick's runs in shared memory
+# pairs the list of a (device, bricks, pixels) holds: the most a view has
+# needed, so that a CUDA graph captured after eager calls fits every view
+_capacity: dict = {}
+
+
+def tile_pixels(num_pixels: int) -> int:
+    """Pixels a tile of the pair list: rows of 256 neighbouring pixels, as
+    few as keep the tiles at most ``_MAX_TILES``."""
+    rows = max(1, -(-num_pixels // (_BUILD_THREADS * _MAX_TILES)))
+    if rows > _BUILD_ROWS:
+        raise ValueError(f"{num_pixels} pixels exceed the pair list's "
+                         f"{_BUILD_THREADS * _BUILD_ROWS * _MAX_TILES}")
+    return _BUILD_THREADS * rows
+
+
+def _order_check(order: Tensor, num_bricks: int) -> None:
+    if order.shape != (num_bricks,):
+        raise ValueError(f"order has shape {tuple(order.shape)}, expected ({num_bricks},)")
+    if sorted(order.tolist()) != list(range(num_bricks)):
+        raise ValueError(f"order {order.tolist()} is not a permutation of the "
+                         f"{num_bricks} bricks")
+
+
+def diffpairs_build_reference(eye: Tensor, directions: Tensor, bmin: Tensor, bmax: Tensor,
+                              eps: Tensor, order: Tensor) -> Pairs:
+    """The pair list in plain PyTorch: ``raymarch._slab_intersect`` over
+    every (brick, pixel) pair, the hits' first distance ``d0`` as
+    ``diff.render_layers_diff`` forms it (``tmin + eps``, ``eps`` where
+    that is negative), laid out as the kernel lays it out with the tiles in
+    pixel order; the capacity is the pair count.  ``order`` [B] int64, a
+    permutation (else ``ValueError``)."""
+    from .raymarch import _slab_intersect
+
+    num_bricks, num_pixels = bmin.shape[0], directions.shape[0]
+    dev = directions.device
+    order = order.to(dev).long()
+    _order_check(order, num_bricks)
+    tmin, tmax = _slab_intersect(eye, directions, bmin, bmax)
+    hit = tmax >= tmin
+    d0 = tmin + eps[:, None]
+    d0 = torch.where(d0 < 0.0, eps[:, None], d0)
+    tile = tile_pixels(num_pixels)
+    tiles = -(-num_pixels // tile)
+    ranks, pix = hit[order].nonzero(as_tuple=True)
+    tile_of = pix // tile
+    # brick-major within each tile, in fold order, each run in pixel order
+    first = torch.argsort((tile_of * num_bricks + ranks) * num_pixels + pix)
+    ranks, pix, tile_of = ranks[first], pix[first], tile_of[first]
+    brick = order[ranks]
+    i32 = torch.int32
+    total = brick.shape[0]
+    runs = torch.zeros((num_bricks, tiles), dtype=torch.int64, device=dev)
+    runs.index_put_((brick, tile_of), torch.ones_like(brick), accumulate=True)
+    run_off = torch.zeros((num_bricks * tiles,), dtype=torch.int64, device=dev)
+    run_off.scatter_reduce_(0, brick * tiles + tile_of, torch.arange(total, device=dev),
+                            "amin", include_self=False)
+    counts = hit.sum(0)
+    return Pairs(
+        brick=brick.to(i32), pixel=pix.to(i32), d0=d0[brick, pix], tmax=tmax[brick, pix],
+        fold_index=torch.argsort(pix * num_bricks + ranks).to(i32),
+        pixel_start=(torch.cumsum(counts, 0) - counts).to(i32), pixel_count=counts.to(i32),
+        run_off=run_off.reshape(num_bricks, tiles).to(i32), run_cnt=runs.to(i32),
+        brick_count=torch.bincount(brick, minlength=num_bricks).to(i32),
+        total=torch.full((1,), total, dtype=torch.int64, device=dev))
+
+
+def _build_launch(eye, directions, bmin, bmax, eps, order, capacity: int) -> Pairs:
+    from . import _build
+
+    dev = directions.device
+    num_bricks, num_pixels = bmin.shape[0], directions.shape[0]
+    tile = tile_pixels(num_pixels)
+    tiles = -(-num_pixels // tile)
+    i32 = torch.int32
+    n = max(capacity, 1)
+    zeros = torch.zeros(2 + num_bricks, dtype=i32, device=dev)  # total (int64), brick counts
+    pairs = Pairs(
+        brick=torch.empty(n, dtype=i32, device=dev), pixel=torch.empty(n, dtype=i32, device=dev),
+        d0=torch.empty(n, dtype=torch.float32, device=dev),
+        tmax=torch.empty(n, dtype=torch.float32, device=dev),
+        fold_index=torch.empty(n, dtype=i32, device=dev),
+        pixel_start=torch.empty(num_pixels, dtype=i32, device=dev),
+        pixel_count=torch.empty(num_pixels, dtype=i32, device=dev),
+        run_off=torch.empty((num_bricks, tiles), dtype=i32, device=dev),
+        run_cnt=torch.empty((num_bricks, tiles), dtype=i32, device=dev),
+        brick_count=zeros[2:], total=zeros[:2].view(torch.int64))
+    _raise(_build.load("diffmarch").avr_diffpairs_build_launch(
+        eye.data_ptr(), directions.data_ptr(), bmin.data_ptr(), bmax.data_ptr(), eps.data_ptr(),
+        order.data_ptr(), num_bricks, num_pixels, tile // _BUILD_THREADS, capacity,
+        pairs.total.data_ptr(), pairs.brick_count.data_ptr(), pairs.brick.data_ptr(),
+        pairs.pixel.data_ptr(), pairs.d0.data_ptr(), pairs.tmax.data_ptr(),
+        pairs.fold_index.data_ptr(), pairs.pixel_start.data_ptr(), pairs.pixel_count.data_ptr(),
+        pairs.run_off.data_ptr(), pairs.run_cnt.data_ptr(), _stream(dev)), "pair build")
+    _BUILD_COUNTER.launches += 1
+    return pairs
+
+
+def diffpairs_build(eye: Tensor, directions: Tensor, bmin: Tensor, bmax: Tensor, eps: Tensor,
+                    order: Tensor) -> Pairs:
+    """One view's pair list (``Pairs``) for rays from ``eye`` [3] along
+    ``directions`` [P, 3] through boxes ``bmin``/``bmax`` [B, 3] (float32),
+    with the boxes' ``eps`` [B] (the first sample's nudge past the entry)
+    and the fold's ``order`` [B] (int64, a permutation, front first).
+
+    A CUDA ``eye`` launches ``diffpairs_build_kernel`` (csrc/diffmarch.cu:
+    the slab test, the distances and the list in one launch, counted in
+    ``diffpairs_build.launches``) into buffers of the capacity the most
+    pairs a view of B bricks at P pixels has needed on this device.  Outside
+    a CUDA graph capture the pair count is then read back, and a list that
+    did not fit is built again larger (a view's first call, or a view with
+    more pairs than any before it); inside one nothing is read: the pixels
+    of a view that does not fit come out NaN (``pixel_count`` -1).  A view
+    captured before any eager call of its sizes takes a capacity of B * P.
+    A CPU ``eye`` runs ``diffpairs_build_reference``."""
+    dev = directions.device
+    if dev.type == "cpu":
+        return diffpairs_build_reference(eye, directions, bmin, bmax, eps, order)
+    if dev.type != "cuda":
+        raise ValueError(f"diffpairs_build has no kernel for {dev}")
+    num_bricks, num_pixels = bmin.shape[0], directions.shape[0]
+    f = torch.float32
+    for name, t, shape in (("eye", eye, (3,)), ("directions", directions, (num_pixels, 3)),
+                           ("bmin", bmin, (num_bricks, 3)), ("bmax", bmax, (num_bricks, 3)),
+                           ("eps", eps, (num_bricks,))):
+        require(t, name, f, shape, dev)
+    require(order, "order", torch.int64, (num_bricks,), dev)
+    if num_bricks > 65535:
+        raise ValueError(f"{num_bricks} bricks exceed the grid's 65535 rows")
+    key = (str(dev), num_bricks, num_pixels)
+    if torch.cuda.is_current_stream_capturing():
+        return _build_launch(eye, directions, bmin, bmax, eps, order,
+                             _capacity.get(key, num_bricks * num_pixels))
+    known = _capacity.get(key)
+    capacity = known if known is not None else min(num_bricks, 4) * num_pixels
+    pairs = _build_launch(eye, directions, bmin, bmax, eps, order, capacity)
+    need = int(pairs.total)  # a read of the device: eager calls only
+    if need >= 2 ** 31:
+        raise ValueError(f"a view of {need} pairs exceeds the list's 2^31")
+    _capacity[key] = max(known or 0, -(-need // 1024) * 1024)
+    if need > capacity:
+        pairs = _build_launch(eye, directions, bmin, bmax, eps, order, _capacity[key])
+    return pairs
+
+
+diffpairs_build.launches = 0
+_BUILD_COUNTER = diffpairs_build  # counted here, where a caller wraps the name
+
+
+def _brick_rows(m: MarchInputs, pairs: Pairs, b: int, sel: Tensor) -> MarchInputs:
+    """Brick ``b``'s pairs ``sel`` (indices into the list) as the dense
+    rows of a one-brick march."""
+    dev = m.data.device
+    pix = pairs.pixel[sel].long()
+    return MarchInputs(
+        data=m.data[b:b + 1], luts=m.luts[b:b + 1], d0=m.d0[sel][None],
+        directions=m.directions[pix], eye=m.eye, steps=m.steps[b:b + 1],
+        bmin=m.bmin[b:b + 1], cell=m.cell[b:b + 1], scalars=m.scalars, tmax=m.tmax[sel][None],
+        hit=torch.ones((1, sel.shape[0]), dtype=torch.bool, device=dev),
+        bmax=m.bmax[b:b + 1], top=m.top[b:b + 1], low=m.low[b:b + 1])
+
+
+def _brick_pairs(pairs: Pairs):
+    """Each brick with pairs and its pairs' indices, in list order."""
+    total = int(pairs.total)
+    brick = pairs.brick[:total].long()
+    for b in torch.unique(brick).tolist():
+        yield b, (brick == b).nonzero()[:, 0]
+
+
+def march_pairs_forward_reference(m: MarchInputs, pairs: Pairs, cfg: MarchConfig) -> Tensor:
+    """The plain march over a pair list: ``march_forward_reference`` a
+    brick over its pairs (each pair's arithmetic is the dense march's).
+    Returns the raw accumulator ``[N, 4]``, zero in the rows of no pair."""
+    out = torch.zeros((m.d0.shape[0], 4), dtype=torch.float32, device=m.data.device)
+    for b, sel in _brick_pairs(pairs):
+        out[sel] = march_forward_reference(_brick_rows(m, pairs, b, sel), cfg)[0]
+    return out
+
+
+def march_pairs_backward_reference(m: MarchInputs, pairs: Pairs, cfg: MarchConfig,
+                                   grad: Tensor,
+                                   needs: Sequence[bool] = (True,) * DIFFERENTIABLE
+                                   ) -> List[Tensor]:
+    """The reverse mode of the march over a pair list, in plain PyTorch:
+    ``march_backward_reference`` a brick over its pairs; the gradients of
+    ``MarchInputs``' differentiable fields, ``d0`` a row a pair."""
+    dev = m.data.device
+    grads = [torch.zeros(t.shape, dtype=torch.float32, device=dev) for t in m[:DIFFERENTIABLE]]
+    g_data, g_luts, g_d0, g_dirs, g_eye, g_steps, g_bmin, g_cell, g_sc = grads
+    for b, sel in _brick_pairs(pairs):
+        rows = _brick_rows(m, pairs, b, sel)
+        gb = march_backward_reference(rows, cfg, grad[sel][None], needs)
+        g_data[b], g_luts[b], g_d0[sel] = gb[0][0], gb[1][0], gb[2][0]
+        g_dirs.index_add_(0, pairs.pixel[sel].long(), gb[3])
+        g_eye += gb[4]
+        g_steps[b], g_bmin[b], g_cell[b] = gb[5][0], gb[6][0], gb[7][0]
+        g_sc += gb[8]
+    return grads
+
+
+def diffmarch_forward_pairs(m: MarchInputs, pairs: Pairs, cfg: MarchConfig, keep: bool = False):
+    """The raw accumulator ``[N, 4]`` of the march over a pair list (``m``'s
+    ``d0`` and ``tmax`` a row a pair, ``hit`` unread), and with ``keep`` on
+    the card the opacity checkpoints ``[C, N]`` the backward replays from
+    (None otherwise).  A CUDA ``m`` launches ``diffmarch_forward_kernel``
+    over the list's runs (a row of blocks a brick, as over dense rows),
+    counted in ``diffmarch_forward.launches``; a CPU ``m`` runs
+    ``march_pairs_forward_reference``."""
+    dev = m.data.device
+    if dev.type == "cpu":
+        return march_pairs_forward_reference(m, pairs, cfg), None
+    if dev.type != "cuda":
+        raise ValueError(f"diffmarch_forward has no kernel for {dev}")
+    _check(m, pairs)
+    rows = pairs.brick.shape[0]
+    accum = torch.empty((rows, 4), dtype=torch.float32, device=dev)
+    ckpt = (torch.empty((checkpoint_count(cfg), rows), dtype=torch.float32, device=dev)
+            if keep else None)
+    from . import _build
+
+    _raise(_build.load("diffmarch").avr_diffmarch_forward_launch(
+        *(t.data_ptr() for t in m), *_pair_walk(pairs), accum.data_ptr(),
+        None if ckpt is None else ckpt.data_ptr(), *_launch_args(m, cfg), _stream(dev)),
+        "forward")
+    diffmarch_forward.launches += 1
+    return accum, ckpt
+
+
+def diffmarch_backward_pairs(m: MarchInputs, pairs: Pairs, cfg: MarchConfig, grad: Tensor,
+                             checkpoints: Optional[Tensor],
+                             needs: Sequence[bool] = (True,) * DIFFERENTIABLE) -> List[Tensor]:
+    """The gradients of ``MarchInputs``' differentiable fields for the
+    cotangent ``grad`` ``[N, 4]`` of the raw accumulator over a pair list
+    (the rows of no pair unread).  A CUDA ``m`` launches
+    ``diffmarch_backward_kernel`` over the list's runs from the forward's
+    ``checkpoints``, as ``diffmarch_backward`` does over dense rows; a CPU
+    ``m`` runs ``march_pairs_backward_reference``."""
+    dev = m.data.device
+    if dev.type == "cpu":
+        return march_pairs_backward_reference(m, pairs, cfg, grad, needs)
+    if dev.type != "cuda":
+        raise ValueError(f"diffmarch_backward has no kernel for {dev}")
+    _check(m, pairs)
+    rows = pairs.brick.shape[0]
+    num_bricks, num_pixels = m.luts.shape[0], m.directions.shape[0]
+    grad = grad.to(dev, torch.float32).contiguous()
+    require(grad, "grad", torch.float32, (rows, 4), dev)
+    if checkpoints is None:
+        raise ValueError("the backward kernel needs the forward's checkpoints "
+                         "(diffmarch_forward_pairs(..., keep=True))")
+    require(checkpoints, "checkpoints", torch.float32, (checkpoint_count(cfg), rows), dev)
+    blocks = max(1, min(-(-num_pixels // _BACK_THREADS), -(-_GRID_BLOCKS // num_bricks)))
+    g_data = torch.zeros_like(m.data)
+    g_luts = torch.zeros(m.luts.shape, dtype=torch.float64, device=dev)
+    g_d0 = torch.zeros_like(m.d0)
+    g_dirs = torch.zeros_like(m.directions)
+    partial = torch.zeros((num_bricks, blocks, PARTIALS), dtype=torch.float32, device=dev)
+    from . import _build
+
+    _raise(_build.load("diffmarch").avr_diffmarch_backward_launch(
+        *(t.data_ptr() for t in m), *_pair_walk(pairs), grad.data_ptr(),
+        checkpoints.data_ptr(), g_data.data_ptr() if needs[0] else None,
+        g_luts.data_ptr() if needs[1] else None, g_d0.data_ptr(), g_dirs.data_ptr(),
+        partial.data_ptr(), blocks, *_launch_args(m, cfg), _stream(dev)), "backward")
+    diffmarch_backward.launches += 1
+    part = partial.sum(1)
+    return [g_data, g_luts.float(), g_d0, g_dirs, part[:, 7:10].sum(0), part[:, 0],
+            part[:, 1:4], part[:, 4:7], part[:, 10:15].sum(0)]
+
+
+class _MarchPairs(torch.autograd.Function):
+    """The march over a pair list as one autograd node (reverse mode)."""
+
+    @staticmethod
+    def forward(ctx, cfg, keep, pairs, *tensors):
+        m = MarchInputs(*tensors)
+        accum, ckpt = diffmarch_forward_pairs(m, pairs, cfg, keep)
+        ctx.cfg, ctx.pairs = cfg, pairs
+        ctx.save_for_backward(*m, *(() if ckpt is None else (ckpt,)))
+        return accum
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        saved = ctx.saved_tensors
+        n = len(MarchInputs._fields)
+        ckpt = saved[n] if len(saved) > n else None
+        needs = ctx.needs_input_grad[3:3 + DIFFERENTIABLE]
+        grads = diffmarch_backward_pairs(MarchInputs(*saved[:n]), ctx.pairs, ctx.cfg, grad,
+                                         ckpt, needs)
+        return (None, None, None, *(g if need else None for g, need in zip(grads, needs)),
+                *(None,) * (n - DIFFERENTIABLE))
+
+
+def march_pairs(m: MarchInputs, pairs: Pairs, cfg: MarchConfig) -> Tensor:
+    """The raw accumulator ``[N, 4]`` of the march over a pair list,
+    differentiable in reverse mode in ``m``'s first ``DIFFERENTIABLE``
+    fields (``d0`` a row a pair).  The forward keeps the checkpoints only
+    when reverse mode will differentiate it (a host fact)."""
+    keep = torch.is_grad_enabled() and any(t.requires_grad for t in m[:DIFFERENTIABLE])
+    return _MarchPairs.apply(cfg, keep, pairs, *m)

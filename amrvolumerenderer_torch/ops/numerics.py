@@ -8,14 +8,23 @@ op for op like plain PyTorch:
     product has a single use inside one fusion (LLVM's FMA combine);
   * its float32 ``exp`` and ``log`` are Cephes-style polynomials, not the
     libm ones;
-  * its float32 ``rsqrt`` is two Newton steps seeded with the x86 rsqrt
-    estimate (``vrsqrtps``), which is a table of 12-bit values indexed by
-    the exponent parity and the top 10 mantissa bits.
+  * its float32 ``rsqrt`` is Newton steps seeded with the host's x86
+    rsqrt estimate (``vrsqrtps``).  The estimate is the CPU's own: on one
+    host it is a table of 12-bit values indexed by the exponent parity and
+    the top 10 mantissa bits (``RSQRT_SEED``, with two steps), on another
+    it is not, and XLA takes one step there.
 
 These helpers reproduce them, so the plain versions (``march``) and
 the CUDA kernels (``csrc/march.cuh``, which takes ``RSQRT_SEED`` as an
 argument) match the JAX reference bit for bit on the tested scenes
-(tests/test_torch_tilemarch.py, tests/test_torch_slicemarch.py).  The FMA sites were read off XLA's
+(tests/test_torch_tilemarch.py, tests/test_torch_slicemarch.py).  The
+card's kernels and their plain versions on the card always take
+``RSQRT_SEED`` and two steps.  CPU tensors take the host's model of
+XLA:CPU, decided once from the host alone (``cpu_rsqrt_model``): where
+the host's estimate is ``RSQRT_SEED``, that and two steps; elsewhere the
+host's estimate and one step.  ``seed_rsqrt`` renders CPU tensors under
+``RSQRT_SEED`` inside a block, the model the stored golden rows were
+rendered under.  The FMA sites were read off XLA's
 optimised LLVM IR of the interpret-mode kernel; each call site of
 ``fma`` names one.  ``rsqrt`` and ``log`` are autograd functions with
 JAX's derivative rules (their bit views carry none), for the
@@ -24,6 +33,7 @@ differentiable path (``diff``).
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 from typing import NamedTuple
@@ -550,18 +560,118 @@ def rsqrt_seed(x: Tensor) -> Tensor:
 
 
 def rsqrt(x: Tensor) -> Tensor:
-    """XLA's float32 ``rsqrt`` of a positive normal ``x``: two Newton steps
-    from the estimate.  Differentiable in both modes through JAX's rule
-    ``-0.5 * (y / x)``, since the estimate's bit views carry no
+    """XLA's float32 ``rsqrt`` of a positive normal ``x``: Newton steps
+    from the estimate (``RSQRT_SEED`` and two steps, or on CPU tensors
+    ``cpu_rsqrt_model``'s).  Differentiable in both modes through JAX's
+    rule ``-0.5 * (y / x)``, since the estimate's bit views carry no
     gradient."""
     return _Rsqrt.apply(x)
 
 
 def _rsqrt(x: Tensor) -> Tensor:
-    y = rsqrt_seed(x)
-    for _ in range(2):
+    if x.device.type == "cpu" and not _seed_only and cpu_rsqrt_model() == "host":
+        y, steps = host_rsqrt_estimate(x), 1
+    else:
+        y, steps = rsqrt_seed(x), 2
+    for _ in range(steps):
         y = fma(y * -0.5, fma(x * y, y, -1.0), y)
     return y
+
+
+# the host's estimate: _mm_rsqrt_ps, the instruction XLA:CPU seeds with
+_HOST_RSQRT_C = r"""
+#include <immintrin.h>
+void avr_rsqrt_estimate(const float* x, float* y, long n) {
+  long i = 0;
+  for (; i + 4 <= n; i += 4) _mm_storeu_ps(y + i, _mm_rsqrt_ps(_mm_loadu_ps(x + i)));
+  for (; i < n; ++i) _mm_store_ss(y + i, _mm_rsqrt_ss(_mm_load_ss(x + i)));
+}
+"""
+_seed_only = False  # inside seed_rsqrt
+
+
+@functools.lru_cache(maxsize=1)
+def cpu_rsqrt_model() -> str:
+    """The host's model of XLA:CPU's float32 rsqrt, for CPU tensors:
+    ``"seed"`` (``RSQRT_SEED`` and two Newton steps) where the host's
+    ``_mm_rsqrt_ps`` equals ``RSQRT_SEED`` at both ends of every entry of
+    the table, or where it cannot be built (no C compiler, no x86 host);
+    else ``"host"`` (the host's estimate and one step, as XLA takes on
+    such a host).  Decided once."""
+    try:
+        _host_library()
+    except RuntimeError:
+        return "seed"
+    top = torch.arange(2 * 1024, dtype=torch.int64)
+    bits = ((127 + top // 1024) << 23) | ((top % 1024) << 13)
+    x = torch.cat([bits, bits | 0x1FFF]).int().view(torch.float32)
+    return "seed" if torch.equal(host_rsqrt_estimate(x), rsqrt_seed(x)) else "host"
+
+
+@contextlib.contextmanager
+def seed_rsqrt():
+    """CPU tensors take ``RSQRT_SEED`` and two steps inside the block,
+    whatever ``cpu_rsqrt_model`` says: the model of the card's kernels and
+    of the hosts the stored golden rows were rendered on."""
+    global _seed_only
+    before, _seed_only = _seed_only, True
+    try:
+        yield
+    finally:
+        _seed_only = before
+
+
+@functools.lru_cache(maxsize=1)
+def _host_library():
+    """The host estimate's C, built with ``cc`` into ``build/native/`` at
+    first use (hashed name, under a lock); ``RuntimeError`` where it
+    cannot be built."""
+    import ctypes
+    import fcntl
+    import hashlib
+    import os
+    import subprocess
+    import tempfile
+
+    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    folder = os.path.join(root, "build", "native")
+    os.makedirs(folder, exist_ok=True)
+    digest = hashlib.sha256(_HOST_RSQRT_C.encode()).hexdigest()[:16]
+    path = os.path.join(folder, f"libavr_rsqrt_{digest}.so")
+    with open(os.path.join(folder, ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not os.path.exists(path):
+            fd, src = tempfile.mkstemp(suffix=".c", dir=folder)
+            with os.fdopen(fd, "w") as f:
+                f.write(_HOST_RSQRT_C)
+            tmp = src[:-2] + ".so"
+            try:
+                subprocess.run([os.environ.get("CC", "cc"), "-O2", "-msse", "-shared", "-fPIC",
+                                "-o", tmp, src], check=True, capture_output=True, timeout=120)
+                os.replace(tmp, path)
+            except (OSError, subprocess.SubprocessError) as e:
+                raise RuntimeError(f"the host rsqrt estimate does not build: {e}") from e
+            finally:
+                for f in (src, tmp):
+                    if os.path.exists(f):
+                        os.unlink(f)
+    try:
+        lib = ctypes.CDLL(path)
+    except OSError as e:
+        raise RuntimeError(f"the host rsqrt estimate does not load: {e}") from e
+    lib.avr_rsqrt_estimate.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_long]
+    lib.avr_rsqrt_estimate.restype = None
+    return lib
+
+
+def host_rsqrt_estimate(x: Tensor) -> Tensor:
+    """This CPU's ``_mm_rsqrt_ps`` of each element of a float32 CPU
+    tensor (no gradient)."""
+    src = x.detach().contiguous()
+    out = torch.empty_like(src)
+    if src.numel():
+        _host_library().avr_rsqrt_estimate(src.data_ptr(), out.data_ptr(), src.numel())
+    return out
 
 
 class _Log(torch.autograd.Function):

@@ -35,9 +35,11 @@ import torch.autograd.forward_ad as fwAD
 # depth hint and miss mask, the depth-hint order (``default_order``), the
 # ordered fold (``composite_layers_diff``).  Backward: the fold's, from
 # the image's gradient to the layers'; the march's, from the layers'
-# gradient to the march's inputs'.
+# gradient to the march's inputs'.  Then the pair path's own: the pair
+# list's build (``diff.render_image_pairs``; there the march and the fold
+# take the same names over the list's rows).
 SPANS = ("diff.rays", "diff.march", "diff.order", "diff.fold",
-         "diff.fold.backward", "diff.march.backward")
+         "diff.fold.backward", "diff.march.backward", "diff.pairs")
 HOST_PREFIX = "avr."
 MARK = "avr_span_mark"
 _MARK_NAME = re.compile(MARK + r"<(\d+), ?(\d+)>")

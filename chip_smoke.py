@@ -507,7 +507,11 @@ def main() -> int:
                 "diffmarch_pairs": dmk.diffmarch_pairs,  # the kernels' pair list
                 # the differentiable fold (a forward and a backward launch a call)
                 "fold_diff_forward": comp.fold_diff_forward,
-                "fold_diff_backward": comp.fold_diff_backward}
+                "fold_diff_backward": comp.fold_diff_backward,
+                # the pair path: a view's pair build, the pair fold
+                "diffpairs_build": dmk.diffpairs_build,
+                "diffpairs_fold_forward": comp.diffpairs_fold_forward,
+                "diffpairs_fold_backward": comp.diffpairs_fold_backward}
 
     def reset_counts():
         for fn in counters.values():
@@ -2677,6 +2681,7 @@ def main() -> int:
         worst_fold = max(diff_records[name]["max_abs_err"], rec.pop("max_abs_err"))
         diff_records[name].update(rec, max_abs_err=worst_fold)
     take(diff_records)
+    take(pair_phase(torch, dev, smi, reset_counts, counts, diff_counts))
 
     # ---- phase 28: the one-shot tile-march route; two processes ------------
     # (i) renderer_fast.render_composited_tilemarch (JAX's route: the
@@ -2791,6 +2796,15 @@ def main() -> int:
         "fold_diff_backward": ("ops/csrc/composite.cu",
                                "none: amrvolumerenderer_tpu/diff.py's fold, "
                                "differentiated by XLA"),
+        "diffpairs_build": ("ops/csrc/diffmarch.cu",
+                            "amrvolumerenderer_tpu/diff.py:113 (the slab test and "
+                            "first distance of render_layers_diff, as a pair list)"),
+        "diffpairs_fold_forward": ("ops/csrc/composite.cu",
+                                   "none: amrvolumerenderer_tpu/diff.py's fold over "
+                                   "a view's hit pairs"),
+        "diffpairs_fold_backward": ("ops/csrc/composite.cu",
+                                    "none: amrvolumerenderer_tpu/diff.py's fold over "
+                                    "a view's hit pairs, differentiated"),
     }
     for prec, name in batch_name.items():
         times[name] = batch_times[prec][:2]
@@ -3724,7 +3738,9 @@ def diff_phase(torch, dev, smi: str, reset_counts, counts, diff_counts,
                 "diffmarch_tangent": 0,
                 "diffmarch_pairs": forward if on_card else 0,
                 "fold_diff_forward": forward if on_card else 0,
-                "fold_diff_backward": backward if on_card else 0}
+                "fold_diff_backward": backward if on_card else 0,
+                "diffpairs_build": 0, "diffpairs_fold_forward": 0,
+                "diffpairs_fold_backward": 0}
         log(f"{label}: launches {got}, other kernels {others}")
         assert got == want and not any(others.values()), (label, got, others)
         return got
@@ -3764,7 +3780,13 @@ def diff_phase(torch, dev, smi: str, reset_counts, counts, diff_counts,
     hold_march("phase 27: the contention scene, 2^3 cells at 64x64",
                *diff_contention_scene(torch, dev))
 
-    # (b) full size
+    # (b) full size, through the dense layers (render_layers_diff and the
+    # fold: on the card the route of the sharded path and of forward mode;
+    # the card's main path is the pair path, phase 27 (d))
+    def dense(*a, **kw):
+        colors, _ = diff.render_layers_diff(*a, **kw)
+        return diff.composite_layers_diff(colors, diff.default_order(a[1], a[2], a[6], a[7]))
+
     geometry = three_level_geometry()
     camera = auto_orbit_camera(compute_global_bounds(geometry))
     args, static = diff.prepare_geometry(geometry, camera, width=full, height=full,
@@ -3780,12 +3802,12 @@ def diff_phase(torch, dev, smi: str, reset_counts, counts, diff_counts,
         with recorded_marches() as forwards:
             t0 = time.perf_counter()
             with torch.no_grad():
-                image = diff.render_image_diff(*args, **static)
+                image = dense(*args, **static)
             sync()
             ms = (time.perf_counter() - t0) * 1e3
         peak = torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else float("nan")
         covered = float((image[:, 3] > 0).float().mean())
-        log(f"phase 27: {smi}: render_image_diff 3-level {full}x{full} under "
+        log(f"phase 27: {smi}: the dense layers, 3-level {full}x{full} under "
             f"no_grad (run {attempt + 1}): {ms:.3f} ms wall, peak device memory "
             f"{peak:.3f} GiB, {peak - held:.3f} GiB above the {held:.3f} GiB held "
             f"before it; covered share {covered:.4f}; fma launches {nm.fma.launches}")
@@ -3798,7 +3820,7 @@ def diff_phase(torch, dev, smi: str, reset_counts, counts, diff_counts,
     reset_counts()  # checked run: each fma and fold launch of the same call held at once
     with checked_fmas() as fmas, recorded_fmas(nm) as fma_ops, checked_folds() as folds, \
             torch.no_grad():
-        diff.render_image_diff(*args, **static)
+        dense(*args, **static)
     sync()
     got = expect(f"phase 27: the {full}x{full} forward (checked run)", 1, 0)
     hold_fmas(f"phase 27: the {full}x{full} forward (checked run)", fmas)
@@ -3817,7 +3839,7 @@ def diff_phase(torch, dev, smi: str, reset_counts, counts, diff_counts,
         held = torch.cuda.memory_allocated() / 2 ** 30 if on_card else float("nan")
         with recorded_marches() as marches:
             t0 = time.perf_counter()
-            image = diff.render_image_diff(data, *args[1:4], table, *args[5:],
+            image = dense(data, *args[1:4], table, *args[5:],
                                            remat=True, **small)
             loss = (image * image).mean()
             sync()
@@ -3848,7 +3870,7 @@ def diff_phase(torch, dev, smi: str, reset_counts, counts, diff_counts,
     table = args[4].clone().requires_grad_(True)
     reset_counts()  # checked run: each fma and fold launch of the same call held at once
     with checked_fmas() as fmas, checked_folds() as folds:
-        image = diff.render_image_diff(data, *args[1:4], table, *args[5:], remat=True,
+        image = dense(data, *args[1:4], table, *args[5:], remat=True,
                                        **small)
         (image * image).mean().backward()
     sync()
@@ -3983,6 +4005,205 @@ def diff_phase(torch, dev, smi: str, reset_counts, counts, diff_counts,
         assert final < 0.5 * first, summary
     log(f"phase 27: {smi}: both examples with their defaults, run together: "
         f"{wall:.3f} s wall")
+    return records
+
+
+def pair_phase(torch, dev, smi: str, reset_counts, counts, diff_counts,
+               full: int = 1024, grad_size: int = 512) -> dict:
+    """Phase 27 (d), the card's main path of the differentiable renderer:
+    ``render_image_diff`` over a view's hit (brick, pixel) pairs
+    (``diff.render_image_pairs``), on bench.py's 3-level scene (13 bricks;
+    the forward at ``full``^2 under ``no_grad``, the gradient with respect
+    to data and LUT at ``grad_size``^2) and on the fitting cell's view of
+    the turbulence field at 192^3 in 216 bricks of 32^3 (both at
+    ``grad_size``^2).  Each call driven with the launch counts set to 0
+    just before: one pair build, one march forward (and backward), one pair
+    fold forward (and backward), no dense pair list, no dense fold, no
+    other kernel; its wall time and peak memory beside the dense layers'
+    (phase 27 (b)'s route); the image equal to the dense layers' bit for
+    bit, the gradients at DIFF_GRAD_REL of their scale.  The pair build
+    against its plain version (the same pairs, each pair's d0 and tmax bit
+    for bit); the pair fold's kernels against their plain versions at max
+    |diff| 0; each timed alone by CUDA events against
+    ``portbench/pairs.py``'s bound.  Returns the three kernels' records
+    for the ``kernels`` line.  Every check asserts."""
+    from amrvolumerenderer_torch import diff
+    from amrvolumerenderer_torch.ops import composite as comp
+    from amrvolumerenderer_torch.ops import diffmarch as dm
+    from amrvolumerenderer_torch.renderer import auto_orbit_camera, compute_global_bounds
+    from amrvolumerenderer_torch.types import CameraParameters
+    from portbench import pairs as bench_pairs
+    from portbench import scenes as bench_scenes
+
+    sync = torch.cuda.synchronize
+    names = ("diffpairs_build", "diffpairs_fold_forward", "diffpairs_fold_backward")
+    records = {n: dict(launches=0, max_abs_err=0.0) for n in names}
+    best = lambda fn: min(event_ms(torch, fn) for _ in range(3))  # noqa: E731
+
+    def bits(a, b):
+        return a.shape == b.shape and bool(torch.equal(a.view(torch.int32),
+                                                       b.view(torch.int32)))
+
+    def dense(*a, **kw):
+        colors, _ = diff.render_layers_diff(*a, **kw)
+        return diff.composite_layers_diff(colors, diff.default_order(a[1], a[2], a[6], a[7]))
+
+    def want(forward, backward):
+        return {"diffmarch_forward": forward, "diffmarch_backward": backward,
+                "diffmarch_tangent": 0, "diffmarch_pairs": 0, "fold_diff_forward": 0,
+                "fold_diff_backward": 0, "diffpairs_build": forward,
+                "diffpairs_fold_forward": forward, "diffpairs_fold_backward": backward}
+
+    def measured(label, fn, forward, backward):
+        """``fn()`` with the counts from 0, timed (host clock, synchronised)
+        with its peak memory; its launches held to ``want``."""
+        reset_counts()
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+        got, others = diff_counts(), counts()
+        log(f"phase 27: (d) {smi}: {label}: {ms:.3f} ms wall, peak device memory "
+            f"{peak:.3f} GiB above the {held / 2 ** 30:.3f} GiB held; launches {got}")
+        if forward is not None:
+            assert got == want(forward, backward) and not any(others.values()), (
+                label, got, others)
+        return out, ms, peak
+
+    def gradient(fn, args, static):
+        data = args[0].clone().requires_grad_(True)
+        table = args[4].clone().requires_grad_(True)
+        image = fn(data, *args[1:4], table, *args[5:], **static)
+        (image * image).mean().backward()
+        return image.detach(), [data.grad, table.grad]
+
+    geometry = three_level_geometry()
+    camera3 = auto_orbit_camera(compute_global_bounds(geometry))
+    boxes = bench_scenes.turbulence_scene({"domain": 192, "brick": 32}, 11, dev).boxes
+    host = [(b.data.cpu().numpy(), b.min_corner, b.max_corner) for b in boxes]
+    view = bench_scenes.fit_views({"views": 36, "radius": 2.5, "fov_y_degrees": 45.0}, 11)[0]
+    camera_t = CameraParameters(eye=view.eye, look_at=view.look_at, up=view.up,
+                                fov_y_degrees=view.fov_y_degrees)
+    cases = (
+        ("3-level, 13 bricks", full,
+         lambda size: diff.prepare_geometry(geometry, camera3, width=size, height=size,
+                                            device=dev)),
+        ("turbulence 192^3 in 216 bricks", grad_size,
+         lambda size: diff.prepare_scene(host, camera_t, width=size, height=size,
+                                         device=dev)))
+    for label, size, prepare in cases:
+        args, static = prepare(size)
+        with torch.no_grad():
+            diff.render_image_diff(*args, **static)  # sizes the pair list for these sizes
+        seen, inner = [], dm.diffpairs_build
+        dm.diffpairs_build = lambda *a: seen.append((inner(*a), a)) or seen[-1][0]
+        try:
+            with torch.no_grad():
+                image, ms, peak = measured(f"{label}, {size}x{size} forward under no_grad",
+                                           lambda: diff.render_image_diff(*args, **static),
+                                           1, 0)
+        finally:
+            dm.diffpairs_build = inner
+        with torch.no_grad():
+            ref_image, dense_ms, dense_peak = measured(
+                f"{label}, {size}x{size}, the dense layers", lambda: dense(*args, **static),
+                None, None)
+        log(f"phase 27: (d) {label}: the pair path's image == the dense layers' "
+            f"{bits(image, ref_image)}; {ms:.3f} ms and {peak:.3f} GiB against "
+            f"{dense_ms:.3f} ms and {dense_peak:.3f} GiB")
+        assert bits(image, ref_image) and float(image[:, 3].max()) > 0.0
+        del ref_image
+        ((pairs, inputs),) = seen
+        num_bricks, num_pixels = inputs[2].shape[0], inputs[1].shape[0]
+        total = int(pairs.total)
+        # the build against its plain version: the same pairs, d0, tmax
+        ref = dm.diffpairs_build_reference(*inputs)
+        keyed = []
+        for lst in (pairs, ref):
+            n = int(lst.total)
+            key = lst.brick[:n].long() * num_pixels + lst.pixel[:n].long()
+            at = torch.argsort(key)
+            keyed.append((key[at], lst.d0[:n][at], lst.tmax[:n][at]))
+        same_build = (int(ref.total) == total and bool(torch.equal(keyed[0][0], keyed[1][0]))
+                      and bits(keyed[0][1], keyed[1][1]) and bits(keyed[0][2], keyed[1][2])
+                      and bool(torch.equal(pairs.pixel_count, ref.pixel_count))
+                      and bool(torch.equal(pairs.run_cnt, ref.run_cnt)))
+        # the pair fold's kernels on these rows against their plain versions
+        g = torch.Generator(device=dev).manual_seed(5)
+        raw = torch.rand((pairs.brick.shape[0], 4), generator=g, device=dev) * 1.4 - 0.2
+        grad_image = torch.rand((num_pixels, 4), generator=g, device=dev) * 2.0 - 1.0
+        fold = (raw, pairs.fold_index, pairs.pixel_start, pairs.pixel_count)
+        with torch.no_grad():
+            out = comp.diffpairs_fold_forward(*fold, keep=True)
+            out_ref = comp.diffpairs_fold_forward_reference(*fold, keep=True)
+            back = comp.diffpairs_fold_backward(grad_image, *fold, *out[1:])
+            back_ref = comp.diffpairs_fold_backward_reference(grad_image, *fold, *out_ref[1:])
+        rows = torch.zeros(pairs.brick.shape[0], dtype=torch.bool, device=dev)
+        rows[pairs.fold_index[:total].long()] = True
+        # the slots and rows of a pair (a list's capacity holds more)
+        kept = (out[0], out[1][:total], out[2]), (out_ref[0], out_ref[1][:total], out_ref[2])
+        d_f = max(float((a - b).abs().max()) if a.numel() else 0.0 for a, b in zip(*kept))
+        d_b = float((back[rows] - back_ref[rows]).abs().max()) if total else 0.0
+        same_fold = all(bits(a, b) for a, b in zip(*kept)) and bits(back[rows], back_ref[rows])
+        bounds = bench_pairs.view_bounds_s(num_bricks, num_pixels, total)
+        times = {"diffpairs_build": best(lambda: dm._build_launch(*inputs, pairs.brick.shape[0])),
+                 "diffpairs_fold_forward": best(lambda: comp.diffpairs_fold_forward(
+                     *fold, keep=True)),
+                 "diffpairs_fold_backward": best(lambda: comp.diffpairs_fold_backward(
+                     grad_image, *fold, *out[1:]))}
+        plain = {}
+        for name, fn in (("diffpairs_build", lambda: dm.diffpairs_build_reference(*inputs)),
+                         ("diffpairs_fold_forward",
+                          lambda: comp.diffpairs_fold_forward_reference(*fold, keep=True)),
+                         ("diffpairs_fold_backward",
+                          lambda: comp.diffpairs_fold_backward_reference(
+                              grad_image, *fold, *out_ref[1:]))):
+            sync()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                fn()
+            sync()
+            plain[name] = (time.perf_counter() - t0) * 1e3
+        log(f"phase 27: (d) {smi}: {label}, {num_bricks} bricks x {num_pixels} pixels, "
+            f"{total} hit pairs ({total / (num_bricks * num_pixels):.4f} of them): the "
+            f"build vs plain the same {same_build}; the fold vs plain forward max |diff| "
+            f"{d_f:.3g}, backward {d_b:.3g}, bits equal {same_fold}; "
+            + "; ".join(f"{n} {times[n]:.4f} ms (CUDA events, best of 3), plain "
+                        f"{plain[n]:.3f} ms (wall), bound {bounds[k] * 1e3:.5f} ms, at "
+                        f"{bounds[k] * 1e3 / times[n]:.4f} of it"
+                        for n, k in zip(names, ("build", "fold", "fold_backward"))))
+        assert same_build and same_fold, (label, same_build, d_f, d_b)
+        for n, k in zip(names, ("build", "fold", "fold_backward")):
+            records[n].update(ms=times[n], plain_ms=plain[n], bound_ms=bounds[k] * 1e3,
+                              bound_by="operations" if n == "diffpairs_build" else "bytes")
+        del pairs, inputs, ref, raw, out, out_ref, back, back_ref, seen, image
+        # the gradient at grad_size^2, pair path against the dense layers
+        small = dict(static, width=grad_size, height=grad_size)
+        if size != grad_size:
+            args, static = prepare(grad_size)
+            small = static
+            with torch.no_grad():
+                diff.render_image_diff(*args, **small)
+        (image, grads), ms, peak = measured(
+            f"{label}, {grad_size}x{grad_size} forward + backward() w.r.t. data and LUT",
+            lambda: gradient(diff.render_image_diff, args, small), 1, 1)
+        (want_image, want_grads), dense_ms, dense_peak = measured(
+            f"{label}, {grad_size}x{grad_size} gradient, the dense layers",
+            lambda: gradient(dense, args, small), None, None)
+        rel = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(grads, want_grads)]
+        log(f"phase 27: (d) {label}, {grad_size}x{grad_size} gradient: image == the dense "
+            f"layers' {bits(image, want_image)}; data and LUT gradients max |diff| over "
+            f"max |g| {rel[0]:.3g}, {rel[1]:.3g}; {ms:.3f} ms, {peak:.3f} GiB against "
+            f"{dense_ms:.3f} ms, {dense_peak:.3f} GiB")
+        assert bits(image, want_image) and max(rel) <= DIFF_GRAD_REL, (label, rel)
+        for n in names:
+            records[n]["launches"] = 1
+        del args, image, grads, want_image, want_grads
+        torch.cuda.empty_cache()
     return records
 
 
@@ -4226,12 +4447,18 @@ def diff_sharded_phase(torch, dev, smi: str, reset_counts, all_counts, diff_coun
         log(f"phase 29: (b) {mode}: launches of the march {march}, of the other "
             f"kernels {got}")
         assert not any(got.values()), got
+        # the single call takes the pair path on the card (one pair build, the
+        # pair fold), the shards the dense rows (a dense pair list, the fold)
+        dense_rows, pair_rows = (0, 1) if mesh is None else (calls, 0)
         assert march == {"diffmarch_forward": calls if on_card else 0,
                          "diffmarch_backward": calls if on_card else 0,
                          "diffmarch_tangent": 0,
-                         "diffmarch_pairs": calls if on_card else 0,
-                         "fold_diff_forward": calls if on_card else 0,
-                         "fold_diff_backward": calls if on_card else 0}, march
+                         "diffmarch_pairs": dense_rows if on_card else 0,
+                         "fold_diff_forward": dense_rows if on_card else 0,
+                         "fold_diff_backward": dense_rows if on_card else 0,
+                         "diffpairs_build": pair_rows if on_card else 0,
+                         "diffpairs_fold_forward": pair_rows if on_card else 0,
+                         "diffpairs_fold_backward": pair_rows if on_card else 0}, march
     # each march launch of (b), the single call's and each shard's, held
     # once against the plain version
     for mode, seen in marches.items():

@@ -1402,13 +1402,14 @@ def test_fma_kernel_matches_plain(cuda, form):
 
 @pytest.mark.cuda
 def test_diffmarch_launch_counts(cuda):
-    """One forward launch a call; one backward launch under reverse mode;
-    forward mode launches the forward and its tangent instantiation; a
-    sharded call one of each a shard; the forward and the tangent each
-    launch one pair list before them, and the backward walks the
-    forward's.  The fold likewise: one ``fold_diff`` forward launch a call
-    or a shard, one backward launch under reverse mode, none under forward
-    mode (the layers carry a tangent, so the eager loop folds them)."""
+    """A call takes the pair path: one pair build (``diffpairs_build``),
+    one march forward launch over its rows, one pair fold forward launch,
+    and under reverse mode one backward launch of each; no dense pair list
+    and no dense fold.  Forward mode takes the dense rows: the forward and
+    its tangent instantiation, each after a dense pair list, and the eager
+    fold (the layers carry a tangent).  A sharded call takes the dense rows
+    a shard: one march forward and backward, one dense pair list, one
+    ``fold_diff`` forward and backward a shard."""
     import torch.autograd.forward_ad as fwAD
 
     from amrvolumerenderer_torch import diff
@@ -1416,7 +1417,8 @@ def test_diffmarch_launch_counts(cuda):
     from amrvolumerenderer_torch.parallel import directsend as ds
 
     fns = (dm.diffmarch_forward, dm.diffmarch_backward, dm.diffmarch_tangent,
-           dm.diffmarch_pairs, comp.fold_diff_forward, comp.fold_diff_backward)
+           dm.diffmarch_pairs, comp.fold_diff_forward, comp.fold_diff_backward,
+           dm.diffpairs_build, comp.diffpairs_fold_forward, comp.diffpairs_fold_backward)
 
     def counted(fn):
         for f in fns:
@@ -1428,10 +1430,11 @@ def test_diffmarch_launch_counts(cuda):
     args, static = diff_scene("test_diff")
     targs = list(diff.args_from_arrays(args, cuda))
     with torch.no_grad():
-        assert counted(lambda: diff.render_image_diff(*targs, **static)) == [1, 0, 0, 1, 1, 0]
+        assert counted(lambda: diff.render_image_diff(*targs, **static)) == [
+            1, 0, 0, 0, 0, 0, 1, 1, 0]
     lut = targs[4].clone().requires_grad_(True)
     assert counted(lambda: diff.render_image_diff(
-        *targs[:4], lut, *targs[5:], **static).sum().backward()) == [1, 1, 0, 1, 1, 1]
+        *targs[:4], lut, *targs[5:], **static).sum().backward()) == [1, 1, 0, 0, 0, 0, 1, 1, 1]
 
     def forward_mode():
         with fwAD.dual_level():
@@ -1439,12 +1442,13 @@ def test_diffmarch_launch_counts(cuda):
             out = diff.render_image_diff(*targs[:6], eye, *targs[7:], **static)
             assert float(fwAD.unpack_dual(out).tangent.abs().max()) > 0.0
 
-    assert counted(forward_mode) == [1, 0, 1, 2, 0, 0]
+    assert counted(forward_mode) == [1, 0, 1, 2, 0, 0, 0, 0, 0]
     bargs, bstatic = sharded_diff_scene(cuda)
     data = bargs[0].clone().requires_grad_(True)
     mesh = ds.make_mesh(4, "cuda")
     assert counted(lambda: diff.render_image_diff(
-        data, *bargs[1:], mesh=mesh, **bstatic).mean().backward()) == [4, 4, 0, 4, 4, 4]
+        data, *bargs[1:], mesh=mesh, **bstatic).mean().backward()) == [
+        4, 4, 0, 4, 4, 4, 0, 0, 0]
 
 
 @pytest.mark.cuda
@@ -1454,7 +1458,7 @@ def test_diff_fitting_step_replays_as_cuda_graph(cuda):
     warm-up steps on a side stream and replayed three times, against the
     same steps run eagerly: losses and parameters at 1e-5 (the backward's
     atomics add in another order each run); the loss falls.  The capture
-    holds one launch of each fold kernel."""
+    holds one pair build and one launch of each pair fold kernel."""
     from amrvolumerenderer_torch import diff
 
     args, static = diff_scene("test_diff")
@@ -1493,11 +1497,13 @@ def test_diff_fitting_step_replays_as_cuda_graph(cuda):
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     opt_g.zero_grad(set_to_none=True)
-    folds = (comp.fold_diff_forward.launches, comp.fold_diff_backward.launches)
+    from amrvolumerenderer_torch.ops import diffmarch as dm
+
+    counters = (dm.diffpairs_build, comp.diffpairs_fold_forward, comp.diffpairs_fold_backward)
+    folds = [f.launches for f in counters]
     with torch.cuda.graph(graph):
         loss = step_g()
-    assert (comp.fold_diff_forward.launches, comp.fold_diff_backward.launches) == (
-        folds[0] + 1, folds[1] + 1)
+    assert [f.launches for f in counters] == [n + 1 for n in folds]
     for _ in range(3):
         graph.replay()
         graphed.append(float(loss))
@@ -1768,3 +1774,384 @@ def test_sharded_diff_matches_cpu_mesh(cuda, num, shards):
     terms = camera_terms(tuple(a.numpy() for a in args), static, w, 6)
     for ref in (cpu[2], single[2]):
         assert np.all(np.abs(got[2] - ref) <= 1e-4 * terms), (got[2], ref, terms)
+
+
+# ---- the pair path: diff.render_image_pairs on the card ----------------------
+
+from test_torch_diff_pairs import BOXES, VIEWS, build, fold_rows, program_args  # noqa: E402
+
+
+def pair_scene(name, dev):
+    """(args on ``dev``, static): a ``diff_scene``, or the 64-brick
+    turbulence field of tests/test_torch_diff_pairs.py seen from view
+    ``turbulence<k>``."""
+    from amrvolumerenderer_torch import diff
+
+    if name.startswith("turbulence"):
+        args, static = program_args(BOXES, VIEWS[int(name[-1])])
+        return [a.to(dev) for a in args], static
+    args, static = diff_scene(name)
+    return list(diff.args_from_arrays(args, dev)), static
+
+
+def built_with_inputs(args, static):
+    """The pair list ``render_image_pairs`` builds and what it built it
+    from: ``(pairs, (eye, directions, bmin, bmax, eps, order))``."""
+    from amrvolumerenderer_torch import diff
+    from amrvolumerenderer_torch.ops import diffmarch as dm
+
+    seen, inner = [], dm.diffpairs_build
+    dm.diffpairs_build = lambda *a: seen.append((inner(*a), a)) or seen[-1][0]
+    try:
+        with torch.no_grad():
+            diff.render_image_pairs(*args, **static)
+    finally:
+        dm.diffpairs_build = inner
+    (case,) = seen
+    return case
+
+
+def pairs_by_key(pairs, num_pixels):
+    """A list's pairs sorted by (brick, pixel): keys, d0, tmax (on the
+    CPU), and each pixel's bricks in fold order, -1 padded."""
+    total = int(pairs.total)
+    brick, pixel = pairs.brick[:total].long().cpu(), pairs.pixel[:total].long().cpu()
+    key = brick * num_pixels + pixel
+    at = torch.argsort(key)
+    count, start = pairs.pixel_count.long().cpu(), pairs.pixel_start.long().cpu()
+    most = int(count.max()) if count.numel() else 0
+    folds = torch.full((num_pixels, max(most, 1)), -1, dtype=torch.long)
+    for s in range(most):
+        on = count > s
+        folds[on, s] = brick[pairs.fold_index.long().cpu()[start[on] + s]]
+    return key[at], pairs.d0[:total].cpu()[at], pairs.tmax[:total].cpu()[at], folds
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["test_diff", "r2", "contention", "turbulence0",
+                                  "turbulence2"])
+def test_diffpairs_build_kernel_matches_plain(cuda, name):
+    """``diffpairs_build_kernel`` against ``diffpairs_build_reference`` on
+    the card and on the CPU, on the inputs ``render_image_pairs`` hands it:
+    the same pairs, each pair's d0 and tmax bit for bit, each brick's and
+    each pixel's count, each tile's runs, each pixel's bricks in fold
+    order; and the kernel's own layout: every run one brick in one tile in
+    pixel order, the pixels' slots tiling the list."""
+    from amrvolumerenderer_torch.ops import diffmarch as dm
+
+    args, static = pair_scene(name, cuda)
+    got, inputs = built_with_inputs(args, static)
+    num_pixels = inputs[1].shape[0]
+    total = int(got.total)
+    assert total > 0
+    for ref in (dm.diffpairs_build_reference(*inputs),
+                dm.diffpairs_build_reference(*(t.cpu() for t in inputs))):
+        assert int(ref.total) == total
+        for a, b in zip(pairs_by_key(got, num_pixels), pairs_by_key(ref, num_pixels)):
+            assert same_bits(a, b) if a.dtype == torch.float32 else torch.equal(a, b)
+        for field in ("pixel_count", "run_cnt", "brick_count"):
+            assert torch.equal(getattr(got, field).cpu(), getattr(ref, field).cpu()), field
+    tile = dm.tile_pixels(num_pixels)
+    brick, pixel = got.brick[:total].long().cpu(), got.pixel[:total].long().cpu()
+    covered = torch.zeros(total, dtype=torch.long)
+    run_off, run_cnt = got.run_off.long().cpu(), got.run_cnt.long().cpu()
+    for b, t in zip(*run_cnt.nonzero(as_tuple=True)):
+        q = torch.arange(int(run_off[b, t]), int(run_off[b, t] + run_cnt[b, t]))
+        covered[q] += 1
+        assert bool((brick[q] == b).all()) and bool((pixel[q] // tile == t).all())
+        assert bool((pixel[q][1:] > pixel[q][:-1]).all())
+    assert bool((covered == 1).all())
+    slots = torch.zeros(total, dtype=torch.long)
+    count, start = got.pixel_count.long().cpu(), got.pixel_start.long().cpu()
+    for p in count.nonzero()[:, 0].tolist():
+        slots[start[p]:start[p] + count[p]] += 1
+    assert bool((slots == 1).all())
+    assert torch.equal(torch.sort(got.fold_index[:total].long().cpu())[0], torch.arange(total))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1])
+def test_diffpairs_fold_kernels_match_plain(cuda, seed):
+    """``diffpairs_fold_forward_kernel`` (both instantiations) and
+    ``diffpairs_fold_backward_kernel`` against their plain versions on the
+    card, bit for bit, and against the dense fold of the clipped, masked
+    layers on the card (``comp.fold_diff`` and the clip's autograd): the
+    image and each pair's row gradient bit for bit."""
+    from amrvolumerenderer_torch import diff
+    from amrvolumerenderer_torch.ops import diffmarch as dm
+
+    raw, hit, order, rows, index = fold_rows(seed=seed)
+    raw, hit, order, rows = raw.to(cuda), hit.to(cuda), order.to(cuda), rows.to(cuda)
+    fold_index, start, count = (t.to(cuda) for t in index)
+    got = comp.diffpairs_fold_forward(rows, fold_index, start, count, keep=True)
+    ref = comp.diffpairs_fold_forward_reference(rows, fold_index, start, count, keep=True)
+    assert all(same_bits(a, b) for a, b in zip(got, ref))
+    assert same_bits(comp.diffpairs_fold_forward(rows, fold_index, start, count)[0], got[0])
+    w = torch.from_numpy(np.random.default_rng(9).uniform(-1, 1, (raw.shape[1], 4))
+                         .astype(np.float32)).to(cuda)
+    g = comp.diffpairs_fold_backward(w, rows, fold_index, start, count, *got[1:])
+    assert same_bits(g, comp.diffpairs_fold_backward_reference(w, rows, fold_index, start,
+                                                               count, *ref[1:]))
+    dense = raw.clone().requires_grad_(True)
+    image = diff.composite_layers_diff(
+        torch.where(hit[..., None], dm._clip(dense, 0.0, 1.0), 0.0), order)
+    (image * w).sum().backward()
+    assert same_bits(got[0], image.detach())
+    ranks, pix = hit[order].nonzero(as_tuple=True)
+    assert same_bits(g, dense.grad[order[ranks], pix])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["test_diff", "log", "r2", "contention", "turbulence0"])
+def test_pair_march_kernels_match_plain(cuda, name):
+    """The march kernels over a pair list's rows against
+    ``march_pairs_forward_reference`` / ``march_pairs_backward_reference``
+    on the card: the forward bit for bit on every pair, the backward of
+    every differentiable field at 1e-4 of its scale (atomics)."""
+    from amrvolumerenderer_torch import diff
+    from amrvolumerenderer_torch.ops import diffmarch as dm
+
+    args, static = pair_scene(name, cuda)
+    seen, inner = [], dm.march_pairs
+    dm.march_pairs = lambda m, pairs, cfg: seen.append((m, pairs, cfg)) or inner(m, pairs, cfg)
+    try:
+        with torch.no_grad():
+            diff.render_image_pairs(*args, **static)
+    finally:
+        dm.march_pairs = inner
+    ((m, pairs, cfg),) = seen
+    total = int(pairs.total)
+    with torch.no_grad():
+        out, ckpt = dm.diffmarch_forward_pairs(m, pairs, cfg, keep=True)
+        want = dm.march_pairs_forward_reference(m, pairs, cfg)
+        assert same_bits(out[:total], want[:total])
+        grad = torch.from_numpy(np.random.default_rng(3).uniform(
+            -1, 1, size=(pairs.brick.shape[0], 4)).astype(np.float32)).to(cuda)
+        got = dm.diffmarch_backward_pairs(m, pairs, cfg, grad, ckpt)
+        ref = dm.march_pairs_backward_reference(m, pairs, cfg, grad)
+    got[2], ref[2] = got[2][:total], ref[2][:total]  # d0: the rows of a pair
+    assert_rel_close(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["test_diff", "saturating", "r2", "turbulence1"])
+def test_pair_path_is_the_dense_path_on_the_card(cuda, name):
+    """``render_image_diff`` on the card (the pair path) against the dense
+    layers on the card (``render_layers_diff`` and the fold): the image bit
+    for bit, the volume's and the LUT's gradients at 1e-4 of their scale
+    (atomics add in another order)."""
+    from amrvolumerenderer_torch import diff
+
+    args, static = pair_scene(name, cuda)
+    n = static["width"] * static["height"]
+    w = torch.from_numpy(np.random.default_rng(7).uniform(0, 1, size=(n, 4))
+                         .astype(np.float32)).to(cuda)
+
+    def run(dense):
+        targs = list(args)
+        for i in (0, 4):
+            targs[i] = targs[i].clone().requires_grad_(True)
+        if dense:
+            colors, _ = diff.render_layers_diff(*targs, **static)
+            order = diff.default_order(targs[1], targs[2], targs[6], targs[7])
+            image = diff.composite_layers_diff(colors, order)
+        else:
+            image = diff.render_image_diff(*targs, **static)
+        (image * w).sum().backward()
+        return image.detach(), [targs[i].grad for i in (0, 4)]
+
+    image, grads = run(False)
+    want_image, want = run(True)
+    assert float(want_image[:, 3].max()) > 0.0
+    assert same_bits(image, want_image)
+    assert_rel_close(grads, want)
+
+
+@pytest.mark.cuda
+def test_pair_path_launches_in_a_captured_step(cuda):
+    """A fitting step over three views captured as one CUDA graph after two
+    eager warm-up steps: one pair build, one march forward and backward and
+    one pair fold forward and backward a view, no dense pair list and no
+    dense fold; three replays give the eager steps' losses at 1e-5."""
+    from amrvolumerenderer_torch import diff
+    from amrvolumerenderer_torch.ops import diffmarch as dm
+
+    views = []
+    for cam in VIEWS[:3]:
+        args, static = program_args(BOXES, cam)
+        args = [a.to(cuda) for a in args]
+        args[10] = float(cam.fov_y_degrees)
+        with torch.no_grad():
+            views.append((args, static, diff.render_image_diff(*args, **static)))
+
+    def make():
+        param = torch.full_like(views[0][0][0], 0.3).requires_grad_(True)
+        opt = torch.optim.Adam([param], lr=0.05, capturable=True)
+
+        def step():
+            loss = sum(torch.mean((diff.render_image_diff(param, *a[1:], **s) - t) ** 2)
+                       for a, s, t in views)
+            loss.backward()
+            opt.step()
+            return loss.detach()
+
+        return opt, step
+
+    opt_e, step_e = make()
+    eager = []
+    for _ in range(5):
+        opt_e.zero_grad(set_to_none=True)
+        eager.append(float(step_e()))
+    opt_g, step_g = make()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graphed = []
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            opt_g.zero_grad(set_to_none=True)
+            graphed.append(float(step_g()))
+    torch.cuda.current_stream().wait_stream(side)
+    fns = (dm.diffpairs_build, dm.diffmarch_forward, dm.diffmarch_backward,
+           comp.diffpairs_fold_forward, comp.diffpairs_fold_backward, dm.diffmarch_pairs,
+           comp.fold_diff_forward, comp.fold_diff_backward)
+    before = [f.launches for f in fns]
+    graph = torch.cuda.CUDAGraph()
+    opt_g.zero_grad(set_to_none=True)
+    with torch.cuda.graph(graph):
+        loss = step_g()
+    assert [f.launches - b for f, b in zip(fns, before)] == [3, 3, 3, 3, 3, 0, 0, 0]
+    for _ in range(3):
+        graph.replay()
+        graphed.append(float(loss))
+    np.testing.assert_allclose(graphed, eager, rtol=1e-5)
+    assert eager[-1] < eager[0]
+
+
+@pytest.mark.cuda
+def test_pair_list_overflow_and_growth(cuda):
+    """A list built smaller than the view's pairs writes none of an
+    overflowing tile's pairs, marks its pixels -1 and still counts every
+    pair; the pair fold makes those pixels NaN.  Outside a capture
+    ``diffpairs_build`` reads the count and builds again larger (two
+    launches), and keeps that capacity for its sizes."""
+    from amrvolumerenderer_torch.ops import diffmarch as dm
+
+    args, static = pair_scene("turbulence0", cuda)
+    full, inputs = built_with_inputs(args, static)
+    total = int(full.total)
+    small = dm._build_launch(*inputs, total // 3)
+    assert int(small.total) == total
+    over = small.pixel_count < 0
+    assert bool(over.any()) and int(small.pixel_count[~over].sum()) <= total // 3
+    raw = torch.rand((small.brick.shape[0], 4), device=cuda)
+    image = comp.diffpairs_fold_forward(raw, small.fold_index, small.pixel_start,
+                                        small.pixel_count)[0]
+    assert bool(torch.isnan(image[over]).all()) and not bool(torch.isnan(image[~over]).any())
+    key = (str(cuda), inputs[2].shape[0], inputs[1].shape[0])
+    dm._capacity[key] = 16
+    launches = dm.diffpairs_build.launches
+    grown = dm.diffpairs_build(*inputs)
+    assert dm.diffpairs_build.launches == launches + 2
+    assert int(grown.total) == total <= grown.brick.shape[0] == dm._capacity[key]
+    assert bool((grown.pixel_count >= 0).all())
+
+
+@pytest.mark.cuda
+def test_216_brick_view_keeps_pair_sized_state(cuda):
+    """A view of the turbulence field at 192^3 in 216 bricks of 32^3 at
+    512^2 (the fitting cell's): forward and backward of the pair path peak
+    under 1 GiB of device memory, a tenth of the dense layers' peak or
+    less; no tensor saved for the backward has [B, H*W] elements; the
+    image equals the dense path's bit for bit."""
+    from amrvolumerenderer_torch import diff
+    from portbench import scenes
+
+    boxes = scenes.turbulence_scene({"domain": 192, "brick": 32}, 11, cuda).boxes
+    assert len(boxes) == 216
+    cam = scenes.fit_views({"views": 36, "radius": 2.5, "fov_y_degrees": 45.0}, 11)[0]
+    host = [(b.data.cpu().numpy(), b.min_corner, b.max_corner) for b in boxes]
+    camera = CameraParameters(eye=cam.eye, look_at=cam.look_at, up=cam.up,
+                              fov_y_degrees=cam.fov_y_degrees)
+    args, static = diff.prepare_scene(host, camera, width=512, height=512, device=cuda)
+    args = list(args)
+    args[10] = float(cam.fov_y_degrees)
+    bricks, pixels = len(boxes), 512 * 512
+    with torch.no_grad():
+        diff.render_image_diff(*args, **static)  # the list's capacity for these sizes
+
+    def peak(fn):
+        data = args[0].clone().requires_grad_(True)
+        saved = []
+
+        def pack(t):
+            saved.append(tuple(t.shape))
+            return t
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            image = fn(data)
+        image.sum().backward()
+        torch.cuda.synchronize()
+        return image.detach(), torch.cuda.max_memory_allocated() - start, saved
+
+    def dense(data):
+        colors, _ = diff.render_layers_diff(data, *args[1:], **static)
+        order = diff.default_order(args[1], args[2], args[6], args[7])
+        return diff.composite_layers_diff(colors, order)
+
+    image, pair_peak, saved = peak(lambda d: diff.render_image_diff(d, *args[1:], **static))
+    want, dense_peak, _ = peak(dense)
+    print(f"216 bricks at 512^2: pair path peak {pair_peak / 2 ** 20:.1f} MiB, dense "
+          f"{dense_peak / 2 ** 20:.1f} MiB; saved {sorted(set(saved))}")
+    assert same_bits(image, want) and float(image[:, 3].max()) > 0.0
+    assert pair_peak < 2 ** 30 and pair_peak * 10 <= dense_peak
+    assert all(int(np.prod(s)) < bricks * pixels for s in saved), saved
+
+
+BUILD_STOP = """
+import os, sys
+import torch
+from amrvolumerenderer_torch.ops import diffmarch as dm
+
+value = int(sys.argv[1])
+dev = torch.device("cuda")
+g = torch.Generator().manual_seed(0)
+bmin = torch.rand((8, 3), generator=g).to(dev)
+inputs = [torch.tensor([0.5, 0.5, 3.0], device=dev),
+          torch.nn.functional.normalize(torch.randn((64, 3), generator=g), dim=1).to(dev),
+          bmin, bmin + 0.5, torch.full((8,), 1e-4, device=dev)]
+order = torch.arange(8, device=dev)
+dm._build_launch(*inputs, order, 512)
+torch.cuda.synchronize()
+print("a permutation builds", flush=True)
+order[5] = 0 if value < 0 else value
+try:
+    dm._build_launch(*inputs, order, 512)
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    print("stopped:", str(e).splitlines()[0], flush=True)
+    os._exit(3)
+print("ran to its end", flush=True)
+os._exit(0)
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("value", [-1, 8], ids=["repeat", "out_of_range"])
+def test_diffpairs_build_stops_on_an_order_that_is_no_permutation(cuda, value):
+    """An order that repeats a brick or names one out of range stops the
+    pair build (each block checks it, as the fold kernels do): the launch
+    traps and the next synchronisation raises, in a process of its own."""
+    import subprocess
+    import sys
+
+    tests = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([os.path.dirname(tests), tests]))
+    env["CUDA_VISIBLE_DEVICES"] = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+    proc = subprocess.run([sys.executable, "-c", BUILD_STOP, str(value)], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert "a permutation builds" in proc.stdout, proc.stderr
+    assert proc.returncode == 3 and "stopped:" in proc.stdout, (proc.returncode, proc.stdout,
+                                                                proc.stderr[-2000:])

@@ -34,6 +34,7 @@ import torch.autograd.forward_ad as fwAD
 from amrvolumerenderer_tpu import diff as jdiff
 from amrvolumerenderer_torch import diff
 from amrvolumerenderer_torch.ops import diffmarch as dm
+from amrvolumerenderer_torch.ops import numerics
 
 from test_diff import STATIC, smooth_lut
 from test_torch_diff import (CASES, GRAD_REL, assert_grads_close, jax_grads, np_args,
@@ -114,13 +115,22 @@ def parallel_misses():
     return captured(tuple(a.numpy() for a in args), static)
 
 
+def contention():
+    """The contention scene's march inputs from the ray set-up under
+    ``RSQRT_SEED``, the card's, whose march the scene was made for.  (From
+    another host estimate, an AMD EPYC's, the cell size's gradient, a sum
+    of cancelling terms, differs from autograd's by 1.2e-4 of its scale.)"""
+    with numerics.seed_rsqrt():
+        return captured(*diff_scene("contention"))
+
+
 SCENES = {
     "random": lambda: captured(*CASES["random"]),
     "log": lambda: captured(*CASES["log-normalize-clip"]),
     "saturating": lambda: captured(*CASES["saturating"]),
     "ties": tie_case,
     "parallel-misses": parallel_misses,
-    "contention": lambda: captured(*diff_scene("contention")),
+    "contention": lambda: contention(),
 }
 
 

@@ -35,6 +35,7 @@ from amrvolumerenderer_torch.camera import auto_orbit_camera
 from amrvolumerenderer_torch.fast_scene import FastSceneRenderer
 from amrvolumerenderer_torch.image import color_to_byte
 from amrvolumerenderer_torch.ops import composite as comp
+from amrvolumerenderer_torch.ops import numerics
 from amrvolumerenderer_torch.parallel import directsend as ds
 from amrvolumerenderer_torch.parallel import persistent as pp
 from amrvolumerenderer_torch.parallel.persistent import MultiChipSceneRenderer
@@ -252,13 +253,15 @@ def test_morton_order_matches_jax():
 @pytest.mark.parametrize("row,force", [("persistent-8dev-preblend", True),
                                        ("persistent-8dev-plain", False)])
 def test_golden_rows(scenes, row, force):
-    """As scripts/generate_golden_manifest.py:78-92 renders them."""
+    """As scripts/generate_golden_manifest.py:78-92 renders them, under
+    the rsqrt model the rows were rendered with."""
     r = MultiChipSceneRenderer(scenes["golden"][1],
                                RenderParameters(width=48, height=48),
                                num_devices=8, device="cpu")
     r._use_preblend = lambda rmax: force
-    assert_matches(r.render(auto_orbit_camera(r.bounds), overlay=False),
-                   np.load(GOLDEN)[row])
+    with numerics.seed_rsqrt():
+        frame = r.render(auto_orbit_camera(r.bounds), overlay=False)
+    assert_matches(frame, np.load(GOLDEN)[row])
 
 
 # ---- mirrors of tests/test_persistent_multichip.py ---------------------------

@@ -235,13 +235,20 @@ def test_marks_pair_up_and_partition_a_replay(cuda, spans_off):
     graph, _ = captured_step(cuda, spans=True)
     events = replay_events(graph)
     out = stages.split(events, 0, 2 ** 63 - 1, timers.parse_mark)
-    assert out.unpaired == 0 and out.marks == 2 * 3 * 6 * 2
+    # the card's pair path opens all seven spans a view, diff.pairs too
+    assert out.unpaired == 0 and out.marks == 2 * 3 * 7 * 2
     assert set(out.seconds) == set(timers.SPANS) | {stages.OUTSIDE}
     for name, start, _ in events:
         if "diffmarch_forward_kernel" in name or "diffmarch_pairs_kernel" in name:
             assert out.stage_at(start) == "diff.march"
         elif "diffmarch_backward_kernel" in name:
             assert out.stage_at(start) == "diff.march.backward"
+        elif "diffpairs_build_kernel" in name:
+            assert out.stage_at(start) == "diff.pairs"
+        elif "diffpairs_fold_forward_kernel" in name:
+            assert out.stage_at(start) == "diff.fold"
+        elif "diffpairs_fold_backward_kernel" in name:
+            assert out.stage_at(start) == "diff.fold.backward"
     work = sum(d for n, _, d in events if timers.parse_mark(n) is None) * 1e-9
     assert sum(out.seconds.values()) == pytest.approx(work, rel=1e-9)
 
@@ -256,7 +263,7 @@ def test_capture_with_spans_off_holds_no_mark(cuda, spans_off):
     names_on = [n for n, _, _ in replay_events(on, 1)]
     assert not [n for n in names_off if timers.MARK in n]
     assert [n for n in names_on if timers.parse_mark(n) is None] == names_off
-    assert len(names_on) - len(names_off) == 3 * 6 * 2
+    assert len(names_on) - len(names_off) == 3 * 7 * 2
 
 
 @pytest.mark.cuda
